@@ -6,9 +6,10 @@ the originals by the tests.  Everything runs in f64 on an explicit
 ``device``: a CPU tensor runs the plain torch versions, a CUDA tensor the
 hand-written CUDA kernels of ``csrc/`` (built with ``nvcc`` at first use).
 
-This first slice covers the batch integrator's ``step`` and
+The port covers the batch integrator's ``step`` and
 ``propagate_until``/``propagate_for`` for tapes made of sum, mul, div,
-sqrt and pow — the outer-Solar-System N-body workload.
+sqrt and pow: the outer-Solar-System N-body workload (kernels B1, B2) and
+huge instance-regular tapes such as mascons (kernel B3).
 """
 
 from .expr.core import (  # noqa: F401

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
+``nvcc`` compiles every ``csrc/*.cu`` file, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, at first use, into ``build/heyoka_tpu_torch/`` at the
 root of the checkout (listed in ``.gitignore``).  The library's file name
 carries a hash of the sources and flags, so an edit rebuilds and an
@@ -25,12 +26,14 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "heyoka_tpu_torch"
 
-#: ``-fmad=false`` keeps nvcc from contracting ``a*b - c`` into an FMA, so
-#: the compensated sums and the convolutions round like their plain torch
-#: twins; ``-Xptxas -v`` writes registers and spills into the build log
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: compile flags: ``-fmad=false`` keeps nvcc from contracting ``a*b - c``
+#: into an FMA, so the compensated sums and the convolutions round like
+#: their plain torch twins; ``-Xptxas -v`` writes registers and spills into
+#: the build log
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,6 +45,8 @@ SIGNATURES = {
     # itab, dtab, state, pars, aux, auxi, tc, state_out, of, oi,
     # B, n_steps, high_accuracy, stream
     "hy_prop_f64": (_P,) * 10 + (_I, _I, _I, _P),
+    # itab, dtab, state, pars, t, H, C, V, out, norms, B, stream
+    "hy_jet_rolled_f64": (_P,) * 10 + (_I, _P),
 }
 
 
@@ -71,22 +76,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the current sources are already built;
-    return the library's path.  The compiler's output goes beside it
+    return the library's path.  The compilers' output goes beside it
     (``.log``)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{out.name}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    objs, jobs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        objs.append(BUILD_DIR / f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[-1]), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, err = [], ""
+    for cmd, p in jobs:
+        so, se = p.communicate()
+        log.append(" ".join(cmd) + "\n" + so + se)
+        if p.returncode != 0:
+            err += f"nvcc failed with exit code {p.returncode}:\n{se}"
+    if not err:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            err = f"linking failed with exit code {r.returncode}:\n{r.stderr}"
+    out.with_suffix(".log").write_text("".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if err:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {r.returncode}:\n{r.stderr}")
+        raise RuntimeError(err)
     os.replace(tmp, out)
     return out
 

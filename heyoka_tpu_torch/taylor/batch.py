@@ -11,7 +11,10 @@ Every tensor lives on the ``device`` given to the constructor.  On a CUDA
 device ``step`` launches kernel B2 and ``propagate_until`` kernel B1 (with
 B2 for the exact landing steps); on the CPU the plain twins run.  A tape
 with a time column propagates through the per-step driver, since kernel B1
-carries no time.  The public getters return numpy arrays, like the JAX
+carries no time.  A huge tape (``ROLLED_MIN_WIDTH`` columns or more) takes
+the rolled jet, kernel B3, for ``step`` and for every step of the per-step
+driver, as the JAX package routes it (``compact_flat.py:458-475``,
+``fused.py:81-83``).  The public getters return numpy arrays, like the JAX
 class's.
 """
 
@@ -30,11 +33,19 @@ from . import stepper as _st
 from .compact import build_plan
 from .compact_flat import make_batched_step_flat, make_propagate_until_flat
 from .fused import make_propagate_until_fused
-from .jet_kernels import JetTape
+from .jet_kernels import JetTape, jet
+from .jet_rolled import RolledTape, jet_rolled
 from .outcome import TaylorOutcome
 
 #: lane steps per launch of kernel B1 in ``propagate_until``
 CHUNK_STEPS = 64
+
+#: tapes with at least this many columns take the rolled jet (kernel B3)
+#: and the per-step driver.  On an H100 that route beat kernels B1/B2 at
+#: every width measured, the outer-Solar-System tape (381 columns)
+#: included (PERF.md); the threshold sits just above that tape, which
+#: keeps the north-star path on B1 until a change of its own moves it.
+ROLLED_MIN_WIDTH = 512
 
 
 def _normalize_sys(sys_):
@@ -59,7 +70,9 @@ class TaylorAdaptiveBatch:
         self._tape: Tape = taylor_decompose_sys(sys)
         plan = build_plan(self._tape, self._order)
         check_supported(plan)  # UnsupportedKernelOp for other ops
-        self._jtape = JetTape(plan_to_arrays(plan), self._device)
+        self._rolled = plan.width >= ROLLED_MIN_WIDTH
+        self._jtape = (RolledTape if self._rolled else JetTape)(
+            plan_to_arrays(plan), self._device)
 
         n_eq = self._tape.n_eq
         state = np.asarray(state, dtype=np.float64)
@@ -85,16 +98,17 @@ class TaylorAdaptiveBatch:
         self._last_res = [(TaylorOutcome.success, 0.0)] * B
         self._last_prop_res = None
 
+        jet_fn = jet_rolled if self._rolled else jet
         self._step_fn = make_batched_step_flat(
-            self._jtape, high_accuracy=high_accuracy)
-        if self._jtape.time_col is None:
+            self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
+        if self._jtape.time_col is None and not self._rolled:
             self._pu_fn = make_propagate_until_fused(
                 self._jtape, high_accuracy=high_accuracy,
                 chunk_steps=CHUNK_STEPS)
             self._pu_engine = "fused"
         else:
             self._pu_fn = make_propagate_until_flat(
-                self._jtape, high_accuracy=high_accuracy)
+                self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
             self._pu_engine = "flat"
 
     # -- introspection ---------------------------------------------------------
@@ -102,15 +116,20 @@ class TaylorAdaptiveBatch:
     def engine_report(self) -> dict:
         """Which engine and kernels this integrator runs: ``device``,
         ``jet`` (kernel B2 ``hy_jet_f64`` on CUDA, ``jet_plain`` on the
-        CPU), ``propagate_engine`` (``"fused"``: chunks of kernel B1 plus
-        the exact landing; ``"flat"``: the per-step driver) and ``prop``
-        (``hy_prop_f64`` / ``prop_plain``, None without the fused
-        engine)."""
+        CPU; for a huge tape kernel B3 ``hy_jet_rolled_f64`` /
+        ``jet_rolled_plain``), ``propagate_engine`` (``"fused"``: chunks of
+        kernel B1 plus the exact landing; ``"flat"``: the per-step driver)
+        and ``prop`` (``hy_prop_f64`` / ``prop_plain``, None without the
+        fused engine)."""
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
+        if self._rolled:
+            jet_name = "hy_jet_rolled_f64" if cuda else "jet_rolled_plain"
+        else:
+            jet_name = "hy_jet_f64" if cuda else "jet_plain"
         return dict(
             device=str(self._device),
-            jet="hy_jet_f64" if cuda else "jet_plain",
+            jet=jet_name,
             propagate_engine=self._pu_engine,
             prop=("hy_prop_f64" if cuda else "prop_plain") if fused
             else None,

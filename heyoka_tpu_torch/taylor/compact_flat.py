@@ -5,9 +5,10 @@ The counterpart of ``heyoka_tpu/taylor/compact_flat.py``:
 ``make_batched_step_flat`` (:168), ``make_propagate_until_flat`` (:1157)
 and its lockstep loop ``_pu_while`` (:1214).  The JAX step evaluates the
 jet in XLA (or in a Pallas kernel) and then the step size and the state
-update; here the jet is ``jet_kernels.jet`` (kernel B2 on a CUDA tensor,
-its plain twin on a CPU tensor) and the rest is plain f64 torch on the
-same device.  There is one engine: the TPU layouts, the staged buffers,
+update; here the jet is the one passed in — ``jet_kernels.jet`` (kernel
+B2) or, for huge tapes, ``jet_rolled.jet_rolled`` (kernel B3), each
+launching its kernel on a CUDA tensor and running its plain twin on a CPU
+tensor — and the rest is plain f64 torch on the same device.  There is one engine: the TPU layouts, the staged buffers,
 the mixed-precision phase and the coefficient scaling have no
 counterpart.
 """
@@ -22,10 +23,12 @@ from .outcome import TaylorOutcome
 from .stepper import ceval_update, h_from_norms, horner_update
 
 
-def make_batched_step_flat(tape: JetTape, *, high_accuracy: bool = True):
-    """Whole-batch adaptive Taylor step: ``step(states (B, n), pars (B, p),
-    t (B,), max_dt (B,)) -> (new_states (B, n), h (B,), tc (B, K+1, n))``,
-    the JAX step's ``return_tc=True`` contract."""
+def make_batched_step_flat(tape: JetTape, *, high_accuracy: bool = True,
+                           jet=jet):
+    """Whole-batch adaptive Taylor step over ``jet`` (a function with the
+    contract of :func:`.jet_kernels.jet`): ``step(states (B, n), pars
+    (B, p), t (B,), max_dt (B,)) -> (new_states (B, n), h (B,), tc (B,
+    K+1, n))``, the JAX step's ``return_tc=True`` contract."""
     K, n_eq = tape.order, tape.n_eq
     update = ceval_update if high_accuracy else horner_update
 
@@ -40,13 +43,16 @@ def make_batched_step_flat(tape: JetTape, *, high_accuracy: bool = True):
     return step
 
 
-def make_propagate_until_flat(tape: JetTape, *, high_accuracy: bool = True):
-    """Lockstep propagate-until over :func:`make_batched_step_flat`:
+def make_propagate_until_flat(tape: JetTape, *, high_accuracy: bool = True,
+                              jet=jet):
+    """Lockstep propagate-until over :func:`make_batched_step_flat` with
+    ``jet``:
     ``pu(state (B, n), pars (B, p), t_hi, t_lo, target_hi, target_lo,
     max_delta_t, max_steps) -> dict`` of per-lane fields (``state``,
     ``t_hi``, ``t_lo``, ``last_h``, ``tc``, ``nsteps``, ``min_h``,
     ``max_h``, ``outcome``, ``done``)."""
-    step = make_batched_step_flat(tape, high_accuracy=high_accuracy)
+    step = make_batched_step_flat(tape, high_accuracy=high_accuracy,
+                                  jet=jet)
 
     def pu(state, pars, t_hi, t_lo, target_hi, target_lo, max_delta_t,
            max_steps):

@@ -41,7 +41,7 @@ from ..dfloat import dd_add_d
 from .stepper import ceval_update, h_from_norms, horner_update, rho_factor
 
 #: launches of each kernel; a wrapper adds one where it launches its kernel
-LAUNCHES = {"jet": 0, "prop": 0}
+LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0}
 
 #: header of the packed int32 table the kernels read (csrc/taylor_jet.cu
 #: ``enum Hdr``): sizes, then offsets of the sub-tables in ``itab`` (and of
@@ -158,28 +158,76 @@ def _pow0_plain(b, alpha: float):
     return torch.pow(b, alpha)
 
 
+def _eval0(name, alpha, hist, nargs):
+    """Order 0 of one group's columns.  ``hist(q, j0, j1)`` gives operand
+    ``q``'s coefficients of orders ``j0..j1-1`` as ``(j1 - j0, m, B)``;
+    ``q = -1`` names the group's own columns.  Shared by both twins, which
+    differ only in where the coefficients live."""
+    a0 = hist(0, 0, 1)[0]
+    if name == "sum":
+        v = a0
+        for q in range(1, nargs):
+            v = v + hist(q, 0, 1)[0]
+        return v
+    if name == "mul":
+        return a0 * hist(1, 0, 1)[0]
+    if name == "div":
+        return a0 / hist(1, 0, 1)[0]
+    if name == "sqrt":
+        return torch.sqrt(a0)
+    v = torch.empty_like(a0)
+    for al in np.unique(alpha):
+        sel = torch.as_tensor(np.flatnonzero(alpha == al), device=a0.device)
+        v[sel] = _pow0_plain(a0[sel], float(al))
+    return v
+
+
+def _eval_k(name, alpha, k: int, hist, nargs):
+    """Order ``k`` (>= 1) of one group's columns, from the lower orders
+    (``hist`` as in :func:`_eval0`)."""
+    if name == "sum":
+        v = hist(0, k, k + 1)[0]
+        for q in range(1, nargs):
+            v = v + hist(q, k, k + 1)[0]
+        return v
+    if name == "mul":
+        # sum_{j=0..k} a_j b_{k-j}
+        return (hist(0, 0, k + 1) * hist(1, 0, k + 1).flip(0)).sum(0)
+    if name == "div":
+        # (a_k - sum_{j<k} q_j b_{k-j}) / b_0
+        Q = hist(-1, 0, k)
+        Bf = hist(1, 1, k + 1).flip(0)
+        return (hist(0, k, k + 1)[0] - (Q * Bf).sum(0)) / hist(1, 0, 1)[0]
+    if name == "sqrt":
+        # (a_k - sum_{j=1..k-1} q_j q_{k-j}) / (2 q_0)
+        Q = hist(-1, 1, k)
+        return (hist(0, k, k + 1)[0] - (Q * Q.flip(0)).sum(0)) \
+            / (2.0 * hist(-1, 0, 1)[0])
+    # pow: (sum_{j<k} (alpha (k-j) - j) q_j b_{k-j}) / (k b_0)
+    Q = hist(-1, 0, k)
+    Bf = hist(0, 1, k + 1).flip(0)
+    dev = Q.device
+    j = torch.arange(k, dtype=_F64, device=dev)[:, None, None]
+    al = torch.as_tensor(alpha, device=dev)[:, None]
+    s1 = ((Q * Bf) * (k - j)).sum(0)
+    s2 = ((Q * j) * Bf).sum(0)
+    return (s1 * al - s2) / (k * hist(0, 0, 1)[0])
+
+
+def _dense_hist(tc, s, m, cols):
+    """``hist`` of one group over the dense ``(K+1, W, B)`` buffer."""
+    def hist(q, j0, j1):
+        if q < 0:
+            return tc[j0:j1, s:s + m]
+        return tc[j0:j1].index_select(1, cols[:, q])
+    return hist
+
+
 def _order0(tape: JetTape, tc):
     """Order 0 of every group column, in level order, in place."""
-    row = tc[0]
     for name, s, m, cols, alpha in tape.groups:
-        a0 = row.index_select(0, cols[:, 0])
-        if name == "sum":
-            v = a0
-            for q in range(1, cols.shape[1]):
-                v = v + row.index_select(0, cols[:, q])
-        elif name == "mul":
-            v = a0 * row.index_select(0, cols[:, 1])
-        elif name == "div":
-            v = a0 / row.index_select(0, cols[:, 1])
-        elif name == "sqrt":
-            v = torch.sqrt(a0)
-        else:
-            v = torch.empty_like(a0)
-            for al in np.unique(alpha):
-                sel = torch.as_tensor(np.flatnonzero(alpha == al),
-                                      device=tc.device)
-                v[sel] = _pow0_plain(a0[sel], float(al))
-        row[s:s + m] = v
+        tc[0, s:s + m] = _eval0(name, alpha, _dense_hist(tc, s, m, cols),
+                                cols.shape[1])
 
 
 def _order_k(tape: JetTape, tc, k: int):
@@ -187,36 +235,8 @@ def _order_k(tape: JetTape, tc, k: int):
     right-hand sides at order k-1, then the groups in level order."""
     tc[k, :tape.n_eq] = tc[k - 1].index_select(0, tape.rhs) / k
     for name, s, m, cols, alpha in tape.groups:
-        if name == "sum":
-            v = tc[k].index_select(0, cols[:, 0])
-            for q in range(1, cols.shape[1]):
-                v = v + tc[k].index_select(0, cols[:, q])
-        elif name == "mul":
-            # sum_{j=0..k} a_j b_{k-j}
-            A = tc[:k + 1].index_select(1, cols[:, 0])
-            Bf = tc[:k + 1].index_select(1, cols[:, 1]).flip(0)
-            v = (A * Bf).sum(0)
-        elif name == "div":
-            # (a_k - sum_{j<k} q_j b_{k-j}) / b_0
-            Q = tc[:k, s:s + m]
-            Bf = tc[1:k + 1].index_select(1, cols[:, 1]).flip(0)
-            v = (tc[k].index_select(0, cols[:, 0]) - (Q * Bf).sum(0)) \
-                / tc[0].index_select(0, cols[:, 1])
-        elif name == "sqrt":
-            # (a_k - sum_{j=1..k-1} q_j q_{k-j}) / (2 q_0)
-            Q = tc[1:k, s:s + m]
-            v = (tc[k].index_select(0, cols[:, 0]) - (Q * Q.flip(0)).sum(0)) \
-                / (2.0 * tc[0, s:s + m])
-        else:
-            # (sum_{j<k} (alpha (k-j) - j) q_j b_{k-j}) / (k b_0)
-            Q = tc[:k, s:s + m]
-            Bf = tc[1:k + 1].index_select(1, cols[:, 0]).flip(0)
-            j = torch.arange(k, dtype=_F64, device=tc.device)[:, None, None]
-            al = torch.as_tensor(alpha, device=tc.device)[:, None]
-            s1 = ((Q * Bf) * (k - j)).sum(0)
-            s2 = ((Q * j) * Bf).sum(0)
-            v = (s1 * al - s2) / (k * tc[0].index_select(0, cols[:, 0]))
-        tc[k, s:s + m] = v
+        tc[k, s:s + m] = _eval_k(name, alpha, k,
+                                 _dense_hist(tc, s, m, cols), cols.shape[1])
 
 
 def _seed_plain(tape: JetTape, state, pars, t):

@@ -13,7 +13,9 @@ import torch
 
 import heyoka_tpu_torch as ht
 from heyoka_tpu_torch.expr.decompose import taylor_decompose_sys
+from heyoka_tpu_torch.taylor import batch as tbatch
 from heyoka_tpu_torch.taylor import jet_kernels as jk
+from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 
 MASSES = [1.0, 1e-3, 2e-3]
@@ -25,17 +27,39 @@ def _nbody3():
     return ht.models.nbody(3, masses=MASSES)
 
 
-def _handbuilt():
-    # div, sqrt, pow, two parameters and the time
+def _handbuilt(mixed=False):
+    # div, sqrt, pow, two parameters and the time; ``mixed`` adds a second
+    # exponent at the level of the ** -1.5 (one pow group holding both)
     x, y, z = ht.make_vars("x", "y", "z")
+    zr = (x * x + z * z + 2.0) ** -1.5 - ht.par[1] * z
+    if mixed:
+        zr = zr + 0.01 * (x * x + y * y + 1.0) ** 2.5
     return [
         (x, ht.par[0] * y / (1.0 + x * x) + ht.sqrt(1.5 + y * y)),
         (y, -x / ht.sqrt(x * x + y * y + 0.3) + 0.1 * ht.time_ * z),
-        (z, (x * x + z * z + 2.0) ** -1.5 - ht.par[1] * z),
+        (z, zr),
     ]
 
 
-SYSTEMS = {"nbody3": _nbody3, "handbuilt": _handbuilt}
+def _mascon12():
+    # tests/test_pallas_rolled.py's body: 12 mascons in the unit ball
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-1.0, 1.0, (48, 3))
+    pts = pts[np.linalg.norm(pts, axis=1) <= 1.0][:12]
+    masses = rng.uniform(0.5, 1.0, 12)
+    return ht.models.mascon(masses=(masses / masses.sum()).tolist(),
+                            positions=pts.tolist(), omega=(0.0, 0.0, 0.3))
+
+
+SYSTEMS = {"nbody3": _nbody3, "handbuilt": _handbuilt, "mascon12": _mascon12,
+           "handbuilt_mixed": lambda: _handbuilt(mixed=True)}
+
+
+def _orbits(B, seed):
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, B)
+    return np.stack([2 * np.cos(ang), 2 * np.sin(ang), np.zeros(B),
+                     -0.7 * np.sin(ang), 0.7 * np.cos(ang), np.zeros(B)], 1)
 
 
 def _inputs(name, B, seed):
@@ -43,13 +67,21 @@ def _inputs(name, B, seed):
     if name == "nbody3":
         return (BASE[None] + 0.01 * rng.standard_normal((B, 18)),
                 np.zeros((B, 0)), np.zeros(B))
+    if name == "mascon12":
+        return _orbits(B, seed), np.zeros((B, 0)), np.zeros(B)
     return (rng.uniform(-1.0, 1.0, (B, 3)), rng.uniform(0.5, 1.5, (B, 2)),
             rng.uniform(0.0, 2.0, B))
 
 
-def _tape(name, order, device):
+def _tape(name, order, device, cls=jk.JetTape):
     plan = build_plan(taylor_decompose_sys(SYSTEMS[name]()), order)
-    return jk.JetTape(ht.plan_to_arrays(plan), device)
+    return cls(ht.plan_to_arrays(plan), device)
+
+
+def _per_order_rel(a, b):
+    scale = b.abs().amax(dim=(0, 2))
+    return (a - b).abs().amax(dim=(0, 2)) / torch.where(
+        scale > 0, scale, torch.ones_like(scale))
 
 
 def _dev(a, device):
@@ -64,7 +96,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", list(SYSTEMS))
+@pytest.mark.parametrize("name", ["nbody3", "handbuilt", "mascon12"])
 def test_jet_kernel_matches_plain(cuda, name):
     # 1e-13 relative per order: f64 in both, only the summation order of
     # the convolutions differs
@@ -77,13 +109,63 @@ def test_jet_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert jk.LAUNCHES["jet"] == n0 + 1
     tc_p, norms_p = jk.jet_plain(tape, *args)
-    scale = tc_p.abs().amax(dim=(0, 2))
-    rel = (tc - tc_p).abs().amax(dim=(0, 2)) / torch.where(
-        scale > 0, scale, torch.ones_like(scale))
-    assert float(rel.max()) <= 1e-13
+    assert float(_per_order_rel(tc, tc_p).max()) <= 1e-13
     # the norms to the same bound, relative to each row's max over lanes
     nrel = (norms - norms_p).abs().amax(1) / norms_p.amax(1)
     assert float(nrel.max()) <= 1e-13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mascon12", "handbuilt", "handbuilt_mixed"])
+def test_jet_rolled_kernel_matches_plain_and_b2(cuda, name):
+    # kernel B3 against its twin (1e-13 relative per order: f64 in both,
+    # the summation order differs) and against kernel B2 on the same
+    # inputs (the same recurrences in the same order)
+    B, K = 200, 15
+    tape = _tape(name, K, cuda, jr.RolledTape)
+    st, pars, t = _inputs(name, B, 5)
+    args = (_dev(st.T, cuda), _dev(pars.T, cuda), _dev(t, cuda))
+    n0 = dict(jk.LAUNCHES)
+    tc, norms = jr.jet_rolled(tape, *args)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["jet_rolled"] == n0["jet_rolled"] + 1
+    tc_p, norms_p = jr.jet_rolled_plain(tape, *args)
+    tc_2, norms_2 = jk.jet(tape, *args)
+    torch.cuda.synchronize()
+    for ref_tc, ref_n in ((tc_p, norms_p), (tc_2, norms_2)):
+        assert float(_per_order_rel(tc, ref_tc).max()) <= 1e-13
+        nrel = (norms - ref_n).abs().amax(1) / ref_n.amax(1)
+        assert float(nrel.max()) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_jet_rolled_rejects_bad_inputs(cuda):
+    tape = _tape("mascon12", 8, cuda, jr.RolledTape)
+    st = _dev(_inputs("mascon12", 4, 0)[0].T, cuda)
+    pars = torch.zeros(0, 4, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        jr.jet_rolled(tape, st.float(), pars)
+    with pytest.raises(ValueError):
+        jr.jet_rolled(tape, st.cpu(), pars)  # tables on the card
+
+
+@pytest.mark.gpu
+def test_rolled_slice_on_cuda_matches_cpu(cuda, monkeypatch):
+    # mascon-12 routed to the rolled jet: kernel B3 runs every step
+    monkeypatch.setattr(tbatch, "ROLLED_MIN_WIDTH", 64)
+    st = _orbits(6, 8)
+    kw = dict(tol=1e-12, high_accuracy=True)
+    c = ht.taylor_adaptive_batch(_mascon12(), st, device="cpu", **kw)
+    g = ht.taylor_adaptive_batch(_mascon12(), st, device=cuda, **kw)
+    assert g.engine_report()["jet"] == "hy_jet_rolled_f64"
+    n0 = dict(jk.LAUNCHES)
+    rc = c.propagate_until(5.0)
+    rg = g.propagate_until(5.0)
+    assert jk.LAUNCHES["jet_rolled"] > n0["jet_rolled"]
+    assert jk.LAUNCHES["jet"] == n0["jet"]
+    assert jk.LAUNCHES["prop"] == n0["prop"]
+    assert rg[0] == rc[0] and (g.time == 5.0).all()
+    np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-11)
 
 
 @pytest.mark.gpu
