@@ -36,7 +36,24 @@ if anything is missing or any check fails.  Phases, one line each:
 9. the time of one B3 jet at 1,024 lanes on mascon-512 against
    ``jet_rolled_plain`` and B2, and B2 against B3 on mascon-32/128/256
    and on the outer-Solar-System tape (the data behind
-   ``taylor.batch.ROLLED_MIN_WIDTH``).
+   ``taylor.batch.ROLLED_MIN_WIDTH``);
+10. kernel B4 (``hy_phase_f64``) against ``phase_plain`` on the card, on
+    the tapes of :func:`phase_cases` (the pendulum, five mixed systems,
+    two more for the hyperbolic and logical ops, and one system per op),
+    which together hold every op of ``convert.PHASE_OPS``: order 19,
+    1,024 lanes, from ``lo = 1`` and from ``lo = 9`` on a buffer whose
+    lower orders came from the twin; 1e-13 relative per order, norms to
+    the same bound;
+11. the pendulum slice: ``taylor_adaptive_batch(pendulum(), ...,
+    tol=1e-15, high_accuracy=True, device="cuda")`` at 10,240 librating
+    lanes, ``propagate_until(100.0)``: only B4 launched, every lane on
+    t = 100 exactly with ``time_limit``, the relative energy drift at
+    most 1e-12, 4 lanes agreeing with the port's CPU run; then its first
+    10 time units again, without and with ``torch.profiler``, for the
+    device's busy and idle shares;
+12. the time of B4 against ``phase_plain`` on the card: 10,240 pendulum
+    lanes and 1,024 lanes of the widest mixed tape, with one whole
+    ``jet_phase`` beside each.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +72,7 @@ import heyoka_tpu_torch as ht
 from heyoka_tpu_torch import _build
 from heyoka_tpu_torch.models import nbody
 from heyoka_tpu_torch.taylor import jet_kernels as jk
+from heyoka_tpu_torch.taylor import jet_phase as jp
 from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.taylor.stepper import taylor_order_from_tol
@@ -78,12 +96,20 @@ MASCON_REF_LANES = 2
 JACOBI_MAX = 1e-12
 SWEEP_N = (32, 128, 256)
 
+PHASE_B = 1024
+PHASE_LO = 9  # the JAX route's split at mp_order = 8
+PEND_B = 10_240
+PEND_T = 100.0
+PROFILE_T = 10.0  # the window of phase 11 timed under the profiler
+
 SOURCES = {"hy_jet_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_prop_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
-           "hy_jet_rolled_f64": "heyoka_tpu_torch/csrc/taylor_jet_rolled.cu"}
+           "hy_jet_rolled_f64": "heyoka_tpu_torch/csrc/taylor_jet_rolled.cu",
+           "hy_phase_f64": "heyoka_tpu_torch/csrc/taylor_phase.cu"}
 REPLACES = {"hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
             "hy_prop_f64": "heyoka_tpu/taylor/pallas_phase.py:2454",
-            "hy_jet_rolled_f64": "heyoka_tpu/taylor/pallas_phase.py:1842"}
+            "hy_jet_rolled_f64": "heyoka_tpu/taylor/pallas_phase.py:1842",
+            "hy_phase_f64": "heyoka_tpu/taylor/pallas_phase.py:899"}
 
 
 def say(phase, **kv):
@@ -220,7 +246,7 @@ def main():
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             fn = next(w for w in ("jet_rolled_kernel", "jet_kernel",
-                                  "prop_kernel") if w in ln)
+                                  "prop_kernel", "phase_kernel") if w in ln)
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(
                 ln.split("ptxas info    : ")[-1].strip())
@@ -352,10 +378,12 @@ def main():
         jet_max_rel_per_order=rel_m, prop_state_max_rel=prop_rel_m, **times)
 
     rolled = huge_tapes(dev, order, smi)
+    phased = phase_tapes(dev, order, smi)
 
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
-            ("hy_jet_rolled_f64", *rolled)]
+            ("hy_jet_rolled_f64", *rolled),
+            ("hy_phase_f64", *phased)]
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name], launches=n, max_abs_err=err,
@@ -492,6 +520,243 @@ def huge_tapes(dev, order, smi):
         plain_ms_runs=t["plain"], b2_ms_runs=t["b2"],
         b3_vs_plain_max_rel_per_order=rel_m, sweep=sweep)
     return launches["jet_rolled"], rolled_err, times
+
+
+def phase_cases(pkg):
+    """The tapes of phase 10, built with ``pkg`` (this port; the tests
+    also pass the JAX package): name -> (ODE system, state (2,), pars).
+    The pendulum, the mixed systems of ``tests/test_compact.py``, two
+    for the hyperbolic, division and logical ops, and one per op of
+    ``tests/test_pallas_ops.py``; every state is away from the switch
+    points of relu, select and the relational ops."""
+    m = pkg.math
+    x, y = pkg.make_vars("x", "y")
+    par, tm = pkg.par, pkg.time_
+    cases = {
+        "pendulum": (pkg.models.pendulum(), [0.05, 0.025], []),
+        "trig": ([(x, m.sin(x) * m.cos(y) + m.tan(0.3 * x)),
+                  (y, m.exp(-y) + m.atan2(x, y) + x ** -1.5)],
+                 [0.7, 1.3], []),
+        "kepE": ([(x, m.kepE(0.3, y)),
+                  (y, m.sqrt(x) + m.log(y) + m.erf(x))], [1.2, 0.8], []),
+        "kepFDE": ([(x, m.kepF(0.1, 0.2, y)),
+                    (y, m.kepDE(0.1, 0.2, x) + m.asin(0.3 * x) + m.tanh(y)
+                     + m.sigmoid(x))], [0.9, 0.7], []),
+        "select": ([(x, m.select(m.gt(x, 0.0), x * x, -x) + m.relu(y)),
+                    (y, m.sigmoid(x) + m.atan(y) + m.acos(0.2 * x)
+                     + m.sinh(y))], [0.5, -0.3], []),
+        "par_time": ([(x, par[0] * m.sin(tm) + par[1] * x), (y, tm * y)],
+                     [0.4, 0.6], [1.1, -0.2]),
+        "hyper": ([(x, m.atanh(0.3 * x) + m.asinh(y) / (2.0 + y * y)),
+                   (y, m.acosh(1.5 + 0.1 * x * x) - m.cosh(0.2 * y))],
+                  [0.4, 0.3], []),
+        "logic": ([(x, m.select(m.logical_and(m.lt(x, 2.0), m.ge(y, -3.0)),
+                                y, -y) + 0.1 * m.relup(x)),
+                   (y, m.select(m.logical_or(m.le(x, -5.0), m.ne(y, 7.0)),
+                                -x, x)
+                    + 0.01 * m.logical_not(m.eq(x, 5.0)))],
+                  [0.5, 0.4], []),
+    }
+    per_op = {
+        "tan": -m.tan(x * 0.3), "tanh": -m.tanh(x),
+        "sigmoid": -m.sigmoid(x) + 0.5, "asin": -m.asin(x * 0.5),
+        "acos": m.acos(x * 0.5) - np.pi / 2, "atan": -m.atan(x),
+        "erf": -m.erf(x), "atan2": -m.atan2(x, 2.0 + y * 0.1),
+        "kepE": -m.sin(m.kepE(0.1, x)), "kepF": -m.sin(m.kepF(0.05, 0.05, x)),
+        "kepDE": -m.sin(m.kepDE(0.05, 0.3, x)),
+    }
+    for name, rhs in per_op.items():
+        cases[f"op_{name}"] = ([(x, y), (y, rhs)], [0.25, 0.0], [])
+    return cases
+
+
+def phase_lanes(st0, pars, B, seed):
+    """``B`` lanes near a case's state: the state plus 0.01 N(0, 1) per
+    coordinate, its parameters, times in [0, 2); numpy arrays (B, n),
+    (B, n_pars), (B,)."""
+    rng = np.random.default_rng(seed)
+    st0 = np.asarray(st0, float)
+    st = st0[None] + 0.01 * rng.standard_normal((B, st0.size))
+    return (st, np.tile(np.asarray(pars, float), (B, 1)).reshape(B, -1),
+            rng.uniform(0.0, 2.0, B))
+
+
+def pendulum_lanes(B, seed):
+    """Librating pendulum lanes: x0 = +-U(0.5, 2.0) rad with a random
+    sign, v0 = U(-1, 1); energies 1.2 to 14.4, below the separatrix's
+    19.6."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.choice([-1.0, 1.0], B) * rng.uniform(0.5, 2.0, B)
+    return np.stack([x0, rng.uniform(-1.0, 1.0, B)], 1)
+
+
+def pendulum_energy(st):
+    """``models.pendulum_energy`` at g = 9.8, l = m = 1, per lane."""
+    return 0.5 * st[:, 1] * st[:, 1] + 9.8 * (1.0 - torch.cos(st[:, 0]))
+
+
+def lane_tensors(st, pars, t, dev):
+    """Lanes as :func:`phase_lanes` gives them -> the jets' arguments
+    ``(state (n, B), pars (n_pars, B), t (B,))`` on ``dev``."""
+    f = dict(dtype=torch.float64, device=dev)
+    return (torch.as_tensor(st.T.copy(), **f),
+            torch.as_tensor(pars.T.copy(), **f), torch.as_tensor(t, **f))
+
+
+def seeded_buffer(tape, st, pars, t, dev):
+    """The ``(K+1, W, B)`` buffer with order 0 of every column and the
+    virtual columns seeded: what kernel B4 starts from."""
+    tc = jk._seed_plain(tape, *lane_tensors(st, pars, t, dev))
+    jp.order0(tape, tc)
+    return tc
+
+
+def phase_tapes(dev, order, smi):
+    """Phases 10-12, the phase route: kernel B4 against its twin on every
+    tape, the pendulum slice, and the times.  Returns B4's launches in
+    the slice, its largest abs error against the twin, and its times."""
+    def rel(a, b):  # (K+1, W, B) buffers, per order
+        return per_order_rel(a.permute(1, 0, 2), b.permute(1, 0, 2))
+
+    # -- 10. B4 against phase_plain on every tape -------------------------------
+    cases = phase_cases(ht)
+    tapes, ops, res, phase_err = {}, set(), {}, 0.0
+    for i, (name, (sys_, st0, pars)) in enumerate(cases.items()):
+        plan = build_plan(ht.taylor_decompose_sys(sys_), order)
+        ops |= {g.name for lv in plan.levels for g in lv}
+        tape = tapes[name] = jp.PhaseTape(ht.plan_to_arrays(plan), dev)
+        tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, PHASE_B, 10 + i),
+                            dev)
+        tc_p = jp.phase_plain(tape, tc0.clone(), 1)
+        tc_k = jp.phase(tape, tc0.clone(), 1)
+        # from lo = 9: the orders below from the twin, the rest NaN in
+        # every column the kernel must write
+        n_w = tape.n_eq + int(tape.arrays["arg_ptr"].size) - 1
+        tc9 = tc_p.clone()
+        tc9[PHASE_LO:, :n_w] = float("nan")
+        jp.phase(tape, tc9, PHASE_LO)
+        torch.cuda.synchronize()
+        r = {}
+        for key, tc in (("lo1", tc_k), ("lo9", tc9)):
+            check(bool(torch.isfinite(tc).all()),
+                  f"B4 on {name} from {key}: non-finite coefficients")
+            r[key] = float(rel(tc, tc_p).max())
+            nk, npl = jk._norms(tape, tc), jk._norms(tape, tc_p)
+            r[key + "_norms"] = float(((nk - npl).abs().amax(1)
+                                       / npl.abs().amax(1)).max())
+            phase_err = max(phase_err, float((tc - tc_p).abs().max()))
+        check(max(r.values()) <= JET_RTOL,
+              f"B4 vs phase_plain on {name}: {r}")
+        res[name] = dict(W=tape.width, **r)
+    missing = sorted(set(ht.PHASE_OPS) - ops)
+    check(not missing, f"phase 10 ran no tape with {missing}")
+    say(10, B=PHASE_B, order=order, lo=[1, PHASE_LO], tol=JET_RTOL,
+        opcodes=sorted(ops, key=ht.OPCODES.index), max_rel_per_order=max(
+            max(v["lo1"], v["lo9"]) for v in res.values()),
+        max_abs_err=phase_err, tapes=res)
+
+    # -- 11. the slice: the pendulum at 10,240 lanes ------------------------------
+    sys_ = ht.models.pendulum()
+    ics = pendulum_lanes(PEND_B, 0)
+    kw = dict(tol=TOL, high_accuracy=True)
+    warm = ht.taylor_adaptive_batch(sys_, ics[:CHUNK], device=dev, **kw)
+    warm.propagate_until(1.0)
+    ta = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
+    eng = ta.engine_report()
+    check(eng == dict(device=str(dev), jet="hy_phase_f64",
+                      propagate_engine="flat", prop=None),
+          f"pendulum: not the phase route: {eng}")
+    e0 = pendulum_energy(torch.as_tensor(ics, device=dev))
+    torch.cuda.synchronize()
+    for k in jk.LAUNCHES:
+        jk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    oc, _, _, nsteps = ta.propagate_until(PEND_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(launches["phase"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "phase"),
+        f"pendulum: kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc),
+          "pendulum: an outcome is not time_limit")
+    check(bool((ta.dtime[0] == PEND_T).all() and (ta.time == PEND_T).all()),
+          "pendulum: a lane did not land on the target exactly")
+    st_end = ta.state
+    check(st_end.shape == (PEND_B, 2) and bool(np.isfinite(st_end).all()),
+          "pendulum: bad final state")
+    e1 = pendulum_energy(torch.as_tensor(st_end, device=dev))
+    drift = float(((e1 - e0).abs() / e0.abs()).max())
+    check(drift <= DRIFT_MAX, f"pendulum: energy drift {drift}")
+    ref = ht.taylor_adaptive_batch(sys_, ics[:REF_LANES], device="cpu", **kw)
+    ref_oc = ref.propagate_until(PEND_T)[0]
+    ref_rel = float(np.abs(st_end[:REF_LANES] - ref.state).max()
+                    / np.abs(ref.state).max())
+    check(ref_oc == oc[:REF_LANES] and ref_rel <= REF_RTOL,
+          f"pendulum vs the CPU run: {ref_rel}")
+    steps = int(nsteps.sum())
+    # the first PROFILE_T of the run again, timed without and then with
+    # the profiler: the device's busy time by kernel over the host's wall
+    from torch.profiler import ProfilerActivity, profile
+    tw = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tw.propagate_until(PROFILE_T)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    tp = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp.propagate_until(PROFILE_T)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e6
+    b4 = sum(e.time_range.elapsed_us() for e in dev_ev
+             if "phase_kernel" in e.name) / 1e6
+    say(11, B=PEND_B, t_end=PEND_T, wall_s=wall, lane_steps=steps,
+        steps_per_s=steps / wall, mean_steps_per_lane=steps / PEND_B,
+        launches=launches, energy_drift_max_rel=drift,
+        cpu_ref_max_rel=ref_rel, engine=eng, profile_t_end=PROFILE_T,
+        profile_wall_s=wall_w, device_events=len(dev_ev),
+        device_busy_s=busy if dev_ev else None,
+        device_idle_share=1.0 - busy / wall_w if dev_ev else None,
+        b4_share_of_busy=b4 / busy if dev_ev else None)
+
+    # -- 12. times: B4 against phase_plain ----------------------------------------
+    widest = max((n for n in cases if not n.startswith("op_")
+                  and n != "pendulum"), key=lambda n: tapes[n].width)
+    runs = {}
+    for name, B, seed in (("pendulum", PEND_B, 3), (widest, PHASE_B, 4)):
+        tape = tapes[name]
+        st0, pars = cases[name][1], cases[name][2]
+        if name == "pendulum":
+            lanes_ = (pendulum_lanes(B, seed), np.zeros((B, 0)),
+                      np.zeros(B))
+        else:
+            lanes_ = phase_lanes(st0, pars, B, seed)
+        tc0 = seeded_buffer(tape, *lanes_, dev)
+        tck, tcp = tc0.clone(), tc0.clone()
+        jargs = lane_tensors(*lanes_, dev)
+        t = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "kernel":
+                t[which].append(cuda_ms(lambda: jp.phase(tape, tck, 1), 3))
+            else:
+                t[which].append(cuda_ms(
+                    lambda: jp.phase_plain(tape, tcp, 1), 1))
+        r = float(rel(tck, tcp).max())
+        check(r <= JET_RTOL, f"B4 vs phase_plain on {name} at B={B}: {r}")
+        phase_err = max(phase_err, float((tck - tcp).abs().max()))
+        runs[name] = dict(B=B, W=tape.width, ms_runs=t["kernel"],
+                          plain_ms_runs=t["plain"], max_rel_per_order=r,
+                          jet_phase_ms=cuda_ms(
+                              lambda: jp.jet_phase(tape, *jargs), 3))
+    say(12, nvidia_smi=smi, **runs)
+    tm = runs["pendulum"]
+    return launches["phase"], phase_err, dict(
+        ms=sum(tm["ms_runs"]) / 2, plain_ms=sum(tm["plain_ms_runs"]) / 2)
 
 
 if __name__ == "__main__":

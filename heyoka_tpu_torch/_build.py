@@ -47,6 +47,8 @@ SIGNATURES = {
     "hy_prop_f64": (_P,) * 10 + (_I, _I, _I, _P),
     # itab, dtab, state, pars, t, H, C, V, out, norms, B, stream
     "hy_jet_rolled_f64": (_P,) * 10 + (_I, _P),
+    # itab, dtab, tc, syn, B, lo, stream
+    "hy_phase_f64": (_P,) * 4 + (_I, _I, _P),
 }
 
 

@@ -24,7 +24,11 @@ Array layout (all int32 unless noted):
   An n-ary sum's zero padding is dropped (``plan_from_arrays`` restores
   it from ``g_nargs`` and ``zero_col``);
 - ``alpha`` (f64, (n_ops,)): the pow exponent of each op column, 0
-  elsewhere.
+  elsewhere;
+- ``aux`` ((n_ops, 2)): the auxiliary columns of each op column
+  (``_Group.aux``, in the order of ``AUX_KEYS``: the sin/cos ``pair``, the
+  ``sq`` square of tan/tanh/sigmoid, the Kepler ``sin``/``cos``), -1 where
+  there is none.
 """
 
 from __future__ import annotations
@@ -34,29 +38,50 @@ import torch
 
 from .taylor.compact import _Group, _Plan
 
-#: the port's rule set: sum, mul, div, sqrt and pow (any real exponent);
-#: the position is the opcode the CUDA kernels switch on
-OPCODES = ("sum", "mul", "div", "sqrt", "pow")
+#: every op the port has a recurrence for; the position is the opcode the
+#: CUDA kernels switch on (csrc/taylor_common.cuh ``enum Op``).  The first
+#: five are kernels B1/B2/B3's rule set (``JET_OPS``); the phase kernel B4
+#: takes them all (``PHASE_OPS``, ``heyoka_tpu/taylor/pallas_phase.py``
+#: ``_SUPPORTED``).
+OPCODES = (
+    "sum", "mul", "div", "sqrt", "pow",
+    "exp", "log", "sin", "cos", "sinh", "cosh", "tan", "tanh", "sigmoid",
+    "asin", "acos", "atan", "atanh", "asinh", "acosh", "erf", "atan2",
+    "kepE", "kepF", "kepDE", "relu", "relup", "select",
+    "lt", "le", "gt", "ge", "eq", "ne",
+    "logical_and", "logical_or", "logical_not",
+)
+JET_OPS = OPCODES[:5]
+PHASE_OPS = OPCODES
+
+#: the auxiliary columns each op carries (``_Group.aux`` keys, in the
+#: order of the ``aux`` array's two slots)
+AUX_KEYS = {
+    **{n: ("pair",) for n in ("sin", "cos", "sinh", "cosh")},
+    **{n: ("sq",) for n in ("tan", "tanh", "sigmoid")},
+    **{n: ("sin", "cos") for n in ("kepE", "kepF", "kepDE")},
+}
 
 
 class UnsupportedKernelOp(Exception):
-    """A tape op outside the port's jet rule set (``OPCODES``)."""
+    """A tape op outside the rule set of the route that was asked for."""
 
 
-def check_supported(plan) -> None:
+def check_supported(plan, rules=JET_OPS) -> None:
     """Raise :class:`UnsupportedKernelOp` unless every group of ``plan``
-    has a rule in the port's jet."""
+    has a rule in ``rules``: ``JET_OPS`` for kernels B1/B2/B3,
+    ``PHASE_OPS`` for the phase kernel B4."""
     for lv in plan.levels:
         for g in lv:
-            if g.name not in OPCODES:
+            if g.name not in rules:
                 raise UnsupportedKernelOp(
-                    f"op {g.name!r} has no rule in the port's jet (rule set: "
-                    f"{', '.join(OPCODES)})")
+                    f"op {g.name!r} has no rule in this jet (rule set: "
+                    f"{', '.join(rules)})")
 
 
 def plan_to_arrays(plan) -> dict[str, np.ndarray]:
     """Flatten a plan into numpy arrays (layout in the module docstring)."""
-    check_supported(plan)
+    check_supported(plan, PHASE_OPS)
     n_eq = int(plan.n_eq)
     n_ops = int(plan.width) - n_eq - len(plan.const_cols) \
         - len(plan.par_cols) - (plan.time_col is not None)
@@ -64,6 +89,7 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
     g_level, g_op, g_start, g_m, g_nargs = [], [], [], [], []
     row_args = [None] * n_ops
     alpha = np.zeros(n_ops, np.float64)
+    aux = np.full((n_ops, 2), -1, np.int64)
     for li, lv in enumerate(plan.levels):
         for g in lv:
             in_cols = np.asarray(g.in_cols, np.int64)
@@ -82,6 +108,13 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
                 row_args[start - n_eq + r] = row
             if g.name == "pow":
                 alpha[start - n_eq:start - n_eq + m] = np.asarray(g.alpha)
+            keys = AUX_KEYS.get(g.name, ())
+            if set(g.aux) != set(keys):
+                raise ValueError(f"group {g.name!r} carries aux columns "
+                                 f"{sorted(g.aux)}, expected {list(keys)}")
+            for slot, key in enumerate(keys):
+                aux[start - n_eq:start - n_eq + m, slot] = np.asarray(
+                    g.aux[key])
     if any(r is None for r in row_args):
         raise ValueError("the plan's groups do not cover every op column")
     arg_ptr = np.zeros(n_ops + 1, np.int64)
@@ -106,12 +139,14 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
         arg_ptr=arg_ptr.astype(i32),
         args=args.astype(i32),
         alpha=alpha,
+        aux=aux.astype(i32),
     )
 
 
 def plan_from_arrays(d: dict) -> _Plan:
     """Rebuild a :class:`~.taylor.compact._Plan` from :func:`plan_to_arrays`
-    output.  Every field the jet reads round-trips exactly; ``_Group.ops``
+    output.  Every field the jets read, the aux columns included,
+    round-trips exactly; ``_Group.ops``
     (the tape op objects behind each group) is not carried and comes back
     empty."""
     width, n_eq, order, time_col, zero_col = (int(x) for x in d["meta"])
@@ -129,8 +164,11 @@ def plan_from_arrays(d: dict) -> _Plan:
             in_cols[r, :row.size] = row
         alpha = (np.asarray(d["alpha"][start - n_eq:start - n_eq + m],
                             np.float64) if name == "pow" else None)
+        aux = {key: np.asarray(d["aux"][start - n_eq:start - n_eq + m, slot],
+                               np.int64)
+               for slot, key in enumerate(AUX_KEYS.get(name, ()))}
         levels[int(li)].append(_Group(
-            name, np.arange(start, start + m, dtype=np.int64), in_cols, {},
+            name, np.arange(start, start + m, dtype=np.int64), in_cols, aux,
             alpha, [], start))
     return _Plan(
         width=width, n_eq=n_eq, order=order,

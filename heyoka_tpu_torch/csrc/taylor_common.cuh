@@ -1,14 +1,81 @@
 // Device helpers shared by the jet kernels (taylor_jet.cu: B1, B2;
-// taylor_jet_rolled.cu: B3): the opcodes of convert.OPCODES and the
-// order-0 rules that are more than one operation.
+// taylor_jet_rolled.cu: B3; taylor_phase.cu: B4): the opcodes of
+// convert.OPCODES, the dense tape tables of B1/B2/B4 and a lane's view of
+// their coefficient buffer, and the order-0 rules that are more than one
+// operation.
 
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 
 namespace {
 
-enum Op { OP_SUM = 0, OP_MUL = 1, OP_DIV = 2, OP_SQRT = 3, OP_POW = 4 };
+// convert.OPCODES: B1/B2/B3 know the first five, B4 all of them
+enum Op {
+  OP_SUM, OP_MUL, OP_DIV, OP_SQRT, OP_POW,
+  OP_EXP, OP_LOG, OP_SIN, OP_COS, OP_SINH, OP_COSH, OP_TAN, OP_TANH,
+  OP_SIGMOID, OP_ASIN, OP_ACOS, OP_ATAN, OP_ATANH, OP_ASINH, OP_ACOSH,
+  OP_ERF, OP_ATAN2, OP_KEPE, OP_KEPF, OP_KEPDE, OP_RELU, OP_RELUP,
+  OP_SELECT, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE, OP_LAND, OP_LOR,
+  OP_LNOT
+};
+
+// header of the int32 table `it` of kernels B1, B2 and B4
+// (taylor/jet_kernels.py _HDR, then taylor/jet_phase.py _PHDR's fields,
+// which only B4 reads): sizes, then offsets of the int sub-tables in `it`
+// and of the f64 ones in `dt`
+enum Hdr {
+  H_W, H_NEQ, H_K, H_TIME, H_NG, H_NC, H_NPC, H_NNORM,
+  H_RHS, H_NORM, H_CCOLS, H_PCOLS, H_PIDX, H_GOP, H_GSTART, H_GM,
+  H_ARGPTR, H_ARGS, H_D_RHOFAC, H_D_CVALS, H_D_ALPHA,
+  H_AUX, H_SYN, H_NSYN
+};
+
+struct Tape {
+  int W, n_eq, K, time_col, n_groups, n_const, n_pcol, n_norm;
+  const int *rhs, *norm, *ccols, *pcols, *pidx, *gop, *gstart, *gm,
+      *argptr, *args;
+  const double *cvals, *alpha;
+  double rhofac;
+};
+
+__device__ Tape load_tape(const int* __restrict__ it,
+                          const double* __restrict__ dt) {
+  Tape T;
+  T.W = it[H_W];
+  T.n_eq = it[H_NEQ];
+  T.K = it[H_K];
+  T.time_col = it[H_TIME];
+  T.n_groups = it[H_NG];
+  T.n_const = it[H_NC];
+  T.n_pcol = it[H_NPC];
+  T.n_norm = it[H_NNORM];
+  T.rhs = it + it[H_RHS];
+  T.norm = it + it[H_NORM];
+  T.ccols = it + it[H_CCOLS];
+  T.pcols = it + it[H_PCOLS];
+  T.pidx = it + it[H_PIDX];
+  T.gop = it + it[H_GOP];
+  T.gstart = it + it[H_GSTART];
+  T.gm = it + it[H_GM];
+  T.argptr = it + it[H_ARGPTR];
+  T.args = it + it[H_ARGS];
+  T.rhofac = dt[it[H_D_RHOFAC]];
+  T.cvals = dt + it[H_D_CVALS];
+  T.alpha = dt + it[H_D_ALPHA];
+  return T;
+}
+
+// One lane's view of the (K+1, W, B) coefficient buffer.
+struct Lane {
+  double* tc;
+  size_t W, B;
+  int lane;
+  __device__ double& at(int k, int c) const {
+    return tc[((size_t)k * W + (size_t)c) * B + (size_t)lane];
+  }
+};
 
 // min / max that propagate NaN, like torch.minimum / torch.maximum
 __device__ inline double nmin(double a, double b) {

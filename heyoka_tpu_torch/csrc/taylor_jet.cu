@@ -10,7 +10,8 @@
 //
 // Design: one thread runs one lane and walks the whole plan (the tape is
 // interpreted from tables built by heyoka_tpu_torch/convert.py and packed
-// by taylor/jet_kernels.py, layout in `enum Hdr`).  The coefficient
+// by taylor/jet_kernels.py, layout in `enum Hdr` of taylor_common.cuh).
+// The coefficient
 // buffer is (K+1, W, B) f64 in global memory with the lane index minor, so
 // the 32 threads of a warp touch 32 neighbouring doubles on every access.
 // A lane's block is (K+1) W 8 bytes (about 61 KB for the outer Solar
@@ -38,60 +39,7 @@
 
 namespace {
 
-// header of the int32 table `it` (taylor/jet_kernels.py _HDR): sizes, then
-// offsets of the int sub-tables in `it` and of the f64 ones in `dt`
-enum Hdr {
-  H_W, H_NEQ, H_K, H_TIME, H_NG, H_NC, H_NPC, H_NNORM,
-  H_RHS, H_NORM, H_CCOLS, H_PCOLS, H_PIDX, H_GOP, H_GSTART, H_GM,
-  H_ARGPTR, H_ARGS, H_D_RHOFAC, H_D_CVALS, H_D_ALPHA
-};
-
 constexpr int kThreads = 64;  // 10,240 lanes -> 160 blocks for 132 SMs
-
-struct Tape {
-  int W, n_eq, K, time_col, n_groups, n_const, n_pcol, n_norm;
-  const int *rhs, *norm, *ccols, *pcols, *pidx, *gop, *gstart, *gm,
-      *argptr, *args;
-  const double *cvals, *alpha;
-  double rhofac;
-};
-
-__device__ Tape load_tape(const int* __restrict__ it,
-                          const double* __restrict__ dt) {
-  Tape T;
-  T.W = it[H_W];
-  T.n_eq = it[H_NEQ];
-  T.K = it[H_K];
-  T.time_col = it[H_TIME];
-  T.n_groups = it[H_NG];
-  T.n_const = it[H_NC];
-  T.n_pcol = it[H_NPC];
-  T.n_norm = it[H_NNORM];
-  T.rhs = it + it[H_RHS];
-  T.norm = it + it[H_NORM];
-  T.ccols = it + it[H_CCOLS];
-  T.pcols = it + it[H_PCOLS];
-  T.pidx = it + it[H_PIDX];
-  T.gop = it + it[H_GOP];
-  T.gstart = it + it[H_GSTART];
-  T.gm = it + it[H_GM];
-  T.argptr = it + it[H_ARGPTR];
-  T.args = it + it[H_ARGS];
-  T.rhofac = dt[it[H_D_RHOFAC]];
-  T.cvals = dt + it[H_D_CVALS];
-  T.alpha = dt + it[H_D_ALPHA];
-  return T;
-}
-
-// One lane's view of the (K+1, W, B) coefficient buffer.
-struct Lane {
-  double* tc;
-  size_t W, B;
-  int lane;
-  __device__ double& at(int k, int c) const {
-    return tc[((size_t)k * W + (size_t)c) * B + (size_t)lane];
-  }
-};
 
 // Virtual columns: constants and parameters at their values at order 0
 // and zero above; the time column (t, 1, 0, ...).  Written once per launch.

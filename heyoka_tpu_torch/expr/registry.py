@@ -2,9 +2,8 @@
 ``math`` and ``decompose`` need.
 
 The counterpart of ``heyoka_tpu.expr.registry`` without its jax.numpy
-evaluators: the port evaluates ops only inside the Taylor jet
-(``taylor/jet_kernels.py``), whose rule set is checked when an integrator
-is built.
+evaluators: their f64 torch counterparts, the numeric rules the Taylor
+jets need at order 0, are in the sibling module :mod:`.numeric`.
 """
 
 from __future__ import annotations

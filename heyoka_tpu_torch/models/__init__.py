@@ -8,3 +8,4 @@ from .fixed_centres import (  # noqa: F401
 )
 from .rotating import rotating, rotating_energy, rotating_potential  # noqa: F401
 from .mascon import mascon, mascon_energy, mascon_potential  # noqa: F401
+from .pendulum import pendulum, pendulum_energy  # noqa: F401

@@ -14,8 +14,12 @@ with a time column propagates through the per-step driver, since kernel B1
 carries no time.  A huge tape (``ROLLED_MIN_WIDTH`` columns or more) takes
 the rolled jet, kernel B3, for ``step`` and for every step of the per-step
 driver, as the JAX package routes it (``compact_flat.py:458-475``,
-``fused.py:81-83``).  The public getters return numpy arrays, like the JAX
-class's.
+``fused.py:81-83``).  A tape with any op outside B1/B2/B3's rule set
+(``convert.JET_OPS``: trig, Kepler, relational ...) takes the phase jet at
+any width: order 0 in f64 torch, orders 1..K in kernel B4
+(``jet_phase.jet_phase``), and the per-step driver, since B1 has no
+order-0 rules for those ops.  The public getters return numpy arrays,
+like the JAX class's.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import math as _pymath
 import numpy as np
 import torch
 
-from ..convert import check_supported, plan_to_arrays, state_from_numpy
+from ..convert import JET_OPS, plan_to_arrays, state_from_numpy
 from ..expr.core import Variable, expr
 from ..expr.decompose import Tape, taylor_decompose_sys
 from ..dfloat import dd_add_d
@@ -34,6 +38,7 @@ from .compact import build_plan
 from .compact_flat import make_batched_step_flat, make_propagate_until_flat
 from .fused import make_propagate_until_fused
 from .jet_kernels import JetTape, jet
+from .jet_phase import PhaseTape, jet_phase
 from .jet_rolled import RolledTape, jet_rolled
 from .outcome import TaylorOutcome
 
@@ -69,10 +74,14 @@ class TaylorAdaptiveBatch:
         high_accuracy = bool(high_accuracy)
         self._tape: Tape = taylor_decompose_sys(sys)
         plan = build_plan(self._tape, self._order)
-        check_supported(plan)  # UnsupportedKernelOp for other ops
-        self._rolled = plan.width >= ROLLED_MIN_WIDTH
-        self._jtape = (RolledTape if self._rolled else JetTape)(
-            plan_to_arrays(plan), self._device)
+        # the route: B4 for ops outside JET_OPS, else B3 for huge tapes,
+        # else B1/B2; UnsupportedKernelOp for ops without any rule
+        self._phase = any(g.name not in JET_OPS
+                          for lv in plan.levels for g in lv)
+        self._rolled = not self._phase and plan.width >= ROLLED_MIN_WIDTH
+        tape_cls = PhaseTape if self._phase else \
+            RolledTape if self._rolled else JetTape
+        self._jtape = tape_cls(plan_to_arrays(plan), self._device)
 
         n_eq = self._tape.n_eq
         state = np.asarray(state, dtype=np.float64)
@@ -98,10 +107,11 @@ class TaylorAdaptiveBatch:
         self._last_res = [(TaylorOutcome.success, 0.0)] * B
         self._last_prop_res = None
 
-        jet_fn = jet_rolled if self._rolled else jet
+        jet_fn = jet_phase if self._phase else \
+            jet_rolled if self._rolled else jet
         self._step_fn = make_batched_step_flat(
             self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
-        if self._jtape.time_col is None and not self._rolled:
+        if self._jtape.time_col is None and jet_fn is jet:
             self._pu_fn = make_propagate_until_fused(
                 self._jtape, high_accuracy=high_accuracy,
                 chunk_steps=CHUNK_STEPS)
@@ -117,13 +127,17 @@ class TaylorAdaptiveBatch:
         """Which engine and kernels this integrator runs: ``device``,
         ``jet`` (kernel B2 ``hy_jet_f64`` on CUDA, ``jet_plain`` on the
         CPU; for a huge tape kernel B3 ``hy_jet_rolled_f64`` /
-        ``jet_rolled_plain``), ``propagate_engine`` (``"fused"``: chunks of
+        ``jet_rolled_plain``; for a tape with ops outside B2's rule set
+        kernel B4 ``hy_phase_f64`` / ``phase_plain``),
+        ``propagate_engine`` (``"fused"``: chunks of
         kernel B1 plus the exact landing; ``"flat"``: the per-step driver)
         and ``prop`` (``hy_prop_f64`` / ``prop_plain``, None without the
         fused engine)."""
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
-        if self._rolled:
+        if self._phase:
+            jet_name = "hy_phase_f64" if cuda else "phase_plain"
+        elif self._rolled:
             jet_name = "hy_jet_rolled_f64" if cuda else "jet_rolled_plain"
         else:
             jet_name = "hy_jet_f64" if cuda else "jet_plain"

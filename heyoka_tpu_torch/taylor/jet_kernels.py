@@ -36,16 +36,19 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..convert import UnsupportedKernelOp, plan_from_arrays
+from ..convert import (
+    JET_OPS, UnsupportedKernelOp, check_supported, plan_from_arrays,
+)
 from ..dfloat import dd_add_d
 from .stepper import ceval_update, h_from_norms, horner_update, rho_factor
 
 #: launches of each kernel; a wrapper adds one where it launches its kernel
-LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0}
+LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0, "phase": 0}
 
 #: header of the packed int32 table the kernels read (csrc/taylor_jet.cu
 #: ``enum Hdr``): sizes, then offsets of the sub-tables in ``itab`` (and of
-#: the f64 sub-tables in ``dtab``)
+#: the f64 sub-tables in ``dtab``); the phase kernel's tape adds its own
+#: fields after these (``jet_phase._PHDR``)
 _HDR = ("W", "n_eq", "K", "time_col", "n_groups", "n_const", "n_pcol",
         "n_norm", "rhs", "norm", "ccols", "pcols", "pidx", "gop", "gstart",
         "gm", "argptr", "args", "d_rhofac", "d_cvals", "d_alpha")
@@ -57,7 +60,10 @@ _F64 = torch.float64
 class JetTape:
     """A plan, flattened by ``convert.plan_to_arrays``, with its tables on
     one device: the packed tables of the CUDA kernels (``itab``, ``dtab``)
-    and the index tensors of the plain twins."""
+    and the index tensors of the plain twins.  Its ops must lie in
+    ``RULES``, the rule set of kernels B1/B2 (UnsupportedKernelOp)."""
+
+    RULES = JET_OPS
 
     def __init__(self, arrays: dict, device):
         self.arrays = arrays
@@ -82,27 +88,35 @@ class JetTape:
         self.const_vals = f64(arrays["const_vals"])
         self.par_cols = idx(arrays["par_cols"])
         self.par_idx = idx(arrays["par_idx"])
+        plan = plan_from_arrays(arrays)
+        check_supported(plan, self.RULES)
         # per group, in level order: (op name, first column, rows, operand
         # columns (m, nargs) with sums padded by the zero column, pow
         # exponents (m,) or None)
         self.groups = [
             (g.name, g.out_start, g.out_cols.size, idx(g.in_cols), g.alpha)
-            for lv in plan_from_arrays(arrays).levels for g in lv
+            for lv in plan.levels for g in lv
         ]
+        self.ops = frozenset(g[0] for g in self.groups)
         self.itab, self.dtab = self._pack(arrays, norm)
         self.device = self.itab.device  # with its index ("cuda:0")
 
-    def _pack(self, a, norm):
+    def _pack(self, a, norm, extra_parts=None, extra_sizes=None):
+        """The packed tables; ``extra_parts`` (int sub-tables appended after
+        ``args``) and ``extra_sizes`` take the header fields after
+        ``_HDR``'s, in that order."""
+        extra_parts, extra_sizes = extra_parts or {}, extra_sizes or {}
         parts = {
             "rhs": a["rhs_cols"], "norm": norm, "ccols": a["const_cols"],
             "pcols": a["par_cols"], "pidx": a["par_idx"], "gop": a["g_op"],
             "gstart": a["g_start"], "gm": a["g_m"], "argptr": a["arg_ptr"],
-            "args": a["args"],
+            "args": a["args"], **extra_parts,
         }
         hdr = dict(W=self.width, n_eq=self.n_eq, K=self.order,
                    time_col=-1 if self.time_col is None else self.time_col,
                    n_groups=a["g_op"].size, n_const=a["const_cols"].size,
-                   n_pcol=a["par_cols"].size, n_norm=norm.size)
+                   n_pcol=a["par_cols"].size, n_norm=norm.size,
+                   **extra_sizes)
         body, off = [], _HDR_LEN
         for key, arr in parts.items():
             hdr[key] = off
@@ -113,8 +127,10 @@ class JetTape:
         hdr["d_rhofac"] = 0
         hdr["d_cvals"] = 1
         hdr["d_alpha"] = 1 + a["const_vals"].size
+        keys = _HDR + tuple(extra_parts) + tuple(extra_sizes)
+        assert len(keys) <= _HDR_LEN
         head = np.zeros(_HDR_LEN, np.int64)
-        head[:len(_HDR)] = [hdr[k] for k in _HDR]
+        head[:len(keys)] = [hdr[k] for k in keys]
         itab = np.concatenate([head, *body])
         if itab.max(initial=0) >= 2**31:
             raise ValueError("tape too large for the int32 kernel tables")
@@ -269,6 +285,7 @@ def _norms(tape: JetTape, tc):
 
 def jet_plain(tape: JetTape, state, pars, t=None):
     """Plain torch twin of kernel B2 (see the module docstring)."""
+    _check_rules(tape)
     tc = _seed_plain(tape, state, pars, t)
     _jet_fill(tape, tc)
     return tc[:, :tape.n_eq].permute(1, 0, 2).contiguous(), _norms(tape, tc)
@@ -278,6 +295,7 @@ def prop_plain(tape: JetTape, state, pars, aux, auxi, n_steps: int,
                high_accuracy: bool = True):
     """Plain torch twin of kernel B1: the same lane protocol, run for all
     lanes in lockstep with masks."""
+    _check_rules(tape)
     _check_autonomous(tape)
     K, n_eq = tape.order, tape.n_eq
     B = state.shape[1]
@@ -332,6 +350,16 @@ def prop_plain(tape: JetTape, state, pars, aux, auxi, n_steps: int,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check_rules(tape: JetTape):
+    """Kernels B1/B2 and their twins know only ``JET_OPS``; a tape with
+    other ops (a phase tape, ``jet_phase.PhaseTape``) raises."""
+    bad = sorted(tape.ops - set(JET_OPS))
+    if bad:
+        raise UnsupportedKernelOp(
+            f"op {bad[0]!r} has no rule in kernels B1/B2 (rule set: "
+            f"{', '.join(JET_OPS)})")
+
+
 def _check_autonomous(tape: JetTape):
     if tape.time_col is not None:
         raise UnsupportedKernelOp(
@@ -367,6 +395,7 @@ def jet(tape: JetTape, state, pars, t=None):
     B)`` and, for a tape with a time column, times ``t (B,)`` -> ``(tc
     (n_eq, K+1, B), norms (3, B))``.  A CPU tensor runs :func:`jet_plain`;
     a CUDA tensor launches kernel B2 (``hy_jet_f64``)."""
+    _check_rules(tape)
     dev = _device_of(state, tape)
     if dev.type == "cpu":
         return jet_plain(tape, state, pars, t)
@@ -401,6 +430,7 @@ def prop(tape: JetTape, state, pars, aux, auxi, n_steps: int,
     int32`` (the step budget) -> ``(state (n_eq, B), of (5, B), oi (3, B)
     int32)``.  A CPU tensor runs :func:`prop_plain`; a CUDA tensor
     launches kernel B1 (``hy_prop_f64``)."""
+    _check_rules(tape)
     dev = _device_of(state, tape)
     _check_autonomous(tape)
     if dev.type == "cpu":

@@ -182,10 +182,28 @@ def test_dfloat_matches_jax():
 
 
 def test_unsupported_op_raises():
+    # a sin tape: kernels B1/B2 (their jet) and the rolled route B3 still
+    # refuse it; the batch integrator routes it to the phase jet (B4)
+    from heyoka_tpu_torch.taylor import jet_kernels as jk
+    from heyoka_tpu_torch.taylor import jet_phase as jp
+    from heyoka_tpu_torch.taylor import jet_rolled as jr
+
     x, y = ht.make_vars("x", "y")
-    with pytest.raises(ht.UnsupportedKernelOp, match="sin"):
-        ht.taylor_adaptive_batch([(x, ht.math.sin(y)), (y, -x)],
-                                 np.ones((2, 2)), device="cpu")
+    sys_ = [(x, ht.math.sin(y)), (y, -x)]
+    arrays = ht.plan_to_arrays(p_build_plan(p_decompose(sys_), 8))
+    st = torch.ones(2, 3, dtype=torch.float64)
+    pars = torch.zeros(0, 3, dtype=torch.float64)
+    with pytest.raises(ht.UnsupportedKernelOp, match="cos|sin"):
+        jk.jet(jp.PhaseTape(arrays, "cpu"), st, pars)
+    with pytest.raises(ht.UnsupportedKernelOp, match="cos|sin"):
+        jk.JetTape(arrays, "cpu")
+    with pytest.raises(ht.UnsupportedKernelOp, match="cos|sin"):
+        jr.RolledTape(arrays, "cpu")
+    ta = ht.taylor_adaptive_batch(sys_, np.ones((2, 2)), device="cpu")
+    assert ta.engine_report() == dict(device="cpu", jet="phase_plain",
+                                      propagate_engine="flat", prop=None)
+    ta.step()
+    assert np.isfinite(ta.state).all() and (ta.time > 0).all()
 
 
 def test_port_runs_without_jax():

@@ -15,8 +15,11 @@ import heyoka_tpu_torch as ht
 from heyoka_tpu_torch.expr.decompose import taylor_decompose_sys
 from heyoka_tpu_torch.taylor import batch as tbatch
 from heyoka_tpu_torch.taylor import jet_kernels as jk
+from heyoka_tpu_torch.taylor import jet_phase as jp
 from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
+
+from chip_smoke import pendulum_lanes, phase_cases, phase_lanes, seeded_buffer
 
 MASSES = [1.0, 1e-3, 2e-3]
 BASE = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
@@ -221,6 +224,76 @@ def test_slice_on_cuda_matches_cpu(cuda):
     assert rg[0] == rc[0] and (g.time == 5.0).all()
     np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-11)
     assert g.engine_report()["prop"] == "hy_prop_f64"
+    g.step()
+    c.step()
+    np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-11)
+
+
+PHASE_CASES = phase_cases(ht)
+
+
+def _phase_tape(name, order, device):
+    plan = build_plan(taylor_decompose_sys(PHASE_CASES[name][0]), order)
+    return jp.PhaseTape(ht.plan_to_arrays(plan), device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(PHASE_CASES))
+def test_phase_kernel_matches_plain(cuda, name):
+    # kernel B4 against its twin from lo = 1 and from lo = 9 (the lower
+    # orders from the twin, the rest NaN): 1e-13 relative per order, f64
+    # in both, only the summation order inside the convolutions differs
+    B, K = 200, 15
+    tape = _phase_tape(name, K, cuda)
+    st0, pars = PHASE_CASES[name][1:]
+    tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, B, 5), cuda)
+    n0 = jk.LAUNCHES["phase"]
+    tc_k = jp.phase(tape, tc0.clone(), 1)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["phase"] == n0 + 1
+    tc_p = jp.phase_plain(tape, tc0.clone(), 1)
+    tc9 = tc_p.clone()
+    tc9[9:, :tape.n_eq + tape.arrays["arg_ptr"].size - 1] = float("nan")
+    jp.phase(tape, tc9, 9)
+    torch.cuda.synchronize()
+    for tc in (tc_k, tc9):
+        assert bool(torch.isfinite(tc).all())
+        rel = _per_order_rel(tc.permute(1, 0, 2), tc_p.permute(1, 0, 2))
+        assert float(rel.max()) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_phase_rejects_bad_inputs(cuda):
+    tape = _phase_tape("pendulum", 8, cuda)
+    tc = seeded_buffer(tape, pendulum_lanes(4, 0), np.zeros((4, 0)),
+                       np.zeros(4), cuda)
+    with pytest.raises(ValueError):
+        jp.phase(tape, tc.float(), 1)  # dtype
+    with pytest.raises(ValueError):
+        jp.phase(tape, tc[:, :-1].contiguous(), 1)  # shape
+    with pytest.raises(ValueError):
+        jp.phase(tape, tc.cpu(), 1)  # the tables live on the card
+    with pytest.raises(ValueError):
+        jp.phase(tape, tc.transpose(1, 2).contiguous().transpose(1, 2), 1)
+    with pytest.raises(ValueError):
+        jp.phase(tape, tc, 0)  # order 0 is not the kernel's
+
+
+@pytest.mark.gpu
+def test_pendulum_slice_on_cuda_matches_cpu(cuda):
+    st = pendulum_lanes(8, 6)
+    kw = dict(tol=1e-15, high_accuracy=True)
+    c = ht.taylor_adaptive_batch(ht.models.pendulum(), st, device="cpu", **kw)
+    g = ht.taylor_adaptive_batch(ht.models.pendulum(), st, device=cuda, **kw)
+    assert g.engine_report()["jet"] == "hy_phase_f64"
+    n0 = dict(jk.LAUNCHES)
+    rc = c.propagate_until(5.0)
+    rg = g.propagate_until(5.0)
+    assert jk.LAUNCHES["phase"] > n0["phase"]
+    assert all(jk.LAUNCHES[k] == n0[k] for k in ("jet", "prop",
+                                                  "jet_rolled"))
+    assert rg[0] == rc[0] and (g.time == 5.0).all()
+    np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-11)
     g.step()
     c.step()
     np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-11)
