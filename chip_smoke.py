@@ -53,21 +53,32 @@ if anything is missing or any check fails.  Phases, one line each:
     device's busy and idle shares;
 12. the time of B4 against ``phase_plain`` on the card: 10,240 pendulum
     lanes and 1,024 lanes of the widest mixed tape, with one whole
-    ``jet_phase`` beside each.
+    ``jet_phase`` beside each;
+13. the convolution microbenchmark (kernel T1, ``tools.microbench_conv.
+    run``): ``hy_conv_f32`` and ``hy_conv_dd`` at K = 20, N = 204,800
+    against their plain versions (f32 to 1e-6, two-f32 ``hi + lo`` to
+    1e-12, relative to max(1, |c|)) and the f64 reference, their times and
+    the grouped ``conv1d`` (cuDNN's TF32 off) beside the f32 kernel;
+14. the f32 phase prototype (kernel T2, ``tools.proto_phase.run``):
+    ``hy_proto_phase_f32`` on the outer-Solar-System tape, orders 9..19 at
+    10,240 lanes, against its plain body (1e-5 of each order's largest
+    magnitude), and kernel B4 in f64 from lo = 9 on the same buffer: the
+    times of both and the per-order difference of f32 against f64.
 
-The line before the last is the kernels' JSON summary; the last line is
+The line before the last is the kernels' JSON summary (each kernel's
+launches on its path, its error against its plain version, its time, its
+plain version's, its bound from ``tools.roofline`` and, where one torch
+call computes the same function, that call's time); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-import bench  # the north-star constants (MASSES, GCONST, IC); numpy only
 import heyoka_tpu_torch as ht
 from heyoka_tpu_torch import _build
 from heyoka_tpu_torch.models import nbody
@@ -76,6 +87,10 @@ from heyoka_tpu_torch.taylor import jet_phase as jp
 from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.taylor.stepper import taylor_order_from_tol
+from heyoka_tpu_torch.tools import (
+    GCONST, IC, MASSES, cuda_ms, microbench_conv, proto_phase, smi_line,
+)
+from heyoka_tpu_torch.tools import roofline as rl
 
 TOL = 1e-15
 B_CHECK = 256
@@ -105,11 +120,22 @@ PROFILE_T = 10.0  # the window of phase 11 timed under the profiler
 SOURCES = {"hy_jet_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_prop_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_jet_rolled_f64": "heyoka_tpu_torch/csrc/taylor_jet_rolled.cu",
-           "hy_phase_f64": "heyoka_tpu_torch/csrc/taylor_phase.cu"}
+           "hy_phase_f64": "heyoka_tpu_torch/csrc/taylor_phase.cu",
+           "hy_conv_f32": "heyoka_tpu_torch/csrc/conv_microbench.cu",
+           "hy_conv_dd": "heyoka_tpu_torch/csrc/conv_microbench.cu",
+           "hy_proto_phase_f32": "heyoka_tpu_torch/csrc/proto_phase.cu"}
 REPLACES = {"hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
             "hy_prop_f64": "heyoka_tpu/taylor/pallas_phase.py:2454",
             "hy_jet_rolled_f64": "heyoka_tpu/taylor/pallas_phase.py:1842",
-            "hy_phase_f64": "heyoka_tpu/taylor/pallas_phase.py:899"}
+            "hy_phase_f64": "heyoka_tpu/taylor/pallas_phase.py:899",
+            "hy_conv_f32": "tools/microbench_pallas_conv.py:48",
+            "hy_conv_dd": "tools/microbench_pallas_conv.py:92",
+            "hy_proto_phase_f32": "tools/proto_pallas_phase.py:240"}
+#: the kernels' names in ptxas's log, longest first where one name holds
+#: another
+PTXAS_NAMES = ("jet_rolled_kernel", "jet_kernel", "prop_kernel",
+               "proto_phase_kernel", "phase_kernel", "conv_f32_kernel",
+               "conv_dd_kernel")
 
 
 def say(phase, **kv):
@@ -207,18 +233,13 @@ def per_order_rel(a, b):
             / torch.where(scale > 0, scale, torch.ones_like(scale)))
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs."""
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+def timed(ms_runs, plain_runs, bnd):
+    """A jet kernel's entry of the kernels' line: the mean of its two
+    windows, its plain twin's, and its bound; no single torch call computes
+    a jet, so ``library_ms`` is None."""
+    return dict(ms=sum(ms_runs) / 2, plain_ms=sum(plain_runs) / 2,
+                library_ms=None, bound_ms=bnd["bound_ms"],
+                bound_by=bnd["bound_by"])
 
 
 def main():
@@ -226,10 +247,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(smi, flush=True)
     say(1, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
@@ -245,14 +263,13 @@ def main():
     ptxas, fn = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            fn = next(w for w in ("jet_rolled_kernel", "jet_kernel",
-                                  "prop_kernel", "phase_kernel") if w in ln)
+            fn = next(w for w in PTXAS_NAMES if w in ln)
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(
                 ln.split("ptxas info    : ")[-1].strip())
     say(2, build_s=build_s, ptxas=ptxas)
 
-    sys_ = nbody(6, masses=bench.MASSES, Gconst=bench.GCONST)
+    sys_ = nbody(6, masses=MASSES, Gconst=GCONST)
     order = taylor_order_from_tol(TOL)
     plan = build_plan(ht.taylor_decompose_sys(sys_), order)
     tape = jk.JetTape(ht.plan_to_arrays(plan), dev)
@@ -260,7 +277,7 @@ def main():
     no_pars = torch.zeros((0, B_CHECK), dtype=torch.float64, device=dev)
 
     # -- 3. B2 against jet_plain ------------------------------------------------
-    st = torch.as_tensor(lanes(bench.IC, B_CHECK, 1).T.copy(), device=dev)
+    st = torch.as_tensor(lanes(IC, B_CHECK, 1).T.copy(), device=dev)
     tc_k, nrm_k = jk.jet(tape, st, no_pars)
     torch.cuda.synchronize()
     tc_p, nrm_p = jk.jet_plain(tape, st, no_pars)
@@ -297,12 +314,12 @@ def main():
         max_abs_err=prop_err, time_max_rel=acc_rel, tol=PROP_RTOL)
 
     # -- 5. the slice -------------------------------------------------------------
-    ics = lanes(bench.IC, B_MAIN, 0)
+    ics = lanes(IC, B_MAIN, 0)
     kw = dict(tol=TOL, high_accuracy=True)
     warm = ht.taylor_adaptive_batch(sys_, ics[:CHUNK], device=dev, **kw)
     warm.propagate_until(1.0)
     ta = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
-    e0 = energy(torch.as_tensor(ics, device=dev), bench.MASSES, bench.GCONST)
+    e0 = energy(torch.as_tensor(ics, device=dev), MASSES, GCONST)
     torch.cuda.synchronize()
     for k in jk.LAUNCHES:
         jk.LAUNCHES[k] = 0
@@ -320,8 +337,8 @@ def main():
     st_end = ta.state
     check(st_end.shape == (B_MAIN, n_eq) and bool(np.isfinite(st_end).all()),
           "the slice: bad final state")
-    e1 = energy(torch.as_tensor(st_end, device=dev), bench.MASSES,
-                bench.GCONST)
+    e1 = energy(torch.as_tensor(st_end, device=dev), MASSES,
+                GCONST)
     drift = float(((e1 - e0).abs() / e0.abs()).max())
     check(drift <= DRIFT_MAX, f"the slice: energy drift {drift}")
     ref = ht.taylor_adaptive_batch(sys_, ics[:REF_LANES], device="cpu", **kw)
@@ -337,7 +354,7 @@ def main():
         cpu_ref_max_rel=ref_rel, engine=ta.engine_report())
 
     # -- 6. kernel vs plain at 10,240 lanes -----------------------------------------
-    stm = torch.as_tensor(lanes(bench.IC, B_MAIN, 2).T.copy(), device=dev)
+    stm = torch.as_tensor(lanes(IC, B_MAIN, 2).T.copy(), device=dev)
     np_m = torch.zeros((0, B_MAIN), **f64)
     aux_m = torch.stack([torch.full((B_MAIN,), float("inf"), **f64),
                          torch.ones(B_MAIN, **f64),
@@ -353,20 +370,19 @@ def main():
                  lambda: jk.prop_plain(tape, stm, np_m, aux_m, auxi_m,
                                        CHUNK)),
     }
-    times = {}
+    t = {}
     for name, (kern, plain) in runs.items():
         p1 = cuda_ms(plain, 1)
         k1 = cuda_ms(kern, 3)
         k2 = cuda_ms(kern, 3)
         p2 = cuda_ms(plain, 1)
-        times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                           ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+        t[name] = ([k1, k2], [p1, p2])
     # the same comparisons as phases 3 and 4, at the main path's width
-    tc_k, _ = runs["jet"][0]()
+    tc_k, nrm_k = runs["jet"][0]()
     tc_p, _ = runs["jet"][1]()
     rel_m = float(per_order_rel(tc_k, tc_p).max())
     check(rel_m <= JET_RTOL, f"B2 vs jet_plain at B={B_MAIN}: {rel_m}")
-    sk, _, oik = runs["prop"][0]()
+    sk, ofk, oik = runs["prop"][0]()
     sp, _, oip = runs["prop"][1]()
     check(torch.equal(oik, oip), f"B1 vs prop_plain at B={B_MAIN}: flags")
     prop_rel_m = float(((sk - sp).abs().amax(1) / sp.abs().amax(1)).max())
@@ -374,20 +390,40 @@ def main():
           f"B1 vs prop_plain at B={B_MAIN}: state {prop_rel_m}")
     jet_err = max(jet_err, float((tc_k - tc_p).abs().max()))
     prop_err = max(prop_err, float((sk - sp).abs().max()))
+    # bounds: B2 one jet a lane; B1 one jet a step taken, one more where a
+    # lane stopped on near or err, and the update of every step taken
+    jet_fl = rl.jet_flops(tape.arrays)
+    tables = (tape.itab, tape.dtab)
+    n_jets = int(oik[0].sum() + (oik[1] | oik[2]).sum())
+    n_steps = int(oik[0].sum())
+    bounds = {
+        "jet": rl.bound(jet_fl * B_MAIN,
+                        rl.nbytes(stm, np_m, *tables, tc_k, nrm_k),
+                        torch.float64),
+        "prop": rl.bound(n_jets * jet_fl
+                         + n_steps * rl.step_flops(n_eq, order),
+                         rl.nbytes(stm, np_m, aux_m, auxi_m, *tables, sk,
+                                   ofk, oik), torch.float64)}
+    times = {name: timed(*t[name], bounds[name]) for name in runs}
     say(6, B=B_MAIN, chunk_steps=CHUNK, nvidia_smi=smi,
-        jet_max_rel_per_order=rel_m, prop_state_max_rel=prop_rel_m, **times)
+        jet_max_rel_per_order=rel_m, prop_state_max_rel=prop_rel_m,
+        **{name: dict(times[name], ms_runs=t[name][0],
+                      plain_ms_runs=t[name][1], **bounds[name])
+           for name in runs})
 
     rolled = huge_tapes(dev, order, smi)
     phased = phase_tapes(dev, order, smi)
+    convs = conv_tool(dev, smi)
+    proto = proto_tool(dev, smi)
 
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
             ("hy_jet_rolled_f64", *rolled),
-            ("hy_phase_f64", *phased)]
+            ("hy_phase_f64", *phased),
+            *convs, proto]
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],
-             replaces=REPLACES[name], launches=n, max_abs_err=err,
-             ms=tm["ms"], plain_ms=tm["plain_ms"])
+             replaces=REPLACES[name], launches=n, max_abs_err=err, **tm)
         for name, n, err, tm in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -488,22 +524,25 @@ def huge_tapes(dev, order, smi):
     t = {name: [] for name in runs}
     for name in ("plain", "b2", "b3", "b3", "b2", "plain"):
         t[name].append(cuda_ms(runs[name], 3 if name == "b3" else 1))
-    tc_k, _ = runs["b3"]()
+    tc_k, nrm_k = runs["b3"]()
     tc_p, _ = runs["plain"]()
     rel_m = float(per_order_rel(tc_k, tc_p).max())
     check(rel_m <= JET_RTOL, f"B3 vs jet_rolled_plain at B={MASCON_B}")
+    bnd = rl.bound(rl.jet_flops(rtape.arrays) * MASCON_B,
+                   rl.nbytes(*args, rtape.ritab, rtape.rdtab, tc_k, nrm_k),
+                   torch.float64)
     rolled_err = max(rolled_err, float((tc_k - tc_p).abs().max()))
     # B2 against B3 on narrower tapes: where the rolled jet starts to pay
     sweep = {}
     tapes = {f"mascon{n}": mascon_tapes(mascon_body(n)[0], order, dev)
              for n in SWEEP_N}
     plan = build_plan(ht.taylor_decompose_sys(
-        nbody(6, masses=bench.MASSES, Gconst=bench.GCONST)), order)
+        nbody(6, masses=MASSES, Gconst=GCONST)), order)
     ss = ht.plan_to_arrays(plan)
     tapes["outer_ss"] = (jr.RolledTape(ss, dev), jk.JetTape(ss, dev))
     for name, (rt, dtp) in tapes.items():
         if name == "outer_ss":
-            st = lanes(bench.IC, MASCON_B, 3)
+            st = lanes(IC, MASCON_B, 3)
         else:
             st = mascon_lanes(np.random.default_rng(1), MASCON_B)
         a = jet_args(st)
@@ -515,11 +554,10 @@ def huge_tapes(dev, order, smi):
         check(r <= JET_RTOL, f"B3 vs B2 on {name}: {r}")
         sweep[name] = dict(W=rt.width, b2_ms=b2, b3_ms=b3,
                            b2_over_b3=(sum(b2) / 2) / (sum(b3) / 2))
-    times = dict(ms=sum(t["b3"]) / 2, plain_ms=sum(t["plain"]) / 2)
     say(9, B=MASCON_B, nvidia_smi=smi, b3_ms_runs=t["b3"],
         plain_ms_runs=t["plain"], b2_ms_runs=t["b2"],
-        b3_vs_plain_max_rel_per_order=rel_m, sweep=sweep)
-    return launches["jet_rolled"], rolled_err, times
+        b3_vs_plain_max_rel_per_order=rel_m, b3_bound=bnd, sweep=sweep)
+    return launches["jet_rolled"], rolled_err, timed(t["b3"], t["plain"], bnd)
 
 
 def phase_cases(pkg):
@@ -753,10 +791,60 @@ def phase_tapes(dev, order, smi):
                           plain_ms_runs=t["plain"], max_rel_per_order=r,
                           jet_phase_ms=cuda_ms(
                               lambda: jp.jet_phase(tape, *jargs), 3))
+        runs[name].update(rl.bound(
+            rl.phase_flops(tape.arrays, 1) * B,
+            rl.phase_bytes(tape.arrays, B, 1, 8)
+            + rl.nbytes(tape.itab, tape.dtab), torch.float64))
     say(12, nvidia_smi=smi, **runs)
     tm = runs["pendulum"]
-    return launches["phase"], phase_err, dict(
-        ms=sum(tm["ms_runs"]) / 2, plain_ms=sum(tm["plain_ms_runs"]) / 2)
+    return launches["phase"], phase_err, timed(tm["ms_runs"],
+                                               tm["plain_ms_runs"], tm)
+
+
+def tool_row(name, n, res):
+    """A tool kernel's entry of the kernels' line from its ``run`` result."""
+    return (name, n, res["max_abs_err"], {
+        k: res.get(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")})
+
+
+def conv_tool(dev, smi):
+    """Phase 13, the convolution microbenchmark: the tool's ``run`` (both
+    kernels checked against their plain versions, else it raises), then
+    each kernel's error against f64: f32 over 20-term sums within 1e-5,
+    two-f32 within 1e-12 (relative to max(1, |c|)).  Returns the kernels'
+    rows."""
+    for k in jk.LAUNCHES:
+        jk.LAUNCHES[k] = 0
+    res = microbench_conv.run(dev)
+    launches = dict(jk.LAUNCHES)
+    check(launches["conv_f32"] > 0 and launches["conv_dd"] > 0,
+          f"T1: kernels launched {launches}")
+    check(res["f32"]["rel_err_vs_f64"] <= 1e-5
+          and res["dd"]["rel_err_vs_f64"] <= 1e-12,
+          f"T1 vs f64: {res['f32']['rel_err_vs_f64']}, "
+          f"{res['dd']['rel_err_vs_f64']}")
+    say(13, nvidia_smi=smi, launches=launches, **res)
+    return [tool_row("hy_conv_f32", launches["conv_f32"], res["f32"]),
+            tool_row("hy_conv_dd", launches["conv_dd"], res["dd"])]
+
+
+def proto_tool(dev, smi):
+    """Phase 14, the f32 phase prototype: the tool's ``run`` (T2 checked
+    against its plain body, else it raises; B4 in f64 from lo = 9 beside
+    it), and T2's orders within 1e-4 relative of B4's, per order.  Returns
+    T2's row."""
+    for k in jk.LAUNCHES:
+        jk.LAUNCHES[k] = 0
+    res = proto_phase.run(dev)
+    launches = dict(jk.LAUNCHES)
+    check(launches["proto_phase"] > 0 and launches["phase"] > 0,
+          f"T2: kernels launched {launches}")
+    vs64 = res["f32_vs_f64_rel_per_order"]
+    check(all(np.isfinite(vs64)) and max(vs64) <= 1e-4,
+          f"T2 (f32) vs B4 (f64) per order: {vs64}")
+    say(14, nvidia_smi=smi, launches=launches, **res)
+    return tool_row("hy_proto_phase_f32", launches["proto_phase"], res)
 
 
 if __name__ == "__main__":

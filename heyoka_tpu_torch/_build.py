@@ -49,6 +49,12 @@ SIGNATURES = {
     "hy_jet_rolled_f64": (_P,) * 10 + (_I, _P),
     # itab, dtab, tc, syn, B, lo, stream
     "hy_phase_f64": (_P,) * 4 + (_I, _I, _P),
+    # a, b, c, N, K, stream
+    "hy_conv_f32": (_P,) * 3 + (_I, _I, _P),
+    # ahi, alo, bhi, blo, chi, clo, N, K, stream
+    "hy_conv_dd": (_P,) * 6 + (_I, _I, _P),
+    # itab, dtab, tc, B, lo, stream
+    "hy_proto_phase_f32": (_P,) * 3 + (_I,) * 2 + (_P,),
 }
 
 

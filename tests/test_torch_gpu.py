@@ -18,6 +18,8 @@ from heyoka_tpu_torch.taylor import jet_kernels as jk
 from heyoka_tpu_torch.taylor import jet_phase as jp
 from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
+from heyoka_tpu_torch.tools import microbench_conv as mc
+from heyoka_tpu_torch.tools import proto_phase as pp
 
 from chip_smoke import pendulum_lanes, phase_cases, phase_lanes, seeded_buffer
 
@@ -297,3 +299,88 @@ def test_pendulum_slice_on_cuda_matches_cpu(cuda):
     g.step()
     c.step()
     np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [300, mc.N])  # a ragged block; the tool's N
+def test_conv_kernels_match_plain(cuda, n):
+    # kernel T1 against its plain versions: f32 to 1e-6 and two-f32 hi + lo
+    # to 1e-12, relative to max(1, |c|); the same arithmetic in the same
+    # order without FMA in both
+    a64, b64, dd_np = mc.inputs(n, seed=1)
+    a, b = (torch.as_tensor(x, device=cuda).float() for x in (a64, b64))
+    dd = tuple(torch.as_tensor(x, device=cuda) for x in dd_np)
+    n0 = dict(jk.LAUNCHES)
+    c = mc.conv_f32(a, b)
+    hi, lo = mc.conv_dd(*dd)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["conv_f32"] == n0["conv_f32"] + 1
+    assert jk.LAUNCHES["conv_dd"] == n0["conv_dd"] + 1
+    assert mc.rel_err(c, mc.conv_f32_plain(a, b)) <= mc.F32_RTOL
+    phi, plo = mc.conv_dd_plain(*dd)
+    assert mc.rel_err(hi.double() + lo.double(),
+                      phi.double() + plo.double()) <= mc.DD_RTOL
+    c64 = mc.conv_f64(*(torch.as_tensor(x, device=cuda) for x in (a64, b64)))
+    assert mc.rel_err(hi.double() + lo.double(), c64) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_conv_rejects_bad_inputs(cuda):
+    a = torch.ones((mc.K, 64), device=cuda)
+    with pytest.raises(ValueError):
+        mc.conv_f32(a.double(), a.double())  # dtype
+    with pytest.raises(ValueError):
+        mc.conv_f32(a[:8].contiguous(), a[:8].contiguous())  # K
+    with pytest.raises(ValueError):
+        mc.conv_f32(a, a[:, :32].contiguous())  # shapes differ
+    with pytest.raises(ValueError):
+        mc.conv_dd(a, a, a, a.t().contiguous().t())  # not contiguous
+
+
+def _mixed_pow():
+    # sum, mul and one pow group holding the exponents -1.5 and 2.5
+    x, y = ht.make_vars("x", "y")
+    return [(x, y * (x * x + y * y + 2.0) ** -1.5),
+            (y, -x + 0.01 * (x * x + y * y + 1.0) ** 2.5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["outer_ss_small", "outer_ss", "mixed"])
+def test_proto_phase_kernel_matches_plain(cuda, case):
+    # kernel T2 against its plain body: per order within 1e-5 of the
+    # order's largest magnitude (f32 over sums of up to 20 terms; the same
+    # order without FMA in both)
+    if case == "mixed":
+        plan, ic, n_lanes, lo = (build_plan(taylor_decompose_sys(
+            _mixed_pow()), 15), np.array([0.6, -0.4]), 200, 5)
+    else:
+        plan, ic, lo = pp.outer_ss_plan(), pp.IC, pp.LO
+        n_lanes = 100 if case == "outer_ss_small" else pp.B
+    tape = pp.ProtoTape(ht.plan_to_arrays(plan), cuda)
+    tc = pp.realistic_buffer(plan, ic, n_lanes, lo, cuda)
+    ref = pp.phase_body_plain(plan, lo, plan.order, plan.n_eq)(tc)
+    n0 = jk.LAUNCHES["proto_phase"]
+    # the kernel takes B4's (K+1, W, B) buffer
+    got = pp.phase_f32(tape, tc.permute(1, 0, 2).contiguous(),
+                       lo).permute(1, 0, 2)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["proto_phase"] == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[:, :lo], tc[:, :lo])
+    assert float(pp.per_order_rel(got, ref)[lo:].max()) <= pp.RTOL
+
+
+@pytest.mark.gpu
+def test_proto_phase_rejects_bad_inputs(cuda):
+    plan = pp.outer_ss_plan(8)
+    tape = pp.ProtoTape(ht.plan_to_arrays(plan), cuda)
+    tc = pp.realistic_buffer(plan, pp.IC, 4, 4, cuda).permute(
+        1, 0, 2).contiguous()
+    with pytest.raises(ValueError):
+        pp.phase_f32(tape, tc.double(), 4)  # dtype
+    with pytest.raises(ValueError):
+        pp.phase_f32(tape, tc.permute(1, 0, 2).contiguous(), 4)  # layout
+    with pytest.raises(ValueError):
+        pp.phase_f32(tape, tc.cpu(), 4)  # the tables live on the card
+    with pytest.raises(ValueError):
+        pp.phase_f32(tape, tc, 0)  # order 0 is not the kernel's
