@@ -7,10 +7,14 @@ CUDA device and ``nvcc`` (the kernels are built from
 if anything is missing or any check fails.  Phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of the kernels, with its time and ptxas's register counts;
+2. the build of the kernels, with its time, ptxas's register counts per
+   kernel instance (B1/B2 come in one instance per lanes-a-block and
+   layout) and the dynamic shared memory a block of B1/B2 takes on the
+   outer-Solar-System tape (``jet_kernels.block_layout``);
 3. kernel B2 (``hy_jet_f64``) against ``jet_plain`` on the card: the
-   outer-Solar-System tape at order 19 and 256 lanes; coefficients agree
-   to 1e-13 relative per order (normalised by the order's max over lanes);
+   outer-Solar-System tape at order 19 and 256 lanes, the jets in shared
+   memory; coefficients agree to 1e-13 relative per order (normalised by
+   the order's max over lanes);
 4. kernel B1 (``hy_prop_f64``) against ``prop_plain``: the same lanes,
    one 64-step chunk; per-lane step counts and flags equal, state within
    1e-11 relative;
@@ -19,9 +23,14 @@ if anything is missing or any check fails.  Phases, one line each:
    ``propagate_until(100.0)``: every lane lands on t = 100 exactly with
    ``time_limit``, both kernels ran, the relative energy drift is at most
    1e-12, and 4 lanes agree with the port's CPU run of the same lanes;
+   then the same lanes through the rolled route (B3 and the per-step
+   driver), timed beside it for ROADMAP A.16 and held to the fused
+   route's states;
 6. the time of one B2 launch and one 64-step B1 chunk at 10,240 lanes
    against their plain twins on the card (CUDA events), and the phase 3
-   and 4 comparisons again at that width;
+   and 4 comparisons again at that width; then both kernels at every
+   block shape they take (1, 2 or 3 lanes x 128 or 256 threads), equal
+   bit for bit to the default's, with their times and the fastest;
 7. kernel B3 (``hy_jet_rolled_f64``) on the mascon-512 tape of
    ``benchmarks/mascon_bench.py`` at order 19 and 256 of its lanes,
    against ``jet_rolled_plain`` and against B2 on the same inputs: 1e-13
@@ -36,7 +45,9 @@ if anything is missing or any check fails.  Phases, one line each:
 9. the time of one B3 jet at 1,024 lanes on mascon-512 against
    ``jet_rolled_plain`` and B2, and B2 against B3 on mascon-32/128/256
    and on the outer-Solar-System tape (the data behind
-   ``taylor.batch.ROLLED_MIN_WIDTH``);
+   ``taylor.batch.ROLLED_MIN_WIDTH``); B2 takes the global layout from
+   mascon-128 up (one lane's jet over 227 KB), and is held against
+   ``jet_plain`` there at 1e-13 per order, norms too;
 10. kernel B4 (``hy_phase_f64``) against ``phase_plain`` on the card, on
     the tapes of :func:`phase_cases` (the pendulum, five mixed systems,
     two more for the hyperbolic and logical ops, and one system per op),
@@ -73,6 +84,7 @@ call computes the same function, that call's time); the last line is
 """
 
 import json
+import re
 import sys
 import time
 
@@ -136,6 +148,19 @@ REPLACES = {"hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
 PTXAS_NAMES = ("jet_rolled_kernel", "jet_kernel", "prop_kernel",
                "proto_phase_kernel", "phase_kernel", "conv_f32_kernel",
                "conv_dd_kernel")
+#: block shapes of B1/B2 with the jets in shared memory timed in phase 6
+SWEEP_LANES = (1, 2, 3)
+SWEEP_THREADS = (128, 256)
+
+
+def ptxas_name(line):
+    """A kernel's name in a ptxas line, with its template arguments
+    (``jet_kernel<3,smem>``) where it has them."""
+    fn = next(w for w in PTXAS_NAMES if w in line)
+    m = re.search(fn + r"ILi(\d+)ELb([01])E", line)
+    if m:
+        fn += f"<{m.group(1)},{'smem' if m.group(2) == '1' else 'global'}>"
+    return fn
 
 
 def say(phase, **kv):
@@ -263,16 +288,24 @@ def main():
     ptxas, fn = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            fn = next(w for w in PTXAS_NAMES if w in ln)
+            fn = ptxas_name(ln)
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(
                 ln.split("ptxas info    : ")[-1].strip())
-    say(2, build_s=build_s, ptxas=ptxas)
-
     sys_ = nbody(6, masses=MASSES, Gconst=GCONST)
     order = taylor_order_from_tol(TOL)
     plan = build_plan(ht.taylor_decompose_sys(sys_), order)
     tape = jk.JetTape(ht.plan_to_arrays(plan), dev)
+    layout = jk.layout_report(tape)
+    # the dynamic shared memory of a B1/B2 block on the outer-SS tape, the
+    # tables included, and the blocks an SM holds; phase 7 gives
+    # mascon-512's (the global layout)
+    launch_smem = jk._launch_cfg(tape, B_MAIN, dev)[2]
+    say(2, build_s=build_s, ptxas=ptxas,
+        smem_per_block=dict(layout, threads=jk.THREADS,
+                            launch_bytes=launch_smem,
+                            blocks_per_sm=jk.blocks_per_sm(launch_smem,
+                                                           jk.THREADS)))
     n_eq = tape.n_eq
     no_pars = torch.zeros((0, B_CHECK), dtype=torch.float64, device=dev)
 
@@ -288,7 +321,7 @@ def main():
           f"B2 vs jet_plain: per-order relative error {float(rel.max())}")
     check(bool(torch.allclose(nrm_k, nrm_p, rtol=JET_RTOL, atol=0)),
           "B2 vs jet_plain: norms")
-    say(3, B=B_CHECK, order=order, W=tape.width,
+    say(3, B=B_CHECK, order=order, W=tape.width, layout=layout,
         max_rel_per_order=float(rel.max()), max_abs_err=jet_err,
         tol=JET_RTOL)
 
@@ -310,7 +343,7 @@ def main():
     check(prop_rel <= PROP_RTOL, f"B1 vs prop_plain: state {prop_rel}")
     acc_rel = float(((ofk[0] - ofp[0]).abs() / ofp[0].abs()).max())
     check(acc_rel <= PROP_RTOL, f"B1 vs prop_plain: time {acc_rel}")
-    say(4, B=B_CHECK, steps=CHUNK, state_max_rel=prop_rel,
+    say(4, B=B_CHECK, steps=CHUNK, layout=layout, state_max_rel=prop_rel,
         max_abs_err=prop_err, time_max_rel=acc_rel, tol=PROP_RTOL)
 
     # -- 5. the slice -------------------------------------------------------------
@@ -348,10 +381,12 @@ def main():
     check(ref_oc == oc[:REF_LANES] and ref_rel <= REF_RTOL,
           f"the slice vs the CPU run: {ref_rel}")
     steps = int(nsteps.sum())
+    rolled = rolled_route(sys_, ics, kw, st_end, dev)
     say(5, B=B_MAIN, t_end=T_END, wall_s=wall, lane_steps=steps,
         steps_per_s=steps / wall, mean_steps_per_lane=steps / B_MAIN,
         launches=launches, energy_drift_max_rel=drift,
-        cpu_ref_max_rel=ref_rel, engine=ta.engine_report())
+        cpu_ref_max_rel=ref_rel, engine=ta.engine_report(),
+        rolled_route=rolled)
 
     # -- 6. kernel vs plain at 10,240 lanes -----------------------------------------
     stm = torch.as_tensor(lanes(IC, B_MAIN, 2).T.copy(), device=dev)
@@ -404,12 +439,15 @@ def main():
                          + n_steps * rl.step_flops(n_eq, order),
                          rl.nbytes(stm, np_m, aux_m, auxi_m, *tables, sk,
                                    ofk, oik), torch.float64)}
-    times = {name: timed(*t[name], bounds[name]) for name in runs}
+    times = {name: dict(timed(*t[name], bounds[name]), **layout)
+             for name in runs}
+    shapes = block_shapes(tape, stm, np_m, aux_m, auxi_m, (tc_k, nrm_k),
+                          (sk, ofk, oik))
     say(6, B=B_MAIN, chunk_steps=CHUNK, nvidia_smi=smi,
         jet_max_rel_per_order=rel_m, prop_state_max_rel=prop_rel_m,
         **{name: dict(times[name], ms_runs=t[name][0],
                       plain_ms_runs=t[name][1], **bounds[name])
-           for name in runs})
+           for name in runs}, block_shapes=shapes)
 
     rolled = huge_tapes(dev, order, smi)
     phased = phase_tapes(dev, order, smi)
@@ -429,6 +467,73 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def rolled_route(sys_, ics, kw, st_fused, dev):
+    """The same lanes and horizon as phase 5 through the rolled route
+    (kernel B3 and the per-step driver: ``ROLLED_MIN_WIDTH`` lowered below
+    the tape's width while the integrators are built), after phase 5's
+    launch counts were read: its lane-steps/s beside the fused B1 route's
+    (ROADMAP A.16); every lane lands on the target and the states agree
+    with the fused route's to ``REF_RTOL``."""
+    from heyoka_tpu_torch.taylor import batch as tbatch
+    min_width = tbatch.ROLLED_MIN_WIDTH
+    tbatch.ROLLED_MIN_WIDTH = 0
+    try:
+        warm = ht.taylor_adaptive_batch(sys_, ics[:CHUNK], device=dev, **kw)
+        tr = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
+    finally:
+        tbatch.ROLLED_MIN_WIDTH = min_width
+    check(tr.engine_report()["jet"] in ("hy_jet_rolled_f64",
+                                         "jet_rolled_plain"),
+          "phase 5: the rolled route did not take B3")
+    warm.propagate_until(1.0)
+    n0 = jk.LAUNCHES["jet_rolled"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oc, _, _, nsteps = tr.propagate_until(T_END)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((tr.time == T_END).all()),
+          "phase 5, rolled route: a lane did not land on the target")
+    rel = float(np.abs(tr.state - st_fused).max() / np.abs(st_fused).max())
+    check(rel <= REF_RTOL, f"phase 5, rolled route vs fused: {rel}")
+    steps = int(nsteps.sum())
+    return dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
+                b3_launches=jk.LAUNCHES["jet_rolled"] - n0,
+                max_rel_vs_fused=rel)
+
+
+def block_shapes(tape, st, pars, aux, auxi, jet_ref, prop_ref):
+    """B2 and a 64-step B1 chunk at every block shape of
+    ``SWEEP_LANES`` x ``SWEEP_THREADS`` with the jets in shared memory:
+    each shape computes every item the same way, so its outputs must equal
+    the default shape's (``jet_ref``, ``prop_ref``) bit for bit.  Returns
+    the times, the fastest shape by B1's time, and the shape in use."""
+    res = {}
+    for L in SWEEP_LANES:
+        for nt in SWEEP_THREADS:
+            def jet_run():
+                return jk._jet_cuda(tape, st, pars, None, L, nt)
+
+            def prop_run():
+                return jk._prop_cuda(tape, st, pars, aux, auxi, CHUNK, True,
+                                     L, nt)
+
+            same = all(torch.equal(a, b) for a, b in zip(
+                (*jet_run(), *prop_run()), (*jet_ref, *prop_ref)))
+            check(same, f"B1/B2 with {L} lanes x {nt} threads differ from "
+                  "the default block shape")
+            smem = jk._launch_cfg(tape, st.shape[1], st.device, L, nt)[2]
+            res[f"{L}x{nt}"] = dict(jet_ms=cuda_ms(jet_run, 3),
+                                    prop_ms=cuda_ms(prop_run, 2),
+                                    launch_smem_bytes=smem,
+                                    blocks_per_sm=jk.blocks_per_sm(smem, nt))
+    return dict(times=res, fastest_prop=min(
+        res, key=lambda c: res[c]["prop_ms"]), fastest_jet=min(
+        res, key=lambda c: res[c]["jet_ms"]),
+        chosen=f"{jk.LANES}x{jk.THREADS}")
 
 
 def huge_tapes(dev, order, smi):
@@ -465,6 +570,7 @@ def huge_tapes(dev, order, smi):
     say(7, B=B_CHECK, order=order, W=rtape.width, classes=rtape.sizes,
         vs_plain_max_rel_per_order=rel["plain"],
         vs_b2_max_rel_per_order=rel["b2"], max_abs_err=rolled_err,
+        b2_layout=jk.layout_report(dtape),
         equal_to_b2=bool(torch.equal(tc_k, tc_2)), tol=JET_RTOL)
 
     # -- 8. the slice: mascon-512 at 1,024 lanes ----------------------------------
@@ -553,10 +659,23 @@ def huge_tapes(dev, order, smi):
                                 jk.jet(dtp, *a)[0]).max())
         check(r <= JET_RTOL, f"B3 vs B2 on {name}: {r}")
         sweep[name] = dict(W=rt.width, b2_ms=b2, b3_ms=b3,
-                           b2_over_b3=(sum(b2) / 2) / (sum(b3) / 2))
+                           b2_over_b3=(sum(b2) / 2) / (sum(b3) / 2),
+                           b2_layout=jk.layout_report(dtp))
+    # B2 on the global layout against its twin (mascon-128)
+    gtape = tapes["mascon128"][1]
+    check(jk.layout_report(gtape)["layout"] == "global",
+          "mascon-128: B2 not on the global layout")
+    a = jet_args(mascon_lanes(np.random.default_rng(2), MASCON_B))
+    (g_k, gn_k), (g_p, gn_p) = jk.jet(gtape, *a), jk.jet_plain(gtape, *a)
+    g_rel = float(per_order_rel(g_k, g_p).max())
+    g_nrel = float(((gn_k - gn_p).abs().amax(1) / gn_p.abs().amax(1)).max())
+    check(g_rel <= JET_RTOL and g_nrel <= JET_RTOL,
+          f"B2 (global layout) vs jet_plain on mascon-128: {g_rel}, {g_nrel}")
     say(9, B=MASCON_B, nvidia_smi=smi, b3_ms_runs=t["b3"],
         plain_ms_runs=t["plain"], b2_ms_runs=t["b2"],
-        b3_vs_plain_max_rel_per_order=rel_m, b3_bound=bnd, sweep=sweep)
+        b3_vs_plain_max_rel_per_order=rel_m, b3_bound=bnd, sweep=sweep,
+        b2_global_vs_plain=dict(tape="mascon128", max_rel_per_order=g_rel,
+                                norms_max_rel=g_nrel, tol=JET_RTOL))
     return launches["jet_rolled"], rolled_err, timed(t["b3"], t["plain"], bnd)
 
 
@@ -702,7 +821,7 @@ def phase_tapes(dev, order, smi):
     ta = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
     eng = ta.engine_report()
     check(eng == dict(device=str(dev), jet="hy_phase_f64",
-                      propagate_engine="flat", prop=None),
+                      propagate_engine="flat", prop=None, layout=None),
           f"pendulum: not the phase route: {eng}")
     e0 = pendulum_energy(torch.as_tensor(ics, device=dev))
     torch.cuda.synchronize()

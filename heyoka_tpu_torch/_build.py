@@ -40,11 +40,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p: ctypes would pass a bare Python int as a 32-bit int)
 SIGNATURES = {
-    # itab, dtab, state, pars, t, tc, out, norms, B, stream
-    "hy_jet_f64": (_P,) * 8 + (_I, _P),
+    # itab, dtab, state, pars, t, tc, out, norms, B, lanes, threads, smem,
+    # n_it, n_dt, stream
+    "hy_jet_f64": (_P,) * 8 + (_I,) * 6 + (_P,),
     # itab, dtab, state, pars, aux, auxi, tc, state_out, of, oi,
-    # B, n_steps, high_accuracy, stream
-    "hy_prop_f64": (_P,) * 10 + (_I, _I, _I, _P),
+    # B, n_steps, high_accuracy, lanes, threads, smem, n_it, n_dt, stream
+    "hy_prop_f64": (_P,) * 10 + (_I,) * 8 + (_P,),
     # itab, dtab, state, pars, t, H, C, V, out, norms, B, stream
     "hy_jet_rolled_f64": (_P,) * 10 + (_I, _P),
     # itab, dtab, tc, syn, B, lo, stream

@@ -37,7 +37,7 @@ from . import stepper as _st
 from .compact import build_plan
 from .compact_flat import make_batched_step_flat, make_propagate_until_flat
 from .fused import make_propagate_until_fused
-from .jet_kernels import JetTape, jet
+from .jet_kernels import JetTape, jet, layout_report
 from .jet_phase import PhaseTape, jet_phase
 from .jet_rolled import RolledTape, jet_rolled
 from .outcome import TaylorOutcome
@@ -46,10 +46,11 @@ from .outcome import TaylorOutcome
 CHUNK_STEPS = 64
 
 #: tapes with at least this many columns take the rolled jet (kernel B3)
-#: and the per-step driver.  On an H100 that route beat kernels B1/B2 at
-#: every width measured, the outer-Solar-System tape (381 columns)
-#: included (PERF.md); the threshold sits just above that tape, which
-#: keeps the north-star path on B1 until a change of its own moves it.
+#: and the per-step driver.  The threshold sits just above the
+#: outer-Solar-System tape (381 columns), which keeps the north-star path
+#: on kernel B1; whether it moves is ROADMAP A.16's decision, from the
+#: routes' times side by side in ``chip_smoke.py`` phases 5 and 9
+#: (PERF.md).
 ROLLED_MIN_WIDTH = 512
 
 
@@ -130,9 +131,11 @@ class TaylorAdaptiveBatch:
         ``jet_rolled_plain``; for a tape with ops outside B2's rule set
         kernel B4 ``hy_phase_f64`` / ``phase_plain``),
         ``propagate_engine`` (``"fused"``: chunks of
-        kernel B1 plus the exact landing; ``"flat"``: the per-step driver)
-        and ``prop`` (``hy_prop_f64`` / ``prop_plain``, None without the
-        fused engine)."""
+        kernel B1 plus the exact landing; ``"flat"``: the per-step driver),
+        ``prop`` (``hy_prop_f64`` / ``prop_plain``, None without the
+        fused engine) and ``layout``, the block layout of kernels B1/B2 on
+        this tape (``jet_kernels.layout_report``; the CPU names the one the
+        card would run), None on the B3 and B4 routes."""
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
         if self._phase:
@@ -147,6 +150,8 @@ class TaylorAdaptiveBatch:
             propagate_engine=self._pu_engine,
             prop=("hy_prop_f64" if cuda else "prop_plain") if fused
             else None,
+            layout=None if self._phase or self._rolled
+            else layout_report(self._jtape),
         )
 
     @property

@@ -22,12 +22,15 @@ is f64 and none of that is carried over.  The recurrences are those of
 ``heyoka_tpu/taylor/compact_flat.py`` (``_f_sum`` :1311, ``_f_mul`` :1316,
 ``_f_div`` :1323, ``_f_sqrt`` :1367, ``_f_pow`` :1377).
 
-Layout: lanes are the LAST axis everywhere; the coefficient buffer is
-``(K+1, W, B)``.  The wrappers dispatch on the device of their input: a
-CPU tensor runs the plain twin, a CUDA tensor launches the kernel built
-from ``csrc/taylor_jet.cu`` (and raises if it cannot).  The plain twins
-run on any device — ``chip_smoke.py`` uses them on the card as the
-yardstick of the kernels.
+Layout: lanes are the LAST axis everywhere; the twins' coefficient buffer
+is ``(K+1, W, B)``.  The kernels keep a block's lanes' jets as ``(K+1, W,
+lanes)`` in shared memory, or, where one lane's jet does not fit there, in
+a global scratch buffer of the same per-block layout; :func:`block_layout`
+picks from ``(W, K)``.  The wrappers dispatch on the device of their
+input: a CPU tensor runs the plain twin, a CUDA tensor launches the
+kernel built from ``csrc/taylor_jet.cu`` (and raises if it cannot).  The
+plain twins run on any device — ``chip_smoke.py`` uses them on the card
+as the yardstick of the kernels.
 """
 
 from __future__ import annotations
@@ -349,6 +352,85 @@ def prop_plain(tape: JetTape, state, pars, aux, auxi, n_steps: int,
 
 
 # ---------------------------------------------------------------------------
+# the kernels' block layout
+# ---------------------------------------------------------------------------
+
+#: dynamic shared memory a block may have on the H100 (227 KB; above 48 KB
+#: a kernel must be allowed it, which the C entry points do once per
+#: kernel), the shared memory of an SM (228 KB), what the card keeps of it
+#: for each resident block, and the threads an SM holds
+SMEM_MAX, SM_SMEM, BLOCK_RESERVED = 232_448, 233_472, 1_024
+SM_THREADS = 2048
+#: doubles of kernel B1's per-lane step state behind the jets
+#: (csrc/taylor_jet.cu ``kLaneScalars``, ``LaneVars``)
+LANE_SCALARS = 16
+#: lanes and threads a block with the jets in shared memory: the fastest of
+#: lanes {1, 2, 3} x threads {128, 256} for B1 and B2 at 10,240 lanes of
+#: the outer-Solar-System tape on an H100 (``chip_smoke.py`` phase 6,
+#: PERF.md)
+LANES, THREADS = 1, 256
+#: lanes and threads a block where one lane's jet does not fit a block's
+#: shared memory and the jets live in a global scratch buffer (csrc
+#: ``kGlobalLanes``: a 32-byte sector of each row)
+GLOBAL_LANES, GLOBAL_THREADS = 4, 256
+
+
+def lane_bytes(W: int, K: int) -> int:
+    """Shared memory of one lane in kernels B1/B2: its jet, ``(K+1) W``
+    doubles, and its ``LANE_SCALARS``."""
+    return 8 * ((K + 1) * W + LANE_SCALARS)
+
+
+def block_layout(W: int, K: int):
+    """``(lanes, smem_bytes)`` a block of kernels B1/B2 takes on a tape of
+    ``W`` columns at order ``K``.  ``smem_bytes`` is the block's dynamic
+    shared memory, its lanes' jets and scalars, or None where one lane's
+    (:func:`lane_bytes`) exceeds ``SMEM_MAX``: then the jets live in a
+    global scratch buffer, ``GLOBAL_LANES`` lanes a block, and the block's
+    shared memory holds the lanes' scalars only."""
+    per = lane_bytes(W, K)
+    if per > SMEM_MAX:
+        return GLOBAL_LANES, None
+    lanes = min(LANES, SMEM_MAX // per)
+    return lanes, lanes * per
+
+
+def blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
+    memory an SM holds, as far as those two limit it."""
+    return min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads)
+
+
+def table_bytes(tape: JetTape) -> int:
+    """Bytes of the tape's packed tables (``itab`` ints, ``dtab``
+    doubles)."""
+    return 4 * tape.itab.numel() + 8 * tape.dtab.numel()
+
+
+def tables_in_smem(tape: JetTape, smem, threads: int = THREADS) -> bool:
+    """Whether kernels B1/B2 copy the tape's tables into shared memory
+    behind the jets: only with the jets there (``smem``, a block's bytes
+    without the tables, not None), and only where they cost no block an
+    SM."""
+    if smem is None:
+        return False
+    total = smem + table_bytes(tape)
+    return total <= SMEM_MAX and (blocks_per_sm(total, threads)
+                                  == blocks_per_sm(smem, threads))
+
+
+def layout_report(tape: JetTape) -> dict:
+    """The block layout kernels B1/B2 run ``tape`` with: ``layout``
+    (``"smem"`` or ``"global"``), ``lanes_per_block``, ``smem_bytes``
+    (:func:`block_layout`'s; None for the global layout) and ``tables``
+    (``"smem"`` or ``"global"``, :func:`tables_in_smem`)."""
+    lanes, smem = block_layout(tape.width, tape.order)
+    return dict(layout="global" if smem is None else "smem",
+                lanes_per_block=lanes, smem_bytes=smem,
+                tables="smem" if tables_in_smem(tape, smem) else "global")
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -392,17 +474,50 @@ def _ptr(x):
     return x.data_ptr() if x.numel() else None
 
 
+def _launch_cfg(tape: JetTape, B: int, dev, lanes=None, threads=None):
+    """``(lanes, threads, smem bytes, scratch or None, n_it, n_dt)`` of one
+    launch of kernel B1 or B2: :func:`block_layout`'s, or the ``lanes`` and
+    ``threads`` given (jets in shared memory only; ``chip_smoke.py`` times
+    the choices with them).  ``n_it``, ``n_dt``: the lengths of the tables
+    where they go to shared memory (:func:`tables_in_smem`), else 0."""
+    K, W = tape.order, tape.width
+    L, smem = block_layout(W, K)
+    if smem is None:
+        n_blk = -(-B // L)
+        tc = torch.empty(n_blk * (K + 1) * W * L, dtype=_F64, device=dev)
+        return L, GLOBAL_THREADS, 8 * LANE_SCALARS * L, tc, 0, 0
+    L = L if lanes is None else int(lanes)
+    nt = THREADS if threads is None else int(threads)
+    smem = L * lane_bytes(W, K)
+    if smem > SMEM_MAX:
+        raise ValueError(f"{L} lanes of {lane_bytes(W, K)} B exceed a "
+                         f"block's {SMEM_MAX} B of shared memory")
+    if not tables_in_smem(tape, smem, nt):
+        return L, nt, smem, None, 0, 0
+    return (L, nt, smem + table_bytes(tape), None, tape.itab.numel(),
+            tape.dtab.numel())
+
+
 def jet(tape: JetTape, state, pars, t=None):
     """Taylor jet of ``state (n_eq, B)`` with parameters ``pars (n_pars,
     B)`` and, for a tape with a time column, times ``t (B,)`` -> ``(tc
     (n_eq, K+1, B), norms (3, B))``.  A CPU tensor runs :func:`jet_plain`;
-    a CUDA tensor launches kernel B2 (``hy_jet_f64``)."""
+    a CUDA tensor launches kernel B2 (``hy_jet_f64``) with the block
+    layout of :func:`block_layout`."""
     _check_rules(tape)
-    dev = _device_of(state, tape)
-    if dev.type == "cpu":
+    if _device_of(state, tape).type == "cpu":
         return jet_plain(tape, state, pars, t)
+    return _jet_cuda(tape, state, pars, t)
+
+
+def _jet_cuda(tape: JetTape, state, pars, t=None, lanes=None, threads=None,
+              pad=0):
+    """Kernel B2 at a block shape of ``lanes`` x ``threads``, with ``pad``
+    more bytes of shared memory a block than it uses (fewer blocks an SM:
+    ``tools.jet_scan`` times the kernel against its blocks an SM)."""
+    dev = state.device
     B = state.shape[1]
-    K, W, n_eq = tape.order, tape.width, tape.n_eq
+    K, n_eq = tape.order, tape.n_eq
     _check("state", state, (n_eq, B), _F64, dev)
     _check("pars", pars, (tape.n_pars, B), _F64, dev)
     if tape.time_col is not None:
@@ -411,13 +526,14 @@ def jet(tape: JetTape, state, pars, t=None):
     norms = torch.empty((3, B), dtype=_F64, device=dev)
     if B == 0:
         return out, norms
-    tc = torch.empty((K + 1, W, B), dtype=_F64, device=dev)
+    L, nt, smem, tc, n_it, n_dt = _launch_cfg(tape, B, dev, lanes, threads)
+    smem += int(pad)
     lib = _build.load()
     rc = lib.hy_jet_f64(
         _ptr(tape.itab), _ptr(tape.dtab), _ptr(state), _ptr(pars),
         None if t is None or tape.time_col is None else _ptr(t),
-        _ptr(tc), _ptr(out), _ptr(norms), B,
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if tc is None else _ptr(tc), _ptr(out), _ptr(norms), B, L, nt,
+        smem, n_it, n_dt, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hy_jet_f64 launch failed: CUDA error {rc}")
     LAUNCHES["jet"] += 1
@@ -431,15 +547,22 @@ def prop(tape: JetTape, state, pars, aux, auxi, n_steps: int,
     the remaining time in the direction of travel, >= 0) and ``auxi (1, B)
     int32`` (the step budget) -> ``(state (n_eq, B), of (5, B), oi (3, B)
     int32)``.  A CPU tensor runs :func:`prop_plain`; a CUDA tensor
-    launches kernel B1 (``hy_prop_f64``)."""
+    launches kernel B1 (``hy_prop_f64``) with the block layout of
+    :func:`block_layout`."""
     _check_rules(tape)
     dev = _device_of(state, tape)
     _check_autonomous(tape)
     if dev.type == "cpu":
         return prop_plain(tape, state, pars, aux, auxi, n_steps,
                           high_accuracy)
+    return _prop_cuda(tape, state, pars, aux, auxi, n_steps, high_accuracy)
+
+
+def _prop_cuda(tape: JetTape, state, pars, aux, auxi, n_steps: int,
+               high_accuracy: bool = True, lanes=None, threads=None):
+    dev = state.device
     B = state.shape[1]
-    K, W, n_eq = tape.order, tape.width, tape.n_eq
+    n_eq = tape.n_eq
     _check("state", state, (n_eq, B), _F64, dev)
     _check("pars", pars, (tape.n_pars, B), _F64, dev)
     _check("aux", aux, (5, B), _F64, dev)
@@ -449,13 +572,13 @@ def prop(tape: JetTape, state, pars, aux, auxi, n_steps: int,
     oi = torch.empty((3, B), dtype=torch.int32, device=dev)
     if B == 0:
         return st, of, oi
-    tc = torch.empty((K + 1, W, B), dtype=_F64, device=dev)
+    L, nt, smem, tc, n_it, n_dt = _launch_cfg(tape, B, dev, lanes, threads)
     lib = _build.load()
     rc = lib.hy_prop_f64(
         _ptr(tape.itab), _ptr(tape.dtab), _ptr(state), _ptr(pars),
-        _ptr(aux), _ptr(auxi), _ptr(tc), _ptr(st), _ptr(of), _ptr(oi),
-        B, int(n_steps), int(bool(high_accuracy)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(aux), _ptr(auxi), None if tc is None else _ptr(tc), _ptr(st),
+        _ptr(of), _ptr(oi), B, int(n_steps), int(bool(high_accuracy)), L, nt,
+        smem, n_it, n_dt, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hy_prop_f64 launch failed: CUDA error {rc}")
     LAUNCHES["prop"] += 1

@@ -6,7 +6,12 @@ the root of the repository), and what they share with ``chip_smoke.py``.
 - :mod:`.proto_phase`: the f32 phase prototype (kernel T2) on the
   outer-Solar-System tape, ``tools/proto_pallas_phase.py``, timed beside
   kernel B4 in f64;
-- :mod:`.roofline`: the least time the H100 could take for a kernel's work.
+- :mod:`.roofline`: the least time the H100 could take for a kernel's work;
+- :mod:`.jet_scan`: kernel B2's time against the blocks an SM holds and
+  against the order, on the outer-Solar-System tape;
+- :mod:`.same_bits`: kernels B1 and B2 of two checkouts of the port on the
+  same inputs, bit for bit (a script run with a checkout on
+  ``PYTHONPATH``).
 
 Each tool runs on the card: ``python -m heyoka_tpu_torch.tools.<name>``.
 

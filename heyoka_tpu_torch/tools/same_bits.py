@@ -1,0 +1,148 @@
+"""Kernels B1 and B2 of two checkouts of the port on the same inputs, bit
+for bit, on one CUDA card.
+
+A redesign that keeps every coefficient's expression (the same terms,
+summed in the same order, with no FMA) must give the bits of the build it
+replaces.  From the root of a checkout:
+
+    PYTHONPATH=<checkout A> python3 heyoka_tpu_torch/tools/same_bits.py \\
+        dump a.pt
+    PYTHONPATH=<checkout B> python3 heyoka_tpu_torch/tools/same_bits.py \\
+        dump b.pt
+    python3 heyoka_tpu_torch/tools/same_bits.py compare a.pt b.pt
+
+``dump`` runs ``jet_kernels.jet`` (B2) and ``jet_kernels.prop`` (B1) of
+the ``heyoka_tpu_torch`` that ``PYTHONPATH`` names (each checkout builds
+its own kernels) on inputs made from fixed seeds, and saves their
+outputs: the outer-Solar-System tape at order 19 and 10,240 lanes (one
+jet, a 64-step chunk with the compensated update, 16 steps with Horner's),
+blocks of mixed lanes on the 3-body tape (inactive, budget, near and
+non-finite lanes), and mascon-32 and mascon-128 jets.  ``compare`` prints
+one JSON line with, for every output, whether the two dumps are equal bit
+for bit (NaN where both are NaN) and their largest difference, and exits
+1 unless every output is equal.  The script imports only torch, numpy and
+the port's public modules, so it runs against any checkout since the
+port's first kernels.
+"""
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+def _lanes(ic, B, seed):
+    rng = np.random.default_rng(seed)
+    return ic[None, :] + np.abs(ic)[None, :] * (
+        rng.uniform(-1, 1, (B, ic.size)) * 1e-8)
+
+
+def _mascon(ht, N):
+    rng = np.random.default_rng(42)
+    pts = rng.uniform(-1.0, 1.0, (4 * N, 3))
+    pts = pts[np.linalg.norm(pts, axis=1) <= 1.0][:N]
+    masses = rng.uniform(0.5, 1.0, N)
+    return ht.models.mascon(masses=(masses / masses.sum()).tolist(),
+                            positions=pts.tolist(),
+                            omega=(0.0, 0.0, 2.0 * np.pi / 10.0))
+
+
+def _orbits(B, seed):
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, B)
+    r0 = 2.0 + 0.05 * rng.standard_normal(B)
+    vc = np.sqrt(1.0 / r0)
+    return np.stack([r0 * np.cos(ang), r0 * np.sin(ang), np.zeros(B),
+                     -vc * np.sin(ang), vc * np.cos(ang), np.zeros(B)], 1)
+
+
+def dump(path):
+    import heyoka_tpu_torch as ht
+    from heyoka_tpu_torch.taylor import jet_kernels as jk
+    from heyoka_tpu_torch.taylor.compact import build_plan
+    from heyoka_tpu_torch.tools import GCONST, IC, MASSES
+
+    dev = torch.device("cuda")
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def tape(sys_, order):
+        return jk.JetTape(ht.plan_to_arrays(build_plan(
+            ht.taylor_decompose_sys(sys_), order)), dev)
+
+    def aux(rem, act, B):
+        return torch.stack([torch.full((B,), float("inf"), **f64),
+                            torch.ones(B, **f64), torch.as_tensor(rem, **f64),
+                            torch.zeros(B, **f64), torch.as_tensor(act, **f64)])
+
+    out = {}
+    B = 10_240
+    ss = tape(ht.models.nbody(6, masses=MASSES, Gconst=GCONST), 19)
+    st = torch.as_tensor(_lanes(IC, B, 2).T.copy(), **f64)
+    no_pars = torch.zeros((0, B), **f64)
+    out["b2_outer_ss"] = jk.jet(ss, st, no_pars)
+    a = aux(np.full(B, 1000.0), np.ones(B), B)
+    budget = torch.full((1, B), 2**31 - 1, dtype=torch.int32, device=dev)
+    out["b1_outer_ss_64_ceval"] = jk.prop(ss, st, no_pars, a, budget, 64,
+                                          True)
+    out["b1_outer_ss_16_horner"] = jk.prop(ss, st, no_pars, a, budget, 16,
+                                           False)
+
+    B = 67
+    n3 = tape(ht.models.nbody(3, masses=[1.0, 1e-3, 2e-3]), 12)
+    rng = np.random.default_rng(11)
+    base = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
+                     0, 1.5, 0, -0.8, 0, 0], float)
+    st_np = base[None] + 0.01 * rng.standard_normal((B, 18))
+    st_np[8] = np.nan
+    kind = np.arange(B) % 5
+    a = aux(np.where(kind == 2, 1.0, 10.0), kind != 0, B)
+    budget = torch.as_tensor(np.where(kind == 1, 4, 1000), dtype=torch.int32,
+                             device=dev)[None]
+    st = torch.as_tensor(st_np.T.copy(), **f64)
+    for ha in (True, False):
+        out[f"b1_mixed_lanes_{'ceval' if ha else 'horner'}"] = jk.prop(
+            n3, st, torch.zeros((0, B), **f64), a, budget, 16, ha)
+
+    B = 1024
+    for N in (32, 128):
+        st = torch.as_tensor(_orbits(B, N).T.copy(), **f64)
+        out[f"b2_mascon{N}"] = jk.jet(tape(_mascon(ht, N), 19), st,
+                                      torch.zeros((0, B), **f64))
+    torch.cuda.synchronize()
+    torch.save({k: [x.cpu() for x in v] for k, v in out.items()}, path)
+    print(json.dumps({"dumped": path, "cases": list(out),
+                      "device": torch.cuda.get_device_name(0)}))
+
+
+def _same(a, b):
+    if a.dtype.is_floating_point:
+        nan = torch.isnan(a) & torch.isnan(b)
+        a, b = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
+        same = bool((a.view(torch.int64) == b.view(torch.int64)).all())
+        diff = torch.where(a == b, 0.0, (a - b).abs())  # inf == inf
+        return same, float(diff.max()) if a.numel() else 0.0
+    return bool(torch.equal(a, b)), float((a - b).abs().max())
+
+
+def compare(pa, pb):
+    da, db = torch.load(pa), torch.load(pb)
+    res = {}
+    for case in da:
+        res[case] = [dict(zip(("equal", "max_abs_diff"), _same(x, y)))
+                     for x, y in zip(da[case], db[case])]
+    ok = set(da) == set(db) and all(
+        r["equal"] for rs in res.values() for r in rs)
+    print(json.dumps({"same_bits": ok, "cases": res}))
+    return ok
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "dump":
+        if not torch.cuda.is_available():
+            raise SystemExit("same_bits: no CUDA device")
+        dump(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == "compare":
+        sys.exit(0 if compare(sys.argv[2], sys.argv[3]) else 1)
+    else:
+        raise SystemExit(__doc__)

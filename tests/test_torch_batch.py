@@ -9,6 +9,7 @@ import pytest
 import heyoka_tpu as hy
 
 import heyoka_tpu_torch as ht
+from heyoka_tpu_torch.taylor import jet_kernels as jk
 
 B = 6
 MASSES = [1.0, 1e-3, 2e-3]
@@ -104,9 +105,13 @@ def test_step_limit_matches_jax():
 
 def test_engine_report():
     _, p = _pair("nbody3")
-    assert p.engine_report() == dict(device="cpu", jet="jet_plain",
-                                     propagate_engine="fused",
-                                     prop="prop_plain")
+    # the layout B1/B2 would run on the card: the jets in shared memory
+    smem = jk.LANES * 8 * ((p.order + 1) * 98 + jk.LANE_SCALARS)
+    assert p.engine_report() == dict(
+        device="cpu", jet="jet_plain", propagate_engine="fused",
+        prop="prop_plain", layout=dict(layout="smem",
+                                       lanes_per_block=jk.LANES,
+                                       smem_bytes=smem, tables="smem"))
     _, q = _pair("timedep")
     assert q.engine_report()["propagate_engine"] == "flat"
     assert q.engine_report()["prop"] is None

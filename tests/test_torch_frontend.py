@@ -201,7 +201,8 @@ def test_unsupported_op_raises():
         jr.RolledTape(arrays, "cpu")
     ta = ht.taylor_adaptive_batch(sys_, np.ones((2, 2)), device="cpu")
     assert ta.engine_report() == dict(device="cpu", jet="phase_plain",
-                                      propagate_engine="flat", prop=None)
+                                      propagate_engine="flat", prop=None,
+                                      layout=None)
     ta.step()
     assert np.isfinite(ta.state).all() and (ta.time > 0).all()
 

@@ -21,7 +21,9 @@ from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.tools import microbench_conv as mc
 from heyoka_tpu_torch.tools import proto_phase as pp
 
-from chip_smoke import pendulum_lanes, phase_cases, phase_lanes, seeded_buffer
+from chip_smoke import (
+    mascon_body, pendulum_lanes, phase_cases, phase_lanes, seeded_buffer,
+)
 
 MASSES = [1.0, 1e-3, 2e-3]
 BASE = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
@@ -57,7 +59,9 @@ def _mascon12():
 
 
 SYSTEMS = {"nbody3": _nbody3, "handbuilt": _handbuilt, "mascon12": _mascon12,
-           "handbuilt_mixed": lambda: _handbuilt(mixed=True)}
+           "handbuilt_mixed": lambda: _handbuilt(mixed=True),
+           "mascon32": lambda: ht.models.mascon(**mascon_body(32)[0]),
+           "mascon128": lambda: ht.models.mascon(**mascon_body(128)[0])}
 
 
 def _orbits(B, seed):
@@ -72,7 +76,7 @@ def _inputs(name, B, seed):
     if name == "nbody3":
         return (BASE[None] + 0.01 * rng.standard_normal((B, 18)),
                 np.zeros((B, 0)), np.zeros(B))
-    if name == "mascon12":
+    if name.startswith("mascon"):
         return _orbits(B, seed), np.zeros((B, 0)), np.zeros(B)
     return (rng.uniform(-1.0, 1.0, (B, 3)), rng.uniform(0.5, 1.5, (B, 2)),
             rng.uniform(0.0, 2.0, B))
@@ -197,6 +201,118 @@ def test_prop_kernel_matches_plain(cuda, high_accuracy):
     # acc_hi, min_h, max_h, last_h (acc_lo is a rounding residue)
     rows = [0, 2, 3, 4]
     torch.testing.assert_close(k[1][rows], p[1][rows], rtol=1e-11, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("high_accuracy", [True, False])
+def test_prop_kernel_mixed_lanes(cuda, lanes, high_accuracy):
+    # blocks of mixed lanes, B not a multiple of the lanes a block: lanes
+    # inactive from the start, lanes with a budget of 4, lanes near their
+    # target after a few steps, a non-finite lane (err at its first step)
+    # and free lanes; flags equal, the state within 1e-11
+    B = 67
+    tape = _tape("nbody3", 12, cuda)
+    st_np = _inputs("nbody3", B, 11)[0]
+    st_np[8] = np.nan
+    st = _dev(st_np.T, cuda)
+    pars = torch.zeros(0, B, dtype=torch.float64, device=cuda)
+    kind = np.arange(B) % 5
+    rem = np.where(kind == 2, 1.0, 10.0)
+    aux = torch.stack([_dev(np.full(B, np.inf), cuda), _dev(np.ones(B), cuda),
+                       _dev(rem, cuda), _dev(np.zeros(B), cuda),
+                       _dev(kind != 0, cuda)])
+    budget = torch.as_tensor(np.where(kind == 1, 4, 1000), dtype=torch.int32,
+                             device=cuda)[None]
+    n0 = jk.LAUNCHES["prop"]
+    k = jk._prop_cuda(tape, st, pars, aux, budget, 16, high_accuracy,
+                      lanes=lanes, threads=128)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["prop"] == n0 + 1
+    p = jk.prop_plain(tape, st, pars, aux, budget, 16, high_accuracy)
+    assert torch.equal(k[2], p[2])
+    oi = p[2].cpu().numpy()
+    assert oi[2, 8] == 1 and oi[0, 8] == 0  # the non-finite lane
+    assert (oi[0, kind == 0] == 0).all() and (oi[0, kind == 1] == 4).all()
+    assert oi[1, kind == 2].all() and (oi[0, kind == 2] > 0).all()
+    torch.testing.assert_close(k[0], p[0], rtol=0, atol=1e-11,
+                               equal_nan=True)
+    rows = [0, 2, 3, 4]
+    torch.testing.assert_close(k[1][rows], p[1][rows], rtol=1e-11, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,layout,threads,tables", [
+    ("nbody3", "smem", None, "smem"),
+    ("nbody3", "smem", 128, "global"),  # the tables would cost a block
+    ("mascon32", "smem", None, "smem"),
+    ("mascon128", "global", None, "global")])
+def test_jet_kernel_layouts(cuda, name, layout, threads, tables):
+    # B2 against jet_plain at order 19 with the jets in shared memory and,
+    # where one lane's jet does not fit (mascon-128: 2,325 columns, 372 KB
+    # a lane), in the global scratch buffer; the tables in shared memory
+    # or not: 1e-13 relative per order
+    B, K = 37, 19
+    tape = _tape(name, K, cuda)
+    assert jk.layout_report(tape)["layout"] == layout
+    st, pars, t = _inputs(name, B, 9)
+    args = (_dev(st.T, cuda), _dev(pars.T, cuda), _dev(t, cuda))
+    cfg = jk._launch_cfg(tape, B, cuda, None, threads)
+    assert (cfg[4] > 0) == (tables == "smem")
+    tc, norms = jk._jet_cuda(tape, *args, None, threads)
+    torch.cuda.synchronize()
+    tc_p, norms_p = jk.jet_plain(tape, *args)
+    assert float(_per_order_rel(tc, tc_p).max()) <= 1e-13
+    nrel = (norms - norms_p).abs().amax(1) / norms_p.amax(1)
+    assert float(nrel.max()) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_prop_kernel_global_layout(cuda):
+    # B1 on the global layout against prop_plain: mascon-128 at order 19
+    B = 9
+    tape = _tape("mascon128", 19, cuda)
+    assert jk.layout_report(tape)["layout"] == "global"
+    st = _dev(_inputs("mascon128", B, 10)[0].T, cuda)
+    pars = torch.zeros(0, B, dtype=torch.float64, device=cuda)
+    aux = torch.stack([_dev(np.full(B, np.inf), cuda), _dev(np.ones(B), cuda),
+                       _dev(np.full(B, 100.0), cuda),
+                       _dev(np.zeros(B), cuda), _dev(np.ones(B), cuda)])
+    budget = torch.full((1, B), 1000, dtype=torch.int32, device=cuda)
+    k = jk.prop(tape, st, pars, aux, budget, 3, True)
+    torch.cuda.synchronize()
+    p = jk.prop_plain(tape, st, pars, aux, budget, 3, True)
+    assert torch.equal(k[2], p[2]) and bool((p[2][0] == 3).all())
+    torch.testing.assert_close(k[0], p[0], rtol=0, atol=1e-11)
+
+
+@pytest.mark.gpu
+def test_smem_layout_allocates_no_jet_scratch(cuda):
+    # with the jets in shared memory neither wrapper allocates the (K+1,
+    # W, B) buffer: the peak over one launch stays within its outputs
+    B, K = 2048, 19
+    tape = jk.JetTape(ht.plan_to_arrays(build_plan(taylor_decompose_sys(
+        ht.models.nbody(6)), K)), cuda)
+    assert jk.layout_report(tape)["layout"] == "smem"
+    scratch = (K + 1) * tape.width * B * 8
+    st = _dev(np.tile(np.linspace(1.0, 2.0, 36)[:, None], (1, B)), cuda)
+    pars = torch.zeros(0, B, dtype=torch.float64, device=cuda)
+    aux = torch.stack([_dev(np.full(B, np.inf), cuda), _dev(np.ones(B), cuda),
+                       _dev(np.full(B, 1e3), cuda), _dev(np.zeros(B), cuda),
+                       _dev(np.ones(B), cuda)])
+    budget = torch.full((1, B), 1000, dtype=torch.int32, device=cuda)
+    for run, out_bytes in (
+            (lambda: jk.jet(tape, st, pars), (36 * (K + 1) + 3) * B * 8),
+            (lambda: jk.prop(tape, st, pars, aux, budget, 2),
+             (36 + 5) * B * 8 + 3 * B * 4)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert peak <= out_bytes + (1 << 20) < scratch // 8
+        del res
 
 
 @pytest.mark.gpu

@@ -317,7 +317,8 @@ def test_batch_routes_wide_tape_to_rolled(rolled_only):
     kw = dict(tol=1e-12, high_accuracy=True)
     p = ht.taylor_adaptive_batch(_mascon12(ht), st, device="cpu", **kw)
     assert p.engine_report() == dict(device="cpu", jet="jet_rolled_plain",
-                                     propagate_engine="flat", prop=None)
+                                     propagate_engine="flat", prop=None,
+                                     layout=None)
     assert isinstance(p._jtape, jr.RolledTape)
     j = hy.taylor_adaptive_batch(_mascon12(hy), st, compact_mode="flat",
                                  **kw)
