@@ -34,16 +34,25 @@ if anything is missing or any check fails.  Phases, one line each:
 7. kernel B3 (``hy_jet_rolled_f64``) on the mascon-512 tape of
    ``benchmarks/mascon_bench.py`` at order 19 and 256 of its lanes,
    against ``jet_rolled_plain`` and against B2 on the same inputs: 1e-13
-   relative per order, norms to the same bound;
+   relative per order, norms to the same bound; its literal aliases, the
+   bytes a lane takes and its layout (one lane's jet in shared memory),
+   the tables and shared-memory doubles a lane-jet reads
+   (``tools.roofline.rolled_traffic``), and B3 on its global layout,
+   forced, held to the same bounds;
 8. the huge-tape slice: ``taylor_adaptive_batch(mascon(...), ...,
    tol=1e-15, high_accuracy=True, device="cuda")`` at 1,024 lanes on
    bound r ~ 2 orbits (``mascon_lanes``), one ``step()`` and
    ``propagate_until(T)`` over two orbital periods: the rolled route,
    only B3 launched, every lane on
    t = T exactly with ``time_limit``, the rotating-frame Jacobi integral
-   kept to 1e-12, and 2 lanes agreeing with the port's CPU run;
+   kept to 1e-12, and 2 lanes agreeing with the port's CPU run; then the
+   same lanes through the fused B1 route (B1 and B2 on their global
+   layout: ``ROLLED_MIN_WIDTH`` raised while the integrator is built),
+   timed beside it for ROADMAP A.16 and held to the rolled route's states;
 9. the time of one B3 jet at 1,024 lanes on mascon-512 against
-   ``jet_rolled_plain`` and B2, and B2 against B3 on mascon-32/128/256
+   ``jet_rolled_plain`` and B2, B3 at each block size (256, 512 and 1,024
+   threads, equal bit for bit) and on its global layout, and B2 against
+   B3 on mascon-32/128/256
    and on the outer-Solar-System tape (the data behind
    ``taylor.batch.ROLLED_MIN_WIDTH``); B2 takes the global layout from
    mascon-128 up (one lane's jet over 227 KB), and is held against
@@ -505,6 +514,46 @@ def rolled_route(sys_, ics, kw, st_fused, dev):
                 max_rel_vs_fused=rel)
 
 
+def fused_route(sys_, orbits, st_rolled, dev):
+    """Phase 8's lanes and horizon through the fused route (kernel B1 on
+    its global layout, B2 for the first step and the landing:
+    ``ROLLED_MIN_WIDTH`` raised above the tape's width while the
+    integrators are built), after phase 8's launch counts were read: its
+    lane-steps/s beside the rolled route's (ROADMAP A.16); every lane
+    lands on the target and the states agree with the rolled route's to
+    ``REF_RTOL``."""
+    from heyoka_tpu_torch.taylor import batch as tbatch
+    min_width = tbatch.ROLLED_MIN_WIDTH
+    tbatch.ROLLED_MIN_WIDTH = 1 << 30
+    kw = dict(tol=TOL, high_accuracy=True)
+    try:
+        warm = ht.taylor_adaptive_batch(sys_, orbits[:8], device=dev, **kw)
+        tf = ht.taylor_adaptive_batch(sys_, orbits, device=dev, **kw)
+    finally:
+        tbatch.ROLLED_MIN_WIDTH = min_width
+    eng = tf.engine_report()
+    check(eng["prop"] == "hy_prop_f64" and eng["layout"]["layout"]
+          == "global", f"phase 8: not the fused global route: {eng}")
+    warm.propagate_until(1.0)
+    n0 = dict(jk.LAUNCHES)
+    tf.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oc, _, _, nsteps = tf.propagate_until(MASCON_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((tf.time == MASCON_T).all()),
+          "phase 8, fused route: a lane did not land on the target")
+    rel = float(np.abs(tf.state - st_rolled).max()
+                / np.abs(st_rolled).max())
+    check(rel <= REF_RTOL, f"phase 8, fused route vs rolled: {rel}")
+    steps = int(nsteps.sum())
+    return dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
+                launches={k: jk.LAUNCHES[k] - n0[k] for k in ("jet", "prop")},
+                max_rel_vs_rolled=rel, layout=eng["layout"])
+
+
 def block_shapes(tape, st, pars, aux, auxi, jet_ref, prop_ref):
     """B2 and a 64-step B1 chunk at every block shape of
     ``SWEEP_LANES`` x ``SWEEP_THREADS`` with the jets in shared memory:
@@ -567,10 +616,27 @@ def huge_tapes(dev, order, smi):
         check(rel[ref] <= JET_RTOL and nrel <= JET_RTOL,
               f"B3 vs {ref}: per-order {rel[ref]}, norms {nrel}")
     rolled_err = float((tc_k - tc_p).abs().max())
-    say(7, B=B_CHECK, order=order, W=rtape.width, classes=rtape.sizes,
+    # the same lanes on B3's global layout, forced
+    tc_g, nrm_g = jr._jet_rolled_cuda(rtape, *args, layout="global")
+    torch.cuda.synchronize()
+    g_rel = float(per_order_rel(tc_g, tc_p).max())
+    g_nrel = float(((nrm_g - nrm_p).abs() / nrm_p.abs()).max())
+    check(g_rel <= JET_RTOL and g_nrel <= JET_RTOL,
+          f"B3 (global layout) vs plain: per-order {g_rel}, norms {g_nrel}")
+    rolled_err = max(rolled_err, float((tc_g - tc_p).abs().max()))
+    rep = jr.layout_report(rtape)
+    WH, WC, WV, NA, NS = rtape.sizes
+    check(rep["layout"] == "smem", f"mascon-512: B3 layout {rep}")
+    say(7, B=B_CHECK, order=order, W=rtape.width,
+        classes=dict(history_rows=WH, aliases=NA, C=WC, V=WV, S=NS),
+        layout=rep, traffic_per_lane_jet=rl.rolled_traffic(rtape),
         vs_plain_max_rel_per_order=rel["plain"],
         vs_b2_max_rel_per_order=rel["b2"], max_abs_err=rolled_err,
+        global_layout=dict(max_rel_per_order=g_rel, norms_max_rel=g_nrel,
+                           equal_to_smem=bool(torch.equal(tc_g, tc_k))),
         b2_layout=jk.layout_report(dtape),
+        equal_to_plain=bool(torch.equal(tc_k, tc_p)
+                            and torch.equal(nrm_k, nrm_p)),
         equal_to_b2=bool(torch.equal(tc_k, tc_2)), tol=JET_RTOL)
 
     # -- 8. the slice: mascon-512 at 1,024 lanes ----------------------------------
@@ -614,13 +680,14 @@ def huge_tapes(dev, order, smi):
     check(ref_oc == oc[:MASCON_REF_LANES] and ref_rel <= REF_RTOL,
           f"mascon-512 vs the CPU run: {ref_rel}")
     steps = int(nsteps.sum())
+    fused = fused_route(sys_, orbits, st_end, dev)
     say(8, B=MASCON_B, n_mascons=MASCON_N, t_end=MASCON_T, wall_s=wall,
         lane_steps=steps, steps_per_s=steps / wall,
         mean_steps_per_lane=steps / MASCON_B, launches=launches,
         jacobi_drift_max_rel=drift, cpu_ref_max_rel=ref_rel,
         r_end_range=[float(np.linalg.norm(st_end[:, :3], axis=1).min()),
                      float(np.linalg.norm(st_end[:, :3], axis=1).max())],
-        engine=eng)
+        engine=eng, fused_route=fused)
 
     # -- 9. times: B3, its twin and B2 at 1,024 lanes -----------------------------
     args = jet_args(ics)
@@ -638,6 +705,20 @@ def huge_tapes(dev, order, smi):
                    rl.nbytes(*args, rtape.ritab, rtape.rdtab, tc_k, nrm_k),
                    torch.float64)
     rolled_err = max(rolled_err, float((tc_k - tc_p).abs().max()))
+    # B3 at each block size and on its global layout: the same items
+    # computed alike, so the same bits as the default launch
+    shapes = {}
+    for nt in jr.BLOCK_THREADS:
+        for lay in ("smem", "global"):
+            def run():
+                return jr._jet_rolled_cuda(rtape, *args, threads=nt,
+                                           layout=lay)
+            check(all(torch.equal(a, b) for a, b in zip(run(),
+                                                         (tc_k, nrm_k))),
+                  f"B3 with {nt} threads on {lay} differs from the default")
+            shapes[f"{lay}x{nt}"] = [cuda_ms(run, 3) for _ in range(2)]
+    fastest = min((k for k in shapes if k.startswith("smem")),
+                  key=lambda k: sum(shapes[k]))
     # B2 against B3 on narrower tapes: where the rolled jet starts to pay
     sweep = {}
     tapes = {f"mascon{n}": mascon_tapes(mascon_body(n)[0], order, dev)
@@ -673,10 +754,14 @@ def huge_tapes(dev, order, smi):
           f"B2 (global layout) vs jet_plain on mascon-128: {g_rel}, {g_nrel}")
     say(9, B=MASCON_B, nvidia_smi=smi, b3_ms_runs=t["b3"],
         plain_ms_runs=t["plain"], b2_ms_runs=t["b2"],
-        b3_vs_plain_max_rel_per_order=rel_m, b3_bound=bnd, sweep=sweep,
+        b3_vs_plain_max_rel_per_order=rel_m, b3_bound=bnd,
+        b3_shapes_ms=shapes, b3_fastest=fastest,
+        b3_chosen=f"smemx{jr.THREADS}", sweep=sweep,
         b2_global_vs_plain=dict(tape="mascon128", max_rel_per_order=g_rel,
                                 norms_max_rel=g_nrel, tol=JET_RTOL))
-    return launches["jet_rolled"], rolled_err, timed(t["b3"], t["plain"], bnd)
+    return launches["jet_rolled"], rolled_err, dict(
+        timed(t["b3"], t["plain"], bnd), layout=rep["layout"],
+        smem_bytes=rep["smem_bytes"], threads=rep["threads"])
 
 
 def phase_cases(pkg):

@@ -46,8 +46,9 @@ SIGNATURES = {
     # itab, dtab, state, pars, aux, auxi, tc, state_out, of, oi,
     # B, n_steps, high_accuracy, lanes, threads, smem, n_it, n_dt, stream
     "hy_prop_f64": (_P,) * 10 + (_I,) * 8 + (_P,),
-    # itab, dtab, state, pars, t, H, C, V, out, norms, B, stream
-    "hy_jet_rolled_f64": (_P,) * 10 + (_I, _P),
+    # itab, dtab, state, pars, t, scratch, V, out, norms, trace, B,
+    # threads, smem, lane_dbl, blocks, stream
+    "hy_jet_rolled_f64": (_P,) * 10 + (_I,) * 5 + (_P,),
     # itab, dtab, tc, syn, B, lo, stream
     "hy_phase_f64": (_P,) * 4 + (_I, _I, _P),
     # a, b, c, N, K, stream

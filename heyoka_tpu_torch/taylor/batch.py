@@ -40,6 +40,7 @@ from .fused import make_propagate_until_fused
 from .jet_kernels import JetTape, jet, layout_report
 from .jet_phase import PhaseTape, jet_phase
 from .jet_rolled import RolledTape, jet_rolled
+from .jet_rolled import layout_report as rolled_layout
 from .outcome import TaylorOutcome
 
 #: lane steps per launch of kernel B1 in ``propagate_until``
@@ -134,8 +135,9 @@ class TaylorAdaptiveBatch:
         kernel B1 plus the exact landing; ``"flat"``: the per-step driver),
         ``prop`` (``hy_prop_f64`` / ``prop_plain``, None without the
         fused engine) and ``layout``, the block layout of kernels B1/B2 on
-        this tape (``jet_kernels.layout_report``; the CPU names the one the
-        card would run), None on the B3 and B4 routes."""
+        this tape (``jet_kernels.layout_report``) or of kernel B3 on a huge
+        one (``jet_rolled.layout_report``; the CPU names the one the card
+        would run), None on the B4 route."""
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
         if self._phase:
@@ -150,8 +152,8 @@ class TaylorAdaptiveBatch:
             propagate_engine=self._pu_engine,
             prop=("hy_prop_f64" if cuda else "prop_plain") if fused
             else None,
-            layout=None if self._phase or self._rolled
-            else layout_report(self._jtape),
+            layout=None if self._phase else rolled_layout(self._jtape)
+            if self._rolled else layout_report(self._jtape),
         )
 
     @property

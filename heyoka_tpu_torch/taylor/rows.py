@@ -77,3 +77,58 @@ def _row_classes(plan):
         rowmap[idx] = np.arange(idx.size)
         sizes.append(int(idx.size))
     return classv, rowmap, tuple(sizes)
+
+
+#: the most literal factors an alias chain applies (csrc/taylor_jet_rolled.cu
+#: ``AliasRec``); a column whose chain would apply more keeps its history
+MAX_SCALES = 2
+
+
+def _aliases(plan, classv):
+    """The literal aliases among the H op columns of ``plan`` (classes
+    ``classv`` from :func:`_row_classes`).
+
+    A column ``a + literal`` (a ``sum`` of exactly one non-literal operand
+    plus literals) has order k >= 1 equal to ``a[k]``, and a column
+    ``literal * a`` (a ``mul`` of one non-literal operand and one literal,
+    a constant or a parameter) equal to ``literal * a[k]``: the literals
+    are zero above order 0, so the other terms of the jet's sum and Cauchy
+    product are zeros, and the value is the same up to the sign of a zero.
+    Such a column, if its source ``a`` is itself H or of this form, needs
+    no history of its own: it keeps order 0 and its orders k >= 1 are read
+    as its root's, scaled.  A chain may pass through a C column of this
+    form (mascon's ``x - p_j`` is ``(-1 * x) + p_j``, and ``-1 * x`` is
+    read at the current order only); it ends at an H column, its root.
+
+    Returns ``{column: (root, scales)}`` for the H columns that are
+    aliases, in column order: ``root`` the H column at the end of the
+    chain, ``scales`` the literal columns the chain multiplies by,
+    innermost first (applied one after the other, as the values were
+    rounded).  A chain of more than ``MAX_SCALES`` multiplies stops: that
+    column keeps its history and becomes a root."""
+    lit = classv == 2
+    if plan.time_col is not None:
+        lit[plan.time_col] = False
+    chain = {}  # every column of alias form with a root, H or C
+    for lv in plan.levels:
+        for g in lv:
+            if g.name not in ("sum", "mul") or (
+                    g.name == "mul" and g.in_cols.shape[1] != 2):
+                continue
+            for c, args in zip(g.out_cols, np.asarray(g.in_cols)):
+                src = [int(a) for a in args if not lit[a]]
+                if len(src) != 1:
+                    continue
+                s = src[0]
+                if s in chain:
+                    root, scales = chain[s]
+                elif classv[s] == 0:
+                    root, scales = s, ()
+                else:
+                    continue  # a current-order source keeps no history
+                if g.name == "mul":
+                    scales = scales + (int(args[0] if lit[args[0]]
+                                           else args[1]),)
+                if len(scales) <= MAX_SCALES:
+                    chain[int(c)] = (root, scales)
+    return {c: v for c, v in chain.items() if classv[c] == 0}

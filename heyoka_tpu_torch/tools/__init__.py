@@ -9,8 +9,10 @@ the root of the repository), and what they share with ``chip_smoke.py``.
 - :mod:`.roofline`: the least time the H100 could take for a kernel's work;
 - :mod:`.jet_scan`: kernel B2's time against the blocks an SM holds and
   against the order, on the outer-Solar-System tape;
-- :mod:`.same_bits`: kernels B1 and B2 of two checkouts of the port on the
-  same inputs, bit for bit (a script run with a checkout on
+- :mod:`.rolled_scan`: where kernel B3's time goes on the mascon-512 tape
+  (against K, lanes, block size and layout, and a per-pass clock trace);
+- :mod:`.same_bits`: kernels B1, B2 and B3 of two checkouts of the port on
+  the same inputs, bit for bit (a script run with a checkout on
   ``PYTHONPATH``).
 
 Each tool runs on the card: ``python -m heyoka_tpu_torch.tools.<name>``.

@@ -132,3 +132,68 @@ def step_flops(n_eq: int, K: int, high_accuracy: bool = True) -> int:
     two double-length time sums."""
     update = 6 * K - 1 if high_accuracy else 2 * K
     return n_eq * update + 26
+
+
+def rolled_traffic(tape) -> dict:
+    """What one lane-jet of kernel B3 reads, counted from the packed
+    tables of ``tape`` (a ``taylor.jet_rolled.RolledTape``) and the reads
+    of ``csrc/taylor_jet_rolled.cu`` at order 0 and each order k >= 1:
+
+    - ``table_bytes``: the items' records (4 B an int), the offset pair of
+      an item with one, a pow's exponent (8 B), and for each distinct
+      operand of an item read through the alias table its record (16 B);
+    - ``table_bytes_before``: the previous design's per-column tables at
+      every order (op, two argptr words, oloc and every operand word of
+      every op column, as kernel B3 read them before the item lists);
+    - ``coef_loads``: the doubles read from H, A, C and S (shared memory
+      on the smem layout): every term's operands as each recurrence reads
+      them, an alias's literals once an item, and the state rows'
+      right-hand sides."""
+    from ..taylor.jet_rolled import _RHDR, CLS_SHIFT, SEG_INTS, V, A
+    it = tape.ritab.cpu().numpy().astype(np.int64)
+    h = dict(zip(_RHDR, it[:len(_RHDR)].tolist()))
+    K, n_lv = h["K"], h["n_levels"]
+    alias = it[h["alias"]:h["alias"] + 4 * h["NA"]].reshape(-1, 4)
+    n_seg = it[h["lvlk"] + n_lv]
+    seg = it[h["seg"]:h["seg"] + SEG_INTS * n_seg].reshape(-1, SEG_INTS)
+    rec, off = it[h["rec"]:], it[h["off"]:]
+
+    def literals(loc):
+        return int((alias[loc & ((1 << CLS_SHIFT) - 1), 1:3] >= 0).sum())
+
+    def walk(lo, hi, k):
+        tb = cl = 0
+        for op, n, first, ar, aux, per in seg[lo:hi]:
+            name = OPCODES[op]
+            for i in range(n):
+                if ar > 0:
+                    r = rec[first + i * (1 + ar * per):][:1 + ar * per]
+                else:
+                    r = rec[first + off[aux + i]:first + off[aux + i + 1]]
+                    tb += 8
+                a = r[1::per]
+                tb += 4 * r.size + 8 * (name == "pow")
+                lits = int((a >> CLS_SHIFT == V).sum())
+                if k == 0:
+                    cl += a.size - lits
+                    continue
+                # the operands an item resolves, each once (its own
+                # column is H)
+                al = [x for x in set(a.tolist()) if x >> CLS_SHIFT == A]
+                tb += 16 * len(al) * (per == 1)
+                cl += sum(literals(x) for x in al)
+                cl += {"sum": a.size - lits, "mul": 2 * (k + 1),
+                       "div": 2 * k + 2, "sqrt": 2 * k,
+                       "pow": 2 * k + 1}[name]
+        return tb, cl
+
+    lvl0 = it[h["lvl0"]:h["lvl0"] + n_lv + 1]
+    lvlk = it[h["lvlk"]:h["lvlk"] + n_lv + 1]
+    tb, cl = walk(lvl0[0], lvl0[-1], 0)
+    for k in range(1, K + 1):
+        t, c = walk(lvlk[0], lvlk[-1], k)
+        tb, cl = tb + t + 4 * h["n_eq"], cl + c + h["n_eq"]
+    n_ops = tape.arrays["arg_ptr"].size - 1
+    before = (K + 1) * 4 * (4 * n_ops + tape.arrays["args"].size)
+    return dict(table_bytes=int(tb), table_bytes_before=int(before),
+                coef_loads=int(cl))

@@ -1,5 +1,5 @@
-"""Kernels B1 and B2 of two checkouts of the port on the same inputs, bit
-for bit, on one CUDA card.
+"""Kernels B1, B2 and B3 of two checkouts of the port on the same inputs,
+bit for bit, on one CUDA card.
 
 A redesign that keeps every coefficient's expression (the same terms,
 summed in the same order, with no FMA) must give the bits of the build it
@@ -11,13 +11,15 @@ replaces.  From the root of a checkout:
         dump b.pt
     python3 heyoka_tpu_torch/tools/same_bits.py compare a.pt b.pt
 
-``dump`` runs ``jet_kernels.jet`` (B2) and ``jet_kernels.prop`` (B1) of
-the ``heyoka_tpu_torch`` that ``PYTHONPATH`` names (each checkout builds
-its own kernels) on inputs made from fixed seeds, and saves their
-outputs: the outer-Solar-System tape at order 19 and 10,240 lanes (one
-jet, a 64-step chunk with the compensated update, 16 steps with Horner's),
-blocks of mixed lanes on the 3-body tape (inactive, budget, near and
-non-finite lanes), and mascon-32 and mascon-128 jets.  ``compare`` prints
+``dump`` runs ``jet_kernels.jet`` (B2), ``jet_kernels.prop`` (B1) and
+``jet_rolled.jet_rolled`` (B3) of the ``heyoka_tpu_torch`` that
+``PYTHONPATH`` names (each checkout builds its own kernels) on inputs made
+from fixed seeds, and saves their outputs: the outer-Solar-System tape at
+order 19 and 10,240 lanes (one jet, a 64-step chunk with the compensated
+update, 16 steps with Horner's), blocks of mixed lanes on the 3-body tape
+(inactive, budget, near and non-finite lanes), mascon-32 and mascon-128
+jets of B2, and B3 jets of mascon-512 and mascon-32 at 1,024 lanes and of
+a tape with parameters, a time column, div, sqrt and two exponents.  ``compare`` prints
 one JSON line with, for every output, whether the two dumps are equal bit
 for bit (NaN where both are NaN) and their largest difference, and exits
 1 unless every output is equal.  The script imports only torch, numpy and
@@ -46,6 +48,17 @@ def _mascon(ht, N):
     return ht.models.mascon(masses=(masses / masses.sum()).tolist(),
                             positions=pts.tolist(),
                             omega=(0.0, 0.0, 2.0 * np.pi / 10.0))
+
+
+def _par_time(ht):
+    # div, sqrt, pow with two exponents in one group, two parameters and
+    # the time (tests/test_torch_gpu.py's mixed hand-built system)
+    x, y, z = ht.make_vars("x", "y", "z")
+    zr = (x * x + z * z + 2.0) ** -1.5 - ht.par[1] * z \
+        + 0.01 * (x * x + y * y + 1.0) ** 2.5
+    return [(x, ht.par[0] * y / (1.0 + x * x) + ht.sqrt(1.5 + y * y)),
+            (y, -x / ht.sqrt(x * x + y * y + 0.3) + 0.1 * ht.time_ * z),
+            (z, zr)]
 
 
 def _orbits(B, seed):
@@ -109,6 +122,24 @@ def dump(path):
         st = torch.as_tensor(_orbits(B, N).T.copy(), **f64)
         out[f"b2_mascon{N}"] = jk.jet(tape(_mascon(ht, N), 19), st,
                                       torch.zeros((0, B), **f64))
+
+    from heyoka_tpu_torch.taylor import jet_rolled as jr
+
+    def rtape(sys_):
+        return jr.RolledTape(ht.plan_to_arrays(build_plan(
+            ht.taylor_decompose_sys(sys_), 19)), dev)
+
+    for N in (512, 32):
+        st = torch.as_tensor(_orbits(B, N + 1).T.copy(), **f64)
+        out[f"b3_mascon{N}"] = jr.jet_rolled(
+            rtape(_mascon(ht, N)), st, torch.zeros((0, B), **f64),
+            torch.zeros(B, **f64))
+    rng = np.random.default_rng(12)
+    out["b3_par_time"] = jr.jet_rolled(
+        rtape(_par_time(ht)), torch.as_tensor(rng.uniform(-1, 1, (3, B)),
+                                              **f64),
+        torch.as_tensor(rng.uniform(0.5, 1.5, (2, B)), **f64),
+        torch.as_tensor(rng.uniform(0.0, 2.0, B), **f64))
     torch.cuda.synchronize()
     torch.save({k: [x.cpu() for x in v] for k, v in out.items()}, path)
     print(json.dumps({"dumped": path, "cases": list(out),

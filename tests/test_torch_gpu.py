@@ -61,7 +61,8 @@ def _mascon12():
 SYSTEMS = {"nbody3": _nbody3, "handbuilt": _handbuilt, "mascon12": _mascon12,
            "handbuilt_mixed": lambda: _handbuilt(mixed=True),
            "mascon32": lambda: ht.models.mascon(**mascon_body(32)[0]),
-           "mascon128": lambda: ht.models.mascon(**mascon_body(128)[0])}
+           "mascon128": lambda: ht.models.mascon(**mascon_body(128)[0]),
+           "mascon512": lambda: ht.models.mascon(**mascon_body(512)[0])}
 
 
 def _orbits(B, seed):
@@ -147,6 +148,56 @@ def test_jet_rolled_kernel_matches_plain_and_b2(cuda, name):
         assert float(nrel.max()) <= 1e-13
 
 
+def _rolled_vs_twin_and_b2(cuda, tape, args, **kw):
+    """Kernel B3 (``jr._jet_rolled_cuda`` with ``kw``) against its twin and
+    kernel B2 on the same inputs: 1e-13 relative per order, the norms to
+    the same bound.  Returns B3's outputs."""
+    n0 = jk.LAUNCHES["jet_rolled"]
+    tc, norms = jr._jet_rolled_cuda(tape, *args, **kw)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["jet_rolled"] == n0 + 1
+    assert bool(torch.isfinite(tc).all())
+    for ref_tc, ref_n in (jr.jet_rolled_plain(tape, *args),
+                          jk.jet(tape, *args)):
+        assert float(_per_order_rel(tc, ref_tc).max()) <= 1e-13
+        nrel = (norms - ref_n).abs().amax(1) / ref_n.amax(1)
+        assert float(nrel.max()) <= 1e-13
+    return tc, norms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", jr.BLOCK_THREADS)
+@pytest.mark.parametrize("layout", ["smem", "global"])
+@pytest.mark.parametrize("name", ["mascon32", "handbuilt_mixed"])
+def test_jet_rolled_layouts_and_block_sizes(cuda, name, layout, threads):
+    # B3 on both layouts (the global one forced on a tape whose lane fits
+    # shared memory) at every block size, order 19, B not a multiple of
+    # the blocks a global launch takes; every shape computes each item
+    # alike, so all equal the default launch bit for bit
+    B, K = 301, 19
+    tape = _tape(name, K, cuda, jr.RolledTape)
+    assert jr.block_layout(tape)[0] == "smem"
+    st, pars, t = _inputs(name, B, 12)
+    args = (_dev(st.T, cuda), _dev(pars.T, cuda), _dev(t, cuda))
+    got = _rolled_vs_twin_and_b2(cuda, tape, args, threads=threads,
+                                 layout=layout)
+    ref = jr.jet_rolled(tape, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["smem", "global"])
+def test_jet_rolled_mascon512(cuda, layout):
+    # the slice's tape: 3,072 aliases, 214,488 B a lane in shared memory
+    B, K = 24, 19
+    tape = _tape("mascon512", K, cuda, jr.RolledTape)
+    assert jr.block_layout(tape) == ("smem", 214_488)
+    args = (_dev(_orbits(B, 13).T, cuda),
+            torch.zeros((0, B), dtype=torch.float64, device=cuda),
+            torch.zeros(B, dtype=torch.float64, device=cuda))
+    _rolled_vs_twin_and_b2(cuda, tape, args, layout=layout)
+
+
 @pytest.mark.gpu
 def test_jet_rolled_rejects_bad_inputs(cuda):
     tape = _tape("mascon12", 8, cuda, jr.RolledTape)
@@ -156,6 +207,8 @@ def test_jet_rolled_rejects_bad_inputs(cuda):
         jr.jet_rolled(tape, st.float(), pars)
     with pytest.raises(ValueError):
         jr.jet_rolled(tape, st.cpu(), pars)  # tables on the card
+    with pytest.raises(ValueError):
+        jr._jet_rolled_cuda(tape, st, pars, threads=128)
 
 
 @pytest.mark.gpu

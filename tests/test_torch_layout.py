@@ -15,6 +15,7 @@ import heyoka_tpu_torch as ht
 from heyoka_tpu_torch.models import nbody
 from heyoka_tpu_torch.taylor import batch as tbatch
 from heyoka_tpu_torch.taylor import jet_kernels as jk
+from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.tools import GCONST, IC, MASSES, jet_scan
 
@@ -118,7 +119,7 @@ def _cpu_pair(name, tol, **kw):
     ("outer_ss", None, "smem"),
     ("nbody3", None, "smem"),
     ("pendulum", None, None),        # the phase route (B4)
-    ("mascon12", 64, None),          # the rolled route (B3)
+    ("mascon12", 64, "rolled"),      # the rolled route (B3)
     ("mascon128", 10**6, "global"),  # B1/B2 on a tape too wide for smem
 ])
 def test_engine_report_names_the_layout(monkeypatch, name, min_width,
@@ -129,6 +130,11 @@ def test_engine_report_names_the_layout(monkeypatch, name, min_width,
     rep = ta.engine_report()
     if layout is None:
         assert rep["layout"] is None and rep["prop"] is None
+        return
+    if layout == "rolled":  # kernel B3's layout: one lane a block
+        assert rep["prop"] is None and rep["jet"] == "jet_rolled_plain"
+        assert rep["layout"] == jr.layout_report(ta._jtape)
+        assert rep["layout"]["layout"] == "smem"
         return
     assert rep["jet"] == "jet_plain" and rep["prop"] == "prop_plain"
     lanes, smem = jk.block_layout(ta._jtape.width, ta.order)

@@ -318,7 +318,8 @@ def test_batch_routes_wide_tape_to_rolled(rolled_only):
     p = ht.taylor_adaptive_batch(_mascon12(ht), st, device="cpu", **kw)
     assert p.engine_report() == dict(device="cpu", jet="jet_rolled_plain",
                                      propagate_engine="flat", prop=None,
-                                     layout=None)
+                                     layout=jr.layout_report(p._jtape))
+    assert p.engine_report()["layout"]["layout"] == "smem"
     assert isinstance(p._jtape, jr.RolledTape)
     j = hy.taylor_adaptive_batch(_mascon12(hy), st, compact_mode="flat",
                                  **kw)
@@ -377,13 +378,14 @@ def test_jet_rolled_wrapper_on_cpu_is_the_twin():
 
 @pytest.mark.parametrize("name", ["mascon12", "handbuilt_mixed"])
 def test_rolled_tables(name):
-    # the int32 table kernel B3 decodes: sizes, the level ranges, and the
-    # location words against the class maps
+    # the int32 table kernel B3 decodes: sizes, the level ranges of its two
+    # item lists, and the location words against the class maps
     tape = _rolled_tape(name, 7)
     it = tape.ritab.numpy()
     hdr = dict(zip(jr._RHDR, it[:len(jr._RHDR)].tolist()))
     assert (hdr["n_eq"], hdr["K"]) == (tape.n_eq, tape.order)
-    assert (hdr["WH"], hdr["WC"], hdr["WV"]) == tape.sizes
+    assert (hdr["WH"], hdr["WC"], hdr["WV"], hdr["NA"], hdr["NS"]) \
+        == tape.sizes
     a = tape.arrays
     n_ops = a["arg_ptr"].size - 1
 
@@ -393,25 +395,37 @@ def test_rolled_tables(name):
     def decode(loc):
         return loc >> jr.CLS_SHIFT, loc & ((1 << jr.CLS_SHIFT) - 1)
 
-    lvl = sub("lvl", hdr["n_levels"] + 1)
-    assert lvl[0] == 0 and lvl[-1] == n_ops and (np.diff(lvl) > 0).all()
-    cls, row = decode(sub("oloc", n_ops))
-    cols = tape.n_eq + np.arange(n_ops)
-    np.testing.assert_array_equal(cls, tape.classv[cols])
-    np.testing.assert_array_equal(row, tape.rowmap[cols])
-    cls, row = decode(sub("aloc", a["args"].size))
-    np.testing.assert_array_equal(cls, tape.classv[a["args"]])
-    np.testing.assert_array_equal(row, tape.rowmap[a["args"]])
+    n_lv = hdr["n_levels"]
+    lvl0, lvlk = sub("lvl0", n_lv + 1), sub("lvlk", n_lv + 1)
+    assert lvl0[0] == 0 and lvl0[-1] == lvlk[0]
+    assert (np.diff(lvl0) > 0).all() and (np.diff(lvlk) >= 0).all()
+    # the class maps: H, C and V rows as _row_classes numbers them, with
+    # the aliases out of H and the roots renumbered in column order
+    cls0, row0, sizes0 = rows._row_classes(ht.plan_from_arrays(a))
+    assert tape.sizes[0] + tape.sizes[3] == sizes0[0]
+    assert tape.sizes[1:3] == sizes0[1:]
+    keep = tape.classv != jr.A
+    np.testing.assert_array_equal(tape.classv[keep], cls0[keep])
+    assert (cls0[~keep] == 0).all()
+    for c in (jr.C, jr.V):
+        np.testing.assert_array_equal(tape.rowmap[cls0 == c],
+                                      row0[cls0 == c])
+    for c in (jr.H, jr.A):
+        np.testing.assert_array_equal(
+            tape.rowmap[tape.classv == c],
+            np.arange(int((tape.classv == c).sum())))
+    cls, row = decode(sub("rhs", tape.n_eq))
+    np.testing.assert_array_equal(cls, tape.classv[a["rhs_cols"]])
+    np.testing.assert_array_equal(row, tape.rowmap[a["rhs_cols"]])
     np.testing.assert_array_equal(
         sub("crows", a["const_cols"].size), tape.rowmap[a["const_cols"]])
-    assert hdr["aloc"] + a["args"].size == it.size
-    ops = sub("op", n_ops)
-    for lv in ht.plan_from_arrays(a).levels:
-        for g in lv:
-            o = g.out_start - tape.n_eq
-            assert (ops[o:o + g.out_cols.size]
-                    == ht.convert.OPCODES.index(g.name)).all()
+    assert hdr["n_levels"] == len(ht.plan_from_arrays(a).levels)
+    assert hdr["d_alpha"] == a["const_vals"].size
     if tape.time_col is not None:
         assert hdr["time_row"] == tape.rowmap[tape.time_col]
     d = tape.rdtab.numpy()
-    np.testing.assert_array_equal(d[hdr["d_alpha"]:], a["alpha"])
+    np.testing.assert_array_equal(d[:hdr["d_alpha"]], a["const_vals"])
+    pows = a["alpha"][a["alpha"] != 0]
+    np.testing.assert_array_equal(d[hdr["d_alpha"]:],
+                                  np.concatenate([pows, pows]))
+    assert n_ops > 0
