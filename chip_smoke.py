@@ -35,9 +35,10 @@ if anything is missing or any check fails.  Phases, one line each:
    ``benchmarks/mascon_bench.py`` at order 19 and 256 of its lanes,
    against ``jet_rolled_plain`` and against B2 on the same inputs: 1e-13
    relative per order, norms to the same bound; its literal aliases, the
-   bytes a lane takes and its layout (one lane's jet in shared memory),
-   the tables and shared-memory doubles a lane-jet reads
-   (``tools.roofline.rolled_traffic``), and B3 on its global layout,
+   bytes a lane takes and its layout (the global one: a lane fits a
+   block's shared memory, but one block an SM loses), the tables and
+   coefficient doubles a lane-jet reads
+   (``tools.roofline.rolled_traffic``), and B3 on the smem layout,
    forced, held to the same bounds;
 8. the huge-tape slice: ``taylor_adaptive_batch(mascon(...), ...,
    tol=1e-15, high_accuracy=True, device="cuda")`` at 1,024 lanes on
@@ -49,9 +50,10 @@ if anything is missing or any check fails.  Phases, one line each:
    same lanes through the fused B1 route (B1 and B2 on their global
    layout: ``ROLLED_MIN_WIDTH`` raised while the integrator is built),
    timed beside it for ROADMAP A.16 and held to the rolled route's states;
+   then both routes again on mascon-32, a tape of mid width;
 9. the time of one B3 jet at 1,024 lanes on mascon-512 against
-   ``jet_rolled_plain`` and B2, B3 at each block size (256, 512 and 1,024
-   threads, equal bit for bit) and on its global layout, and B2 against
+   ``jet_rolled_plain`` and B2, B3 at each block size (64, 128 and 256
+   threads) on both layouts, equal bit for bit, and B2 against
    B3 on mascon-32/128/256
    and on the outer-Solar-System tape (the data behind
    ``taylor.batch.ROLLED_MIN_WIDTH``); B2 takes the global layout from
@@ -109,7 +111,8 @@ from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.taylor.stepper import taylor_order_from_tol
 from heyoka_tpu_torch.tools import (
-    GCONST, IC, MASSES, cuda_ms, microbench_conv, proto_phase, smi_line,
+    GCONST, IC, MASSES, cuda_ms, mascon_body, mascon_lanes, microbench_conv,
+    proto_phase, smi_line,
 )
 from heyoka_tpu_torch.tools import roofline as rl
 
@@ -131,6 +134,7 @@ MASCON_T = 4.0 * np.pi * 2.0 ** 1.5  # two periods of an r = 2 orbit
 MASCON_REF_LANES = 2
 JACOBI_MAX = 1e-12
 SWEEP_N = (32, 128, 256)
+MID_N = 32  # phase 8's mid-width tape
 
 PHASE_B = 1024
 PHASE_LO = 9  # the JAX route's split at mp_order = 8
@@ -201,41 +205,6 @@ def energy(st, masses, G):
             d = torch.linalg.vector_norm(r[:, i] - r[:, j], dim=1)
             e = e - G * masses[i] * masses[j] / d
     return e
-
-
-def mascon_body(N):
-    """``benchmarks/mascon_bench.py``'s body: N mascons drawn in the unit
-    ball, total mass 1, spinning about z with period 10; returns the
-    system's keywords and the generator, positioned where the benchmark
-    draws its lanes."""
-    rng = np.random.default_rng(42)
-    pts = rng.uniform(-1.0, 1.0, (4 * N, 3))
-    pts = pts[np.linalg.norm(pts, axis=1) <= 1.0][:N]
-    masses = rng.uniform(0.5, 1.0, N)
-    masses /= masses.sum()
-    kw = dict(Gconst=1.0, masses=masses.tolist(), positions=pts.tolist(),
-              omega=(0.0, 0.0, 2.0 * np.pi / 10.0))
-    return kw, rng
-
-
-def mascon_lanes(rng, B, omega=None):
-    """``mascon_bench.py``'s lanes: at r ~ 2, with the circular speed
-    along the orbit.  The model works in the body's rotating frame, so
-    these lanes move at the circular speed plus the frame's (about twice
-    the escape speed) and leave the body.  Given ``omega``, the frame's
-    velocity w x r is taken out, which makes them the bound near-circular
-    orbits the benchmark describes."""
-    ang = rng.uniform(0, 2 * np.pi, B)
-    r0 = 2.0 + 0.05 * rng.standard_normal(B)
-    vc = np.sqrt(1.0 / r0)
-    st = np.zeros((B, 6))
-    st[:, 0] = r0 * np.cos(ang)
-    st[:, 1] = r0 * np.sin(ang)
-    st[:, 3] = -vc * np.sin(ang)
-    st[:, 4] = vc * np.cos(ang)
-    if omega is not None:
-        st[:, 3:] -= np.cross(omega, st[:, :3])
-    return st
 
 
 def jacobi(st, kw):
@@ -514,9 +483,51 @@ def rolled_route(sys_, ics, kw, st_fused, dev):
                 max_rel_vs_fused=rel)
 
 
+def mid_width(dev):
+    """Phase 8 on mascon-32 (597 columns: the rolled route, as
+    ``ROLLED_MIN_WIDTH`` is 512), after the main path's launch counts were
+    read: ``mascon_lanes``' 1,024 lanes over two orbits through B3 on the
+    block it chooses for the tape and the per-step driver, every lane on
+    the target; then the same lanes through the fused route, held to the
+    rolled route's states.  Their lane-steps/s side by side are ROADMAP
+    A.16's pair at mid width."""
+    kw, rng = mascon_body(MID_N)
+    orbits = mascon_lanes(rng, MASCON_B, kw["omega"])
+    sys_ = ht.models.mascon(**kw)
+    ta = ht.taylor_adaptive_batch(sys_, orbits, device=dev, tol=TOL,
+                                  high_accuracy=True)
+    eng = ta.engine_report()
+    check(eng["jet"] == "hy_jet_rolled_f64",
+          f"mascon-{MID_N}: not the rolled route: {eng}")
+    n0 = jk.LAUNCHES["jet_rolled"]
+    ta.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oc, _, _, nsteps = ta.propagate_until(MASCON_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == MASCON_T).all()),
+          f"mascon-{MID_N}: a lane did not land on the target")
+    j0, j1 = (jacobi(torch.as_tensor(x, device=dev), kw)
+              for x in (orbits, ta.state))
+    steps = int(nsteps.sum())
+    r_end = np.linalg.norm(ta.state[:, :3], axis=1)
+    # the 32 mascons' lumpy field scatters some of these lanes toward the
+    # body or away from it, and their many small steps keep the driver
+    # running: the drift is reported, and the fused route holds the states
+    return dict(n_mascons=MID_N, W=ta._jtape.width, layout=eng["layout"],
+                wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
+                max_steps_per_lane=int(np.max(nsteps)),
+                b3_launches=jk.LAUNCHES["jet_rolled"] - n0,
+                jacobi_drift_max_rel=float(((j1 - j0).abs() / j0.abs()).max()),
+                r_end_range=[float(r_end.min()), float(r_end.max())],
+                fused_route=fused_route(sys_, orbits, ta.state, dev))
+
+
 def fused_route(sys_, orbits, st_rolled, dev):
     """Phase 8's lanes and horizon through the fused route (kernel B1 on
-    its global layout, B2 for the first step and the landing:
+    the layout the tape takes, B2 for the first step and the landing:
     ``ROLLED_MIN_WIDTH`` raised above the tape's width while the
     integrators are built), after phase 8's launch counts were read: its
     lane-steps/s beside the rolled route's (ROADMAP A.16); every lane
@@ -532,8 +543,8 @@ def fused_route(sys_, orbits, st_rolled, dev):
     finally:
         tbatch.ROLLED_MIN_WIDTH = min_width
     eng = tf.engine_report()
-    check(eng["prop"] == "hy_prop_f64" and eng["layout"]["layout"]
-          == "global", f"phase 8: not the fused global route: {eng}")
+    check(eng["prop"] == "hy_prop_f64",
+          f"phase 8: not the fused route: {eng}")
     warm.propagate_until(1.0)
     n0 = dict(jk.LAUNCHES)
     tf.step()
@@ -616,24 +627,26 @@ def huge_tapes(dev, order, smi):
         check(rel[ref] <= JET_RTOL and nrel <= JET_RTOL,
               f"B3 vs {ref}: per-order {rel[ref]}, norms {nrel}")
     rolled_err = float((tc_k - tc_p).abs().max())
-    # the same lanes on B3's global layout, forced
-    tc_g, nrm_g = jr._jet_rolled_cuda(rtape, *args, layout="global")
-    torch.cuda.synchronize()
-    g_rel = float(per_order_rel(tc_g, tc_p).max())
-    g_nrel = float(((nrm_g - nrm_p).abs() / nrm_p.abs()).max())
-    check(g_rel <= JET_RTOL and g_nrel <= JET_RTOL,
-          f"B3 (global layout) vs plain: per-order {g_rel}, norms {g_nrel}")
-    rolled_err = max(rolled_err, float((tc_g - tc_p).abs().max()))
+    # mascon-512's lane takes a block's shared memory but leaves it alone on
+    # its SM, so B3 runs it on the global layout; the same lanes on the
+    # smem layout, forced
     rep = jr.layout_report(rtape)
+    check(rep["layout"] == "global", f"mascon-512: B3 layout {rep}")
+    tc_s, nrm_s = jr._jet_rolled_cuda(rtape, *args, layout="smem")
+    torch.cuda.synchronize()
+    s_rel = float(per_order_rel(tc_s, tc_p).max())
+    s_nrel = float(((nrm_s - nrm_p).abs() / nrm_p.abs()).max())
+    check(s_rel <= JET_RTOL and s_nrel <= JET_RTOL,
+          f"B3 (smem layout) vs plain: per-order {s_rel}, norms {s_nrel}")
+    rolled_err = max(rolled_err, float((tc_s - tc_p).abs().max()))
     WH, WC, WV, NA, NS = rtape.sizes
-    check(rep["layout"] == "smem", f"mascon-512: B3 layout {rep}")
     say(7, B=B_CHECK, order=order, W=rtape.width,
         classes=dict(history_rows=WH, aliases=NA, C=WC, V=WV, S=NS),
         layout=rep, traffic_per_lane_jet=rl.rolled_traffic(rtape),
         vs_plain_max_rel_per_order=rel["plain"],
         vs_b2_max_rel_per_order=rel["b2"], max_abs_err=rolled_err,
-        global_layout=dict(max_rel_per_order=g_rel, norms_max_rel=g_nrel,
-                           equal_to_smem=bool(torch.equal(tc_g, tc_k))),
+        smem_layout=dict(max_rel_per_order=s_rel, norms_max_rel=s_nrel,
+                         equal_to_global=bool(torch.equal(tc_s, tc_k))),
         b2_layout=jk.layout_report(dtape),
         equal_to_plain=bool(torch.equal(tc_k, tc_p)
                             and torch.equal(nrm_k, nrm_p)),
@@ -687,7 +700,7 @@ def huge_tapes(dev, order, smi):
         jacobi_drift_max_rel=drift, cpu_ref_max_rel=ref_rel,
         r_end_range=[float(np.linalg.norm(st_end[:, :3], axis=1).min()),
                      float(np.linalg.norm(st_end[:, :3], axis=1).max())],
-        engine=eng, fused_route=fused)
+        engine=eng, fused_route=fused, mid_width=mid_width(dev))
 
     # -- 9. times: B3, its twin and B2 at 1,024 lanes -----------------------------
     args = jet_args(ics)
@@ -705,8 +718,8 @@ def huge_tapes(dev, order, smi):
                    rl.nbytes(*args, rtape.ritab, rtape.rdtab, tc_k, nrm_k),
                    torch.float64)
     rolled_err = max(rolled_err, float((tc_k - tc_p).abs().max()))
-    # B3 at each block size and on its global layout: the same items
-    # computed alike, so the same bits as the default launch
+    # B3 at each block size on both layouts: the same items computed
+    # alike, so the same bits as the default launch
     shapes = {}
     for nt in jr.BLOCK_THREADS:
         for lay in ("smem", "global"):
@@ -717,8 +730,7 @@ def huge_tapes(dev, order, smi):
                                                          (tc_k, nrm_k))),
                   f"B3 with {nt} threads on {lay} differs from the default")
             shapes[f"{lay}x{nt}"] = [cuda_ms(run, 3) for _ in range(2)]
-    fastest = min((k for k in shapes if k.startswith("smem")),
-                  key=lambda k: sum(shapes[k]))
+    fastest = min(shapes, key=lambda k: sum(shapes[k]))
     # B2 against B3 on narrower tapes: where the rolled jet starts to pay
     sweep = {}
     tapes = {f"mascon{n}": mascon_tapes(mascon_body(n)[0], order, dev)
@@ -739,9 +751,11 @@ def huge_tapes(dev, order, smi):
         r = float(per_order_rel(jr.jet_rolled(rt, *a)[0],
                                 jk.jet(dtp, *a)[0]).max())
         check(r <= JET_RTOL, f"B3 vs B2 on {name}: {r}")
+        b3_rep = jr.layout_report(rt)
         sweep[name] = dict(W=rt.width, b2_ms=b2, b3_ms=b3,
                            b2_over_b3=(sum(b2) / 2) / (sum(b3) / 2),
-                           b2_layout=jk.layout_report(dtp))
+                           b2_layout=jk.layout_report(dtp),
+                           b3_shape=f"{b3_rep['layout']}x{b3_rep['threads']}")
     # B2 on the global layout against its twin (mascon-128)
     gtape = tapes["mascon128"][1]
     check(jk.layout_report(gtape)["layout"] == "global",
@@ -756,7 +770,7 @@ def huge_tapes(dev, order, smi):
         plain_ms_runs=t["plain"], b2_ms_runs=t["b2"],
         b3_vs_plain_max_rel_per_order=rel_m, b3_bound=bnd,
         b3_shapes_ms=shapes, b3_fastest=fastest,
-        b3_chosen=f"smemx{jr.THREADS}", sweep=sweep,
+        b3_chosen=f"{rep['layout']}x{rep['threads']}", sweep=sweep,
         b2_global_vs_plain=dict(tape="mascon128", max_rel_per_order=g_rel,
                                 norms_max_rel=g_nrel, tol=JET_RTOL))
     return launches["jet_rolled"], rolled_err, dict(

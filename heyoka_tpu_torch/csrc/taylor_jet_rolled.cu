@@ -27,15 +27,17 @@
 // memory, one lane's row after another, read at order 0 and to fill S, the
 // literals the alias chains multiply by, in shared memory.
 //
-// Design: one lane a block.  Its H, A and C live in the block's dynamic
-// shared memory (214,488 B at mascon-512, order 19: 1,033 history rows of
-// the 4,105 H rows, since 3,072 are aliases), or, where they do not fit a
-// block's 232,448 B beside S and the staging row (mascon-1024), in a
-// global scratch buffer of the same layout, one region per block, the
-// blocks walking over the lanes; the code is the same.
-// jet_rolled.block_layout decides.  The block's threads share out each
-// level's items and a __syncthreads() closes each level, as the columns of
-// one level are independent.  Order 0 computes every op column; orders
+// Design: one lane a block of 64, 128 or 256 threads, about three items a
+// thread in the tape's widest pass (jet_rolled.block_threads: idle threads
+// cost more than they gain).  The lane's H, A and C live in the block's
+// dynamic shared memory where an SM holds two such blocks or more (up to
+// mascon-256, 112,104 B a block), else in a global scratch buffer of the
+// same layout, one region per block, 512 threads an SM walking over the
+// lanes (mascon-512: 1,033 history rows of its 4,105 H rows, since 3,072
+// are aliases, 214,488 B a lane, would leave one block alone on an SM);
+// the code is the same.  jet_rolled.block_layout decides.  The block's
+// threads share out each level's items and a __syncthreads() closes each
+// level, as the columns of one level are independent.  Order 0 computes every op column; orders
 // k >= 1 skip the aliases (their items are not in the order-k list, and a
 // level left empty costs no barrier).  The item lists are segments, one
 // per plan group: an instance-regular group gives its op and arity once
@@ -47,15 +49,18 @@
 // staging row, added by one thread in operand order.
 //
 // What bounds it on this card: the latency of a lane-jet's chain of 133
-// barrier-closed passes (7 an order), with one block an SM.  Per pass
-// (tools/rolled_scan.py, clock64 after each barrier): ~2k cycles whatever
-// its items, the 1,536-item product levels ~7k, and the three 514-operand
-// sums ~15k, about 29 cycles an add of their dependent chain, which bit
-// equality with the previous design keeps in operand order.  Four blocks
-// an SM on the global layout gain only 1.5x over one (the SM issues ~0.6
-// instructions a cycle), so instructions count too: every read is a
-// shared-memory load and a literal multiply is unconditional (by 1.0 where
-// absent, which is exact).  The coefficients never touch device memory.
+// barrier-closed passes (7 an order) and the instructions its SM runs
+// (tools/rolled_scan.py, clock64 after each barrier of block 0).  A pass
+// costs ~2k cycles whatever its items; at mascon-512 the two 1,536-item
+// product levels and the three 514-operand sums (a dependent add every
+// ~29 cycles, which bit equality with the previous design keeps in
+// operand order) take most of a lane-jet.  Every thread walks every
+// segment of a pass, so a block's idle threads cost instruction slots:
+// hence the small blocks, every read a load from shared memory (or L2)
+// and each literal multiply unconditional (by 1.0 where absent, which is
+// exact).
+// ptxas gives every instance 128 registers a thread, so an SM holds 512
+// threads: two blocks of 256 on the global layout.
 //
 // Every coefficient is the expression of the design this one replaced
 // (eight lanes a block, the class buffers in global memory), the terms
@@ -557,16 +562,15 @@ int launch_nt(int threads, const int* itab, const double* dtab,
               long long* trace, int B, int smem, int lane_dbl, int blocks,
               cudaStream_t s) {
   switch (threads) {
+    case 64:
+      return launch<64, kSmem>(itab, dtab, state, pars, t, scratch, V, out,
+                               norms, trace, B, smem, lane_dbl, blocks, s);
+    case 128:
+      return launch<128, kSmem>(itab, dtab, state, pars, t, scratch, V, out,
+                                norms, trace, B, smem, lane_dbl, blocks, s);
     case 256:
       return launch<256, kSmem>(itab, dtab, state, pars, t, scratch, V, out,
                                 norms, trace, B, smem, lane_dbl, blocks, s);
-    case 512:
-      return launch<512, kSmem>(itab, dtab, state, pars, t, scratch, V, out,
-                                norms, trace, B, smem, lane_dbl, blocks, s);
-    case 1024:
-      return launch<1024, kSmem>(itab, dtab, state, pars, t, scratch, V,
-                                 out, norms, trace, B, smem, lane_dbl, blocks,
-                                 s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -574,7 +578,7 @@ int launch_nt(int threads, const int* itab, const double* dtab,
 
 }  // namespace
 
-// One lane a block, `threads` of 256, 512 or 1,024; `smem` bytes of
+// One lane a block, `threads` of 64, 128 or 256; `smem` bytes of
 // dynamic shared memory (jet_rolled.smem_bytes).  `scratch` null: the
 // lane's H, A and C (lane_dbl doubles) in shared memory, `blocks` = B;
 // else `scratch` holds `blocks` regions of lane_dbl doubles and the blocks

@@ -205,9 +205,7 @@ def _eval0(name, alpha, hist, nargs):
 
 def _eval_k(name, alpha, k: int, hist, nargs):
     """Order ``k`` (>= 1) of one group's columns, from the lower orders
-    (``hist`` as in :func:`_eval0`).  Every sum runs in j ascending from
-    0.0, one add at a time, as the kernels add them: the result does not
-    depend on how many columns the group has, as a reduction's would."""
+    (``hist`` as in :func:`_eval0`)."""
     if name == "sum":
         v = hist(0, k, k + 1)[0]
         for q in range(1, nargs):
@@ -215,33 +213,26 @@ def _eval_k(name, alpha, k: int, hist, nargs):
         return v
     if name == "mul":
         # sum_{j=0..k} a_j b_{k-j}
-        A, Bv = hist(0, 0, k + 1), hist(1, 0, k + 1)
-        v = torch.zeros_like(A[0])
-        for j in range(k + 1):
-            v = v + A[j] * Bv[k - j]
-        return v
+        return (hist(0, 0, k + 1) * hist(1, 0, k + 1).flip(0)).sum(0)
     if name == "div":
         # (a_k - sum_{j<k} q_j b_{k-j}) / b_0
-        Q, Bv = hist(-1, 0, k), hist(1, 0, k + 1)
-        s = torch.zeros_like(Bv[0])
-        for j in range(k):
-            s = s + Q[j] * Bv[k - j]
-        return (hist(0, k, k + 1)[0] - s) / Bv[0]
+        Q = hist(-1, 0, k)
+        Bf = hist(1, 1, k + 1).flip(0)
+        return (hist(0, k, k + 1)[0] - (Q * Bf).sum(0)) / hist(1, 0, 1)[0]
     if name == "sqrt":
         # (a_k - sum_{j=1..k-1} q_j q_{k-j}) / (2 q_0)
-        Q = hist(-1, 0, k)
-        s = torch.zeros_like(Q[0])
-        for j in range(1, k):
-            s = s + Q[j] * Q[k - j]
-        return (hist(0, k, k + 1)[0] - s) / (2.0 * Q[0])
+        Q = hist(-1, 1, k)
+        return (hist(0, k, k + 1)[0] - (Q * Q.flip(0)).sum(0)) \
+            / (2.0 * hist(-1, 0, 1)[0])
     # pow: (sum_{j<k} (alpha (k-j) - j) q_j b_{k-j}) / (k b_0)
-    Q, Av = hist(-1, 0, k), hist(0, 0, k + 1)
-    s1, s2 = torch.zeros_like(Av[0]), torch.zeros_like(Av[0])
-    for j in range(k):
-        s1 = s1 + (Q[j] * Av[k - j]) * float(k - j)
-        s2 = s2 + (float(j) * Q[j]) * Av[k - j]
-    al = torch.as_tensor(alpha, device=Q.device)[:, None]
-    return (s1 * al - s2) / (k * Av[0])
+    Q = hist(-1, 0, k)
+    Bf = hist(0, 1, k + 1).flip(0)
+    dev = Q.device
+    j = torch.arange(k, dtype=_F64, device=dev)[:, None, None]
+    al = torch.as_tensor(alpha, device=dev)[:, None]
+    s1 = ((Q * Bf) * (k - j)).sum(0)
+    s2 = ((Q * j) * Bf).sum(0)
+    return (s1 * al - s2) / (k * hist(0, 0, 1)[0])
 
 
 def _dense_hist(tc, s, m, cols):

@@ -39,7 +39,7 @@ from .. import _build
 from ..convert import OPCODES, plan_from_arrays
 from .jet_kernels import (
     LAUNCHES, SMEM_MAX, JetTape, _F64, _check, _device_of, _eval0, _eval_k,
-    _ptr,
+    _ptr, blocks_per_sm,
 )
 from .rows import MAX_SCALES, _aliases, _row_classes
 
@@ -71,15 +71,21 @@ RESOLVED = 3
 #: summed by a warp an item (csrc ``warp_sum``)
 WIDE_SUM = 32
 
-#: threads a block of kernel B3, one lane a block: the fastest of 256, 512
-#: and 1,024 at mascon-512 and 1,024 lanes on an H100 (``chip_smoke.py``
-#: phase 9, PERF.md)
-THREADS = 512
-BLOCK_THREADS = (256, 512, 1024)
-#: blocks an SM on the global layout, each walking over the lanes: one, as
-#: on the smem layout, so that the scratch of the blocks in flight stays
-#: small (``tools/rolled_scan.py`` times more)
-GLOBAL_BLOCKS_PER_SM = 1
+#: threads a block of kernel B3 (one lane a block) may have, and the items
+#: a thread takes in the tape's widest pass: a block of the largest size
+#: with at least ``ITEMS_PER_THREAD`` items a thread there, the smallest
+#: where none has (:func:`block_threads`).  On an H100 at 1,024 lanes the
+#: idle threads of a larger block cost more than its items gain: mascon-32
+#: runs fastest with 64, mascon-128 with 128, mascon-256 and -512 with
+#: 256 (``tools/rolled_scan.py``, PERF.md)
+BLOCK_THREADS = (64, 128, 256)
+ITEMS_PER_THREAD = 3
+#: threads an SM on the global layout, in blocks that each walk over the
+#: lanes (two of 256 threads, four of 128, eight of 64): as many as the
+#: kernel's 128 registers a thread let an SM hold (ptxas, ``chip_smoke.py``
+#: phase 2); one block of 256 ran mascon-512 1.5x slower on an H100
+#: (``tools/rolled_scan.py``)
+GLOBAL_SM_THREADS = 512
 
 
 def lane_bytes(WH: int, NA: int, WC: int, K: int) -> int:
@@ -87,36 +93,47 @@ def lane_bytes(WH: int, NA: int, WC: int, K: int) -> int:
     return 8 * ((K + 1) * WH + NA + WC)
 
 
-def block_layout(tape: "RolledTape"):
-    """``(layout, lane bytes)`` of kernel B3 on ``tape``: one lane a
-    block, its H, A and C (:func:`lane_bytes`) in the block's dynamic
-    shared memory (``"smem"``) where they fit a block's ``SMEM_MAX`` bytes
-    beside S, a zero and the staging row of the largest block, else in a
-    global
-    scratch buffer of the same layout (``"global"``)."""
-    WH, WC, _, NA, NS = tape.sizes
-    per = lane_bytes(WH, NA, WC, tape.order)
-    fits = per + 8 * (NS + 1 + max(BLOCK_THREADS)) <= SMEM_MAX
-    return ("smem" if fits else "global"), per
+def block_threads(tape: "RolledTape") -> int:
+    """Threads a block of kernel B3 on ``tape``: the largest of
+    ``BLOCK_THREADS`` that leaves ``ITEMS_PER_THREAD`` items a thread in
+    the widest pass of the orders k >= 1 (``tape.widest``, a wide sum
+    counting a warp's 32), else the smallest."""
+    fit = [t for t in BLOCK_THREADS if t * ITEMS_PER_THREAD <= tape.widest]
+    return max(fit, default=BLOCK_THREADS[0])
 
 
 def smem_bytes(tape: "RolledTape", layout: str, threads: int) -> int:
     """A block's dynamic shared memory: the lane's H, A and C on the smem
     layout, then S, a zero and a staging double a thread."""
-    own = block_layout(tape)[1] if layout == "smem" else 0
-    return own + 8 * (tape.sizes[4] + 1 + threads)
+    WH, WC, _, NA, NS = tape.sizes
+    own = lane_bytes(WH, NA, WC, tape.order) if layout == "smem" else 0
+    return own + 8 * (NS + 1 + threads)
 
 
-def layout_report(tape: "RolledTape", threads: int = THREADS) -> dict:
+def block_layout(tape: "RolledTape"):
+    """``(layout, lane bytes)`` of kernel B3 on ``tape``: one lane a
+    block, its H, A and C (:func:`lane_bytes`) in the block's dynamic
+    shared memory (``"smem"``) where an SM holds two such blocks or more,
+    else in a global scratch buffer of the same layout (``"global"``,
+    ``GLOBAL_SM_THREADS`` threads an SM): one block alone on an SM has no
+    other lane's work to hide its latency behind."""
+    WH, WC, _, NA, NS = tape.sizes
+    per = lane_bytes(WH, NA, WC, tape.order)
+    nt = block_threads(tape)
+    two = blocks_per_sm(smem_bytes(tape, "smem", nt), nt) >= 2
+    return ("smem" if two else "global"), per
+
+
+def layout_report(tape: "RolledTape") -> dict:
     """The layout kernel B3 runs ``tape`` with: ``layout``,
-    ``lanes_per_block`` (1), ``smem_bytes`` (a block's dynamic shared
-    memory, :func:`smem_bytes`), ``lane_bytes``, ``aliases``,
-    ``threads`` and ``tables`` (always in global memory)."""
+    ``lanes_per_block`` (1), ``threads``, ``smem_bytes`` (a block's
+    dynamic shared memory, :func:`smem_bytes`), ``lane_bytes``,
+    ``aliases`` and ``tables`` (always in global memory)."""
     layout, per = block_layout(tape)
-    return dict(layout=layout, lanes_per_block=1,
-                smem_bytes=smem_bytes(tape, layout, threads),
-                lane_bytes=per, aliases=tape.sizes[3], threads=threads,
-                tables="global")
+    nt = block_threads(tape)
+    return dict(layout=layout, lanes_per_block=1, threads=nt,
+                smem_bytes=smem_bytes(tape, layout, nt), lane_bytes=per,
+                aliases=tape.sizes[3], tables="global")
 
 
 class _Cols:
@@ -196,14 +213,21 @@ class _Cols:
 
 class RolledTape(JetTape):
     """A :class:`JetTape` with the row classes of its plan and its literal
-    aliases: the class maps, the alias table, the twin's column sets and
-    the packed tables of kernel B3 (``ritab``, ``rdtab``)."""
+    aliases: the class maps, the alias table, the twin's column sets, the
+    packed tables of kernel B3 (``ritab``, ``rdtab``) and ``widest``, the
+    thread slots of its widest pass at orders k >= 1 (an item a thread, a
+    wide sum a warp's 32)."""
 
-    def __init__(self, arrays: dict, device):
+    def __init__(self, arrays: dict, device, *, _with_aliases: bool = True,
+                 _wide_sum: int = WIDE_SUM):
+        # the two private switches build the variants tools/rolled_scan.py
+        # times: no literal aliases (every H column keeps its history) and
+        # sums given to a warp from ``_wide_sum`` operands on
         super().__init__(arrays, device)
         plan = plan_from_arrays(arrays)
         classv, rowmap, (_, WC, WV) = _row_classes(plan)
-        aliases = _aliases(plan, classv)
+        aliases = _aliases(plan, classv) if _with_aliases else {}
+        self._wide_sum = _wide_sum
         n_eq = self.n_eq
         classv = classv.copy()
         cols = np.fromiter(aliases, np.int64, len(aliases))
@@ -308,9 +332,11 @@ class RolledTape(JetTape):
         for key in ("lvl0", "lvlk"):
             counts, segs = self._segments(plan, a, loc, key)
             lvls[key] = len(seg) // SEG_INTS + np.cumsum([0] + counts)
+            slots = []  # per segment: its items, a wide sum a warp's 32
             for name, items, al, per in segs:
                 ar = {len(x) // per for _, x in items}
-                wide = np.mean([len(x) for _, x in items]) >= WIDE_SUM * per
+                wide = np.mean([len(x) for _, x in items]) \
+                    >= self._wide_sum * per
                 first = len(rec)
                 if len(ar) == 1 and not wide:
                     # instance-regular: the arity once for the segment
@@ -328,6 +354,11 @@ class RolledTape(JetTape):
                     alphas += list(al)
                 seg += [OPCODES.index(name), len(items), first, kind, aux,
                         per]
+                slots.append(len(items) * (32 if wide else 1))
+            if key == "lvlk":
+                ends = np.cumsum([0] + counts)
+                self.widest = max((sum(slots[i:j]) for i, j in
+                                   zip(ends[:-1], ends[1:])), default=0)
         nrm = self.norm_cols.cpu().numpy()
         alias = np.zeros((self.sizes[3], 4), np.int64)
         alias[:, 0] = self.alias_root
@@ -435,15 +466,15 @@ def jet_rolled(tape: RolledTape, state, pars, t=None):
     return _jet_rolled_cuda(tape, state, pars, t)
 
 
-def _launch_cfg(tape: RolledTape, B: int, dev, threads=None, layout=None,
-                blocks_per_sm=GLOBAL_BLOCKS_PER_SM):
+def _launch_cfg(tape: RolledTape, B: int, dev, threads=None, layout=None):
     """``(threads, smem bytes, lane doubles, blocks, scratch or None)`` of
-    one launch of kernel B3: :func:`block_layout`'s, or the ``threads`` and
-    ``layout`` given (``chip_smoke.py`` times the block sizes and holds
-    the global layout to the twin on a tape that fits shared memory).  On
-    the global layout ``blocks_per_sm`` blocks an SM walk over the lanes,
-    each with its region of the scratch."""
-    nt = THREADS if threads is None else int(threads)
+    one launch of kernel B3: :func:`block_threads`' and
+    :func:`block_layout`'s, or the ``threads`` and ``layout`` given (the
+    tests and ``chip_smoke.py`` hold every block size and layout to the
+    twin).  On the global layout ``GLOBAL_SM_THREADS`` threads an SM, in
+    blocks, walk over the lanes, each block with its region of the
+    scratch."""
+    nt = block_threads(tape) if threads is None else int(threads)
     if nt not in BLOCK_THREADS:
         raise ValueError(f"kernel B3 takes {BLOCK_THREADS} threads a block, "
                          f"not {nt}")
@@ -459,7 +490,7 @@ def _launch_cfg(tape: RolledTape, B: int, dev, threads=None, layout=None,
         return nt, smem, per // 8, B, None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count \
         if dev.type == "cuda" else B
-    blocks = min(B, sms * int(blocks_per_sm))
+    blocks = min(B, sms * (GLOBAL_SM_THREADS // nt))
     return nt, smem, per // 8, blocks, torch.empty(blocks * per // 8,
                                                     dtype=_F64, device=dev)
 
@@ -476,11 +507,9 @@ def trace_len(tape: RolledTape) -> int:
 
 
 def _jet_rolled_cuda(tape: RolledTape, state, pars, t=None, threads=None,
-                     layout=None, trace=None,
-                     blocks_per_sm=GLOBAL_BLOCKS_PER_SM):
+                     layout=None, trace=None):
     """Kernel B3 with ``threads`` threads a block on ``layout`` (default:
-    :func:`_launch_cfg`'s; ``blocks_per_sm`` on the global layout);
-    ``trace``, an int64 tensor of
+    :func:`_launch_cfg`'s); ``trace``, an int64 tensor of
     :func:`trace_len` on the card, takes the clock (``clock64``) after each
     barrier of block 0's first lane (``tools/rolled_scan.py``)."""
     dev = state.device
@@ -495,7 +524,7 @@ def _jet_rolled_cuda(tape: RolledTape, state, pars, t=None, threads=None,
     if B == 0:
         return out, norms
     nt, smem, lane_dbl, blocks, scratch = _launch_cfg(
-        tape, B, dev, threads, layout, blocks_per_sm)
+        tape, B, dev, threads, layout)
     Vb = torch.empty((B, tape.sizes[2]), dtype=_F64, device=dev)
     lib = _build.load()
     rc = lib.hy_jet_rolled_f64(

@@ -21,6 +21,8 @@ The north-star constants below are copies of ``bench.py``'s (the outer
 Solar System: masses in solar masses, G in AU^3 / (Msun yr^2), J2000-ish
 initial conditions in AU and AU/yr); the port imports neither ``bench``
 nor ``tools``, and the tests hold the copies equal to the originals.
+:func:`mascon_body` and :func:`mascon_lanes` make the mascon cells' body
+and lanes as ``benchmarks/mascon_bench.py`` draws them.
 """
 
 from __future__ import annotations
@@ -97,3 +99,38 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def mascon_body(N):
+    """``benchmarks/mascon_bench.py``'s body: N mascons drawn in the unit
+    ball, total mass 1, spinning about z with period 10; returns the
+    system's keywords and the generator, positioned where the benchmark
+    draws its lanes."""
+    rng = np.random.default_rng(42)
+    pts = rng.uniform(-1.0, 1.0, (4 * N, 3))
+    pts = pts[np.linalg.norm(pts, axis=1) <= 1.0][:N]
+    masses = rng.uniform(0.5, 1.0, N)
+    masses /= masses.sum()
+    kw = dict(Gconst=1.0, masses=masses.tolist(), positions=pts.tolist(),
+              omega=(0.0, 0.0, 2.0 * np.pi / 10.0))
+    return kw, rng
+
+
+def mascon_lanes(rng, B, omega=None):
+    """``mascon_bench.py``'s lanes: at r ~ 2, with the circular speed
+    along the orbit.  The model works in the body's rotating frame, so
+    these lanes move at the circular speed plus the frame's (about twice
+    the escape speed) and leave the body.  Given ``omega``, the frame's
+    velocity w x r is taken out, which makes them the bound near-circular
+    orbits the benchmark describes."""
+    ang = rng.uniform(0, 2 * np.pi, B)
+    r0 = 2.0 + 0.05 * rng.standard_normal(B)
+    vc = np.sqrt(1.0 / r0)
+    st = np.zeros((B, 6))
+    st[:, 0] = r0 * np.cos(ang)
+    st[:, 1] = r0 * np.sin(ang)
+    st[:, 3] = -vc * np.sin(ang)
+    st[:, 4] = vc * np.cos(ang)
+    if omega is not None:
+        st[:, 3:] -= np.cross(omega, st[:, :3])
+    return st

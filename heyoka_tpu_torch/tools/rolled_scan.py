@@ -1,25 +1,27 @@
-"""Kernel B3 on the mascon-512 tape: where its time goes.
+"""Kernel B3 on mascon tapes: where its time goes, and which block shape.
 
     python -m heyoka_tpu_torch.tools.rolled_scan
 
-B3 (``jet_rolled.jet_rolled``, one lane a block) on the lanes of
-``chip_smoke.py`` phase 9 (mascon-512, order 19), timed with CUDA events
-(a warm-up, then the mean of 3 launches):
+B3 (``jet_rolled.jet_rolled``, one lane a block) at order 19, timed with
+CUDA events (a warm-up, then the mean of 3 launches):
 
-- against the order K (2, 5, 10, 15, 19) at 1,024 lanes: a time linear in
-  K is a fixed cost an order (its passes), a quadratic one the k-term
-  products;
-- against the lanes (1, 132, 264, 1,024): one block alone against waves of
-  132 blocks under a full load;
-- at each block size on both layouts, on the global layout with 1, 2, 4
-  and 8 blocks of 256 threads an SM (more lanes in flight, their jets in
-  L2), and at 1,024 lanes without the literal aliases (full history, so
-  the global layout) and without the warp sums (every sum a thread's);
-- one traced launch at 1 and at 1,024 lanes (``trace``: the SM clock after
-  each barrier of block 0's first lane), summed by pass: order 0, the
-  state rows and each level of the orders k >= 1, in cycles; and one lane
-  of mascon-12 and mascon-128 traced the same way, whose levels hold 40
-  and 4 times fewer items: what a pass costs whatever its items.
+- on mascon-512, against the order K (2, 5, 10, 15, 19) at 1,024 lanes: a
+  time linear in K is a fixed cost an order (its passes), a quadratic one
+  the k-term products;
+- on mascon-512, against the lanes (1, 132, 264, 1,024): one block alone
+  against waves of blocks under a full load;
+- on mascon-32, -128, -256 and -512 and the outer-Solar-System tape at
+  1,024 lanes, at each block size on both layouts (the smem layout where
+  a lane fits a block), each equal bit for bit to the default launch, and
+  the shape ``jet_rolled.layout_report`` chooses;
+- on mascon-512 without the literal aliases (full history, so the global
+  layout) and without the warp sums (every sum a thread's);
+- one traced launch at 1 and at 1,024 lanes of mascon-512 (``trace``: the
+  SM clock after each barrier of block 0's first lane), summed by pass:
+  order 0, the state rows and each level of the orders k >= 1, in cycles;
+  and one lane of mascon-12 and mascon-128 traced the same way, whose
+  levels hold 40 and 4 times fewer items: what a pass costs whatever its
+  items.
 
 Prints the ``nvidia-smi`` line and one JSON line; fails without a card.
 """
@@ -31,23 +33,28 @@ import json
 import numpy as np
 import torch
 
-from . import cuda_device, cuda_ms, smi_line
+from . import (
+    GCONST, IC, MASSES, cuda_device, cuda_ms, mascon_body, mascon_lanes,
+    smi_line,
+)
 
 ORDERS = (2, 5, 10, 15, 19)
 LANES = (1, 132, 264, 1024)
+WIDTHS = (32, 128, 256)  # beside mascon-512
 B = 1024
 K = 19
 
 
-def _tapes(dev, orders, n=512):
+def _arrays(sys_, order):
     import heyoka_tpu_torch as ht
-    from chip_smoke import mascon_body
-    from ..taylor import jet_rolled as jr
     from ..taylor.compact import build_plan
 
-    sys_ = ht.models.mascon(**mascon_body(n)[0])
-    return {k: jr.RolledTape(ht.plan_to_arrays(build_plan(
-        ht.taylor_decompose_sys(sys_), k)), dev) for k in orders}
+    return ht.plan_to_arrays(build_plan(ht.taylor_decompose_sys(sys_), order))
+
+
+def _mascon(n, order):
+    import heyoka_tpu_torch as ht
+    return _arrays(ht.models.mascon(**mascon_body(n)[0]), order)
 
 
 def passes(tape, trace) -> dict:
@@ -74,57 +81,72 @@ def passes(tape, trace) -> dict:
 
 
 def run(device="cuda") -> dict:
-    import chip_smoke as cs
+    from ..models import nbody
     from ..taylor import jet_rolled as jr
 
     dev = cuda_device(device)
     f64 = dict(dtype=torch.float64, device=dev)
-    tapes = _tapes(dev, ORDERS)
-    top = tapes[K]
-    ics = cs.mascon_lanes(cs.mascon_body(512)[1], B)
 
-    def args(n):
-        return (torch.as_tensor(ics[:n].T.copy(), **f64),
+    def args(st):
+        n = st.shape[0]
+        return (torch.as_tensor(st.T.copy(), **f64),
                 torch.zeros((0, n), **f64), torch.zeros(n, **f64))
 
-    full = args(B)
+    tapes = {k: jr.RolledTape(_mascon(512, k), dev) for k in ORDERS}
+    top = tapes[K]
+    ics = mascon_lanes(mascon_body(512)[1], B)
+    full = args(ics)
     order = {k: cuda_ms(lambda: jr.jet_rolled(t, *full), 3)
              for k, t in tapes.items()}
-    lanes = {n: cuda_ms(lambda: jr.jet_rolled(top, *args(n)), 3)
+    lanes = {n: cuda_ms(lambda: jr.jet_rolled(top, *args(ics[:n])), 3)
              for n in LANES}
-    shapes = {f"{lay}x{nt}": cuda_ms(lambda: jr._jet_rolled_cuda(
-        top, *full, threads=nt, layout=lay), 3)
-        for nt in jr.BLOCK_THREADS for lay in ("smem", "global")}
-    per_sm = {n: cuda_ms(lambda: jr._jet_rolled_cuda(
-        top, *full, threads=256, layout="global", blocks_per_sm=n), 3)
-        for n in (1, 2, 4, 8)}
-    arrays = top.arrays
-    real_aliases, wide = jr._aliases, jr.WIDE_SUM
-    try:
-        jr._aliases = lambda plan, classv: {}
-        flat = jr.RolledTape(arrays, dev)
-        jr._aliases, jr.WIDE_SUM = real_aliases, 1 << 30
-        narrow = jr.RolledTape(arrays, dev)
-    finally:
-        jr._aliases, jr.WIDE_SUM = real_aliases, wide
+
+    wide = {f"mascon{n}": jr.RolledTape(_mascon(n, K), dev) for n in WIDTHS}
+    wide["mascon512"] = top
+    wide["outer_ss"] = jr.RolledTape(_arrays(
+        nbody(6, masses=MASSES, Gconst=GCONST), K), dev)
+    ss_lanes = IC[None] + np.abs(IC)[None] * (
+        np.random.default_rng(3).uniform(-1, 1, (B, IC.size)) * 1e-8)
+    shapes = {}
+    for name, tape in wide.items():
+        a = args(ss_lanes if name == "outer_ss"
+                 else mascon_lanes(np.random.default_rng(1), B))
+        ref = jr.jet_rolled(tape, *a)
+        res = dict(W=tape.width, widest=tape.widest,
+                   chosen=jr.layout_report(tape),
+                   default_ms=cuda_ms(lambda: jr.jet_rolled(tape, *a), 3))
+        for nt in jr.BLOCK_THREADS:
+            for lay in ("smem", "global"):
+                if jr.smem_bytes(tape, lay, nt) > jr.SMEM_MAX:
+                    continue
+
+                def launch():
+                    return jr._jet_rolled_cuda(tape, *a, threads=nt,
+                                               layout=lay)
+                if not all(torch.equal(x, y) for x, y in zip(launch(), ref)):
+                    raise AssertionError(f"{name}: {lay} x {nt} differs")
+                res[f"{lay}x{nt}"] = cuda_ms(launch, 3)
+        shapes[name] = res
+
+    flat = jr.RolledTape(top.arrays, dev, _with_aliases=False)
+    narrow = jr.RolledTape(top.arrays, dev, _wide_sum=1 << 30)
     variants = dict(
         no_aliases=dict(layout=jr.block_layout(flat)[0], ms=cuda_ms(
             lambda: jr.jet_rolled(flat, *full), 3)),
         no_warp_sums=dict(ms=cuda_ms(lambda: jr.jet_rolled(narrow, *full),
                                      3)))
 
-    def trace(tape, n):
+    def trace(tape, st):
         tr = torch.zeros(jr.trace_len(tape), dtype=torch.int64, device=dev)
-        jr._jet_rolled_cuda(tape, *args(n), trace=tr)
+        jr._jet_rolled_cuda(tape, *args(st), trace=tr)
         torch.cuda.synchronize()
         return passes(tape, tr)
 
-    traced = {n: trace(top, n) for n in (1, B)}
-    small = {f"mascon{m}": trace(_tapes(dev, (K,), m)[K], 1)
+    traced = {n: trace(top, ics[:n]) for n in (1, B)}
+    small = {f"mascon{m}": trace(jr.RolledTape(_mascon(m, K), dev), ics[:1])
              for m in (12, 128)}
-    return dict(B=B, K=K, threads=jr.THREADS, order_ms=order,
-                lanes_ms=lanes, shapes_ms=shapes,
-                global_blocks_per_sm_ms=per_sm, variants=variants,
+    return dict(B=B, K=K, chosen=jr.layout_report(top), order_ms=order,
+                lanes_ms=lanes, shapes_ms=shapes, variants=variants,
                 trace_cycles=traced, trace_cycles_one_lane=small,
                 device=torch.cuda.get_device_name(dev))
 

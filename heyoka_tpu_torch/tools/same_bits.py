@@ -18,17 +18,21 @@ from fixed seeds, and saves their outputs: the outer-Solar-System tape at
 order 19 and 10,240 lanes (one jet, a 64-step chunk with the compensated
 update, 16 steps with Horner's), blocks of mixed lanes on the 3-body tape
 (inactive, budget, near and non-finite lanes), mascon-32 and mascon-128
-jets of B2, and B3 jets of mascon-512 and mascon-32 at 1,024 lanes and of
-a tape with parameters, a time column, div, sqrt and two exponents.  ``compare`` prints
-one JSON line with, for every output, whether the two dumps are equal bit
-for bit (NaN where both are NaN) and their largest difference, and exits
+jets of B2, B3 jets of mascon-512 and mascon-32 at 1,024 lanes and of a
+tape with parameters, a time column, div, sqrt and two exponents, and
+mascon-32's slice end to end (``taylor_adaptive_batch`` on the rolled
+route: 1,024 bound lanes over two orbits, its final states and times, and
+its lane-steps/s).  ``compare`` prints one JSON line with, for every
+output, whether the two dumps are equal bit for bit (NaN where both are
+NaN) and their largest difference, and both dumps' lane-steps/s; it exits
 1 unless every output is equal.  The script imports only torch, numpy and
 the port's public modules, so it runs against any checkout since the
-port's first kernels.
+port's first huge-tape slice.
 """
 
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -140,10 +144,38 @@ def dump(path):
                                               **f64),
         torch.as_tensor(rng.uniform(0.5, 1.5, (2, B)), **f64),
         torch.as_tensor(rng.uniform(0.0, 2.0, B), **f64))
+    timing = {"e2e_mascon32": _slice(ht, out, B)}
     torch.cuda.synchronize()
-    torch.save({k: [x.cpu() for x in v] for k, v in out.items()}, path)
-    print(json.dumps({"dumped": path, "cases": list(out),
+    dumped = {k: [x.cpu() for x in v] for k, v in out.items()}
+    torch.save(dict(dumped, _timing=timing), path)
+    print(json.dumps({"dumped": path, "cases": list(out), "timing": timing,
                       "device": torch.cuda.get_device_name(0)}))
+
+
+def _slice(ht, out, B):
+    """Mascon-32's slice through ``taylor_adaptive_batch`` on the card: B
+    bound lanes (the rotating frame's velocity taken out) over two orbital
+    periods after one step, timed after a warm-up; stores the final states
+    and times in ``out`` and returns the route and its lane-steps/s."""
+    omega = np.array([0.0, 0.0, 2.0 * np.pi / 10.0])
+    orbits = _orbits(B, 33)
+    orbits[:, 3:] -= np.cross(omega, orbits[:, :3])
+    t_end = 4.0 * np.pi * 2.0 ** 1.5
+    kw = dict(tol=1e-15, high_accuracy=True, device="cuda")
+    sys_ = _mascon(ht, 32)
+    ht.taylor_adaptive_batch(sys_, orbits[:8], **kw).propagate_until(1.0)
+    ta = ht.taylor_adaptive_batch(sys_, orbits, **kw)
+    ta.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nsteps = ta.propagate_until(t_end)[3]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["e2e_mascon32"] = [torch.as_tensor(np.asarray(ta.state)),
+                           torch.as_tensor(np.asarray(ta.time))]
+    steps = int(np.asarray(nsteps).sum())
+    return dict(jet=ta.engine_report()["jet"], wall_s=wall,
+                lane_steps=steps, steps_per_s=steps / wall)
 
 
 def _same(a, b):
@@ -158,13 +190,15 @@ def _same(a, b):
 
 def compare(pa, pb):
     da, db = torch.load(pa), torch.load(pb)
+    ta, tb = da.pop("_timing"), db.pop("_timing")
     res = {}
     for case in da:
         res[case] = [dict(zip(("equal", "max_abs_diff"), _same(x, y)))
                      for x, y in zip(da[case], db[case])]
     ok = set(da) == set(db) and all(
         r["equal"] for rs in res.values() for r in rs)
-    print(json.dumps({"same_bits": ok, "cases": res}))
+    print(json.dumps({"same_bits": ok, "cases": res,
+                      "timing": {k: [ta[k], tb[k]] for k in ta}}))
     return ok
 
 

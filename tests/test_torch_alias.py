@@ -4,7 +4,10 @@ layout (``jet_rolled.block_layout``) and its packed tables, on the CPU.
 The tables are held to the plain twin by an interpreter written here, one
 lane and one item at a time as the kernel walks them (``_interpret``), so
 that a wrong table shows on the CPU; the kernel itself is held to the twin
-in tests/test_torch_gpu.py and ``chip_smoke.py``."""
+in tests/test_torch_gpu.py and ``chip_smoke.py``.  Where a test asks for
+equal bits, the twin's order-k recurrences are swapped for
+:func:`_eval_k_in_kernel_order`, which adds the terms one at a time in the
+kernel's order: the twin's own reductions may group them otherwise."""
 
 import math
 import types
@@ -21,7 +24,7 @@ from heyoka_tpu_torch.taylor import rows
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.tools import GCONST, MASSES
 
-from chip_smoke import mascon_body
+from heyoka_tpu_torch.tools import mascon_body
 from test_torch_rolled import CASES, _inputs, _mascon_kw, _t
 
 
@@ -59,11 +62,52 @@ def _args(name, B, seed=0):
     return _t(st.T), _t(pars.T), _t(t)
 
 
-def _no_aliases(monkeypatch, name, order):
-    monkeypatch.setattr(jr, "_aliases", lambda plan, classv: {})
-    tape = _tape(name, order)
-    monkeypatch.undo()
-    return tape
+def _no_aliases(name, order):
+    return jr.RolledTape(ht.plan_to_arrays(_plan(name, order)), "cpu",
+                         _with_aliases=False)
+
+
+def _eval_k_in_kernel_order(name, alpha, k, hist, nargs):
+    """``jet_kernels._eval_k`` with every sum run in j ascending from 0.0,
+    one add at a time, as csrc/taylor_jet_rolled.cu adds them: its bits do
+    not depend on how many columns a group has or which are aliases."""
+    if name == "sum":
+        v = hist(0, k, k + 1)[0]
+        for q in range(1, nargs):
+            v = v + hist(q, k, k + 1)[0]
+        return v
+    if name == "mul":
+        A, Bv = hist(0, 0, k + 1), hist(1, 0, k + 1)
+        v = torch.zeros_like(A[0])
+        for j in range(k + 1):
+            v = v + A[j] * Bv[k - j]
+        return v
+    if name == "div":
+        Q, Bv = hist(-1, 0, k), hist(1, 0, k + 1)
+        s = torch.zeros_like(Bv[0])
+        for j in range(k):
+            s = s + Q[j] * Bv[k - j]
+        return (hist(0, k, k + 1)[0] - s) / Bv[0]
+    if name == "sqrt":
+        Q = hist(-1, 0, k)
+        s = torch.zeros_like(Q[0])
+        for j in range(1, k):
+            s = s + Q[j] * Q[k - j]
+        return (hist(0, k, k + 1)[0] - s) / (2.0 * Q[0])
+    Q, Av = hist(-1, 0, k), hist(0, 0, k + 1)
+    s1, s2 = torch.zeros_like(Av[0]), torch.zeros_like(Av[0])
+    for j in range(k):
+        s1 = s1 + (Q[j] * Av[k - j]) * float(k - j)
+        s2 = s2 + (float(j) * Q[j]) * Av[k - j]
+    al = torch.as_tensor(alpha, device=Q.device)[:, None]
+    return (s1 * al - s2) / (k * Av[0])
+
+
+def _per_order_rel(a, b):
+    # (n, K+1, B) blocks: max |a - b| per order, over the order's max |b|
+    scale = b.abs().amax(dim=(0, 2))
+    return (a - b).abs().amax(dim=(0, 2)) / torch.where(
+        scale > 0, scale, torch.ones_like(scale))
 
 
 # -- the counts -------------------------------------------------------------
@@ -91,43 +135,81 @@ def test_alias_counts(name, K, n_alias, n_hist, n_h):
 
 def test_mascon512_fits_a_block():
     # 1,033 x 20 x 8 + 3,072 x 8 + 3,079 x 8 = 214,488 B, under 232,448
-    # with S (the literal -1 and the 512 masses) and the staging row
+    # with S (the literal -1 and the 512 masses), the zero and the staging
+    # row; but an SM would hold one such block alone, so B3 takes the
+    # global layout, 256 threads a block (1,536 items in its widest pass),
+    # two blocks an SM
     tape = _tape("mascon512b", 19)
     assert tape.sizes == (1033, 3079, 2053, 3072, 513)
-    assert jr.block_layout(tape) == ("smem", 214_488)
+    assert tape.widest == 1536 and jr.block_threads(tape) == 256
+    assert jr.block_layout(tape) == ("global", 214_488)
+    smem = 214_488 + 8 * (513 + 1 + 256)
+    assert jr.smem_bytes(tape, "smem", 256) == smem <= jr.SMEM_MAX
+    assert jk.blocks_per_sm(smem, 256) == 1
     rep = jr.layout_report(tape)
-    assert rep == dict(layout="smem", lanes_per_block=1,
-                       smem_bytes=214_488 + 8 * (513 + 1 + jr.THREADS),
-                       lane_bytes=214_488, aliases=3072,
-                       threads=jr.THREADS, tables="global")
-    assert jr.smem_bytes(tape, "global", 1024) == 8 * (513 + 1 + 1024)
+    assert rep == dict(layout="global", lanes_per_block=1, threads=256,
+                       smem_bytes=8 * (513 + 1 + 256), lane_bytes=214_488,
+                       aliases=3072, tables="global")
+
+
+# the widest pass of mascon-N at orders k >= 1 is one of its two product
+# levels, 3N items (the squares, or the mass terms times r^-3); mascon-32's
+# is as wide as its three wide sums' warps too (96), mascon-12's sums of 14
+# operands are a thread's
+@pytest.mark.parametrize("name,widest,threads,layout", [
+    ("mascon12", 36, 64, "smem"),
+    ("mascon32b", 96, 64, "smem"),
+    ("outer_ss", 90, 64, "smem"),
+    ("handbuilt_mixed", 7, 64, "smem"),
+])
+def test_block_shape_of_tapes(name, widest, threads, layout):
+    tape = _tape(name, 19)
+    assert (tape.widest, jr.block_threads(tape)) == (widest, threads)
+    assert jr.block_layout(tape)[0] == layout
+    rep = jr.layout_report(tape)
+    assert rep["threads"] == threads
+    assert jk.blocks_per_sm(rep["smem_bytes"], threads) >= 2
+
+
+@pytest.mark.parametrize("widest,threads", [
+    (0, 64), (191, 64), (383, 64), (384, 128), (767, 128), (768, 256),
+    (10**6, 256)])
+def test_block_threads_at_the_edges(widest, threads):
+    # the largest block with three items a thread in the widest pass
+    fake = types.SimpleNamespace(widest=widest)
+    assert jr.block_threads(fake) == threads
 
 
 @pytest.mark.parametrize("WH,NA,WC,K,layout", [
     (1000, 40, 8, 10, "smem"),     # 8 (11 000 + 40 + 8) = 88,384
     (10000, 48, 8, 22, "global"),  # 1,840,448
     (10000, 56, 0, 22, "global"),
-    (1016, 3000, 3032, 19, "smem"),   # 8 (20,320 + 6,032) = 210,816
+    (1016, 3000, 3032, 19, "global"),  # 210,816: one block an SM
 ])
 def test_block_layout_sizes(WH, NA, WC, K, layout):
-    fake = types.SimpleNamespace(sizes=(WH, WC, 0, NA, 0), order=K)
+    fake = types.SimpleNamespace(sizes=(WH, WC, 0, NA, 0), order=K,
+                                 widest=100)
     per = 8 * ((K + 1) * WH + NA + WC)
     assert jr.block_layout(fake) == (layout, per)
 
 
 @pytest.mark.parametrize("extra,layout", [(0, "smem"), (1, "global")])
 def test_block_layout_at_the_edge(extra, layout):
-    # 232,448 B = 29,056 doubles: 1,300 history rows at K = 19 (26,000),
-    # 1,000 aliases, 31 C rows, 1,000 literals in S, the zero and the
-    # staging row of a 1,024-thread block make it exactly; one more row is
-    # over
-    fake = types.SimpleNamespace(sizes=(1300, 31 + extra, 0, 1000, 1000),
-                                 order=19)
-    per = 8 * (26_000 + 1000 + 31 + extra)
+    # two blocks an SM: 2 (smem + 1,024 reserved) <= 233,472, so a block
+    # takes at most 115,712 B = 14,464 doubles: 600 history rows at K = 19
+    # (12,000), 1,000 aliases, 1,143 C rows, 64 literals in S, the zero and
+    # the staging row of a 256-thread block make it exactly; one more row
+    # is over
+    fake = types.SimpleNamespace(sizes=(600, 1143 + extra, 0, 1000, 64),
+                                 order=19, widest=768)
+    per = 8 * (12_000 + 1000 + 1143 + extra)
     assert jr.block_layout(fake) == (layout, per)
-    rep = jr.layout_report(fake, 1024)
-    assert rep["smem_bytes"] == (232_448 + 8 * extra if layout == "smem"
-                                 else 8 * (1000 + 1 + 1024))
+    rep = jr.layout_report(fake)
+    assert rep["threads"] == 256
+    assert rep["smem_bytes"] == (115_712 if layout == "smem"
+                                 else 8 * (64 + 1 + 256))
+    assert jk.blocks_per_sm(jr.smem_bytes(fake, "smem", 256), 256) \
+        == 2 - extra
 
 
 # -- the twin with and without the aliases -------------------------------------
@@ -136,16 +218,31 @@ def test_block_layout_at_the_edge(extra, layout):
 def test_aliases_keep_the_twin_bit_for_bit(monkeypatch, name):
     # reading through the aliases gives the same coefficients and norms as
     # computing the aliased columns (torch.equal: equal values, the sign of
-    # a zero aside)
+    # a zero aside), the terms summed in the kernel's order
     K = 12
-    plain = _no_aliases(monkeypatch, name, K)
+    plain = _no_aliases(name, K)
     tape = _tape(name, K)
     assert plain.sizes[3] == plain.sizes[4] == 0 < tape.sizes[3]
     assert plain.sizes[0] == tape.sizes[0] + tape.sizes[3]
     args = _args(name, 5, seed=4)
+    monkeypatch.setattr(jr, "_eval_k", _eval_k_in_kernel_order)
     a, b = jr.jet_rolled_plain(tape, *args), jr.jet_rolled_plain(plain, *args)
     assert bool(torch.isfinite(a[0]).all())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("name", [*CASES, "chain3"])
+def test_aliases_keep_the_twin_within_1e15(name):
+    # the twin as it runs, whose reductions may group a convolution's terms
+    # by the size of the group: with and without the aliases within 1e-15
+    # per order, norms too
+    K = 12
+    args = _args(name, 5, seed=4)
+    a = jr.jet_rolled_plain(_tape(name, K), *args)
+    b = jr.jet_rolled_plain(_no_aliases(name, K), *args)
+    assert bool(torch.isfinite(a[0]).all())
+    assert float(_per_order_rel(a[0], b[0]).max()) <= 1e-15
+    assert float(((a[1] - b[1]).abs() / b[1].abs()).max()) <= 1e-15
 
 
 def test_twin_shows_an_unsound_alias(monkeypatch):
@@ -450,33 +547,40 @@ def _interpret(tape, state, pars, t):
 
 @pytest.mark.parametrize("name", ["mascon12", "handbuilt_mixed", "nbody3",
                                   "chain3"])
-def test_tables_walk_to_the_twin(name):
-    # the kernel's walk over its tables gives the twin's values exactly
+def test_tables_walk_to_the_twin(monkeypatch, name):
+    # the kernel's walk over its tables gives the values of the twin that
+    # sums in the kernel's order exactly, and the twin's within 1e-15
     tape = _tape(name, 8)
     args = _args(name, 2, seed=6)
     tc_i, n_i = _interpret(tape, *args)
+    tc_p, n_p = jr.jet_rolled_plain(tape, *args)
+    assert float(_per_order_rel(tc_i, tc_p).max()) <= 1e-15
+    monkeypatch.setattr(jr, "_eval_k", _eval_k_in_kernel_order)
     tc_p, n_p = jr.jet_rolled_plain(tape, *args)
     assert torch.equal(tc_i, tc_p) and torch.equal(n_i, n_p)
 
 
 def test_launch_config_on_the_cpu():
-    # threads of 256, 512 or 1,024; the global layout on request, one
-    # block per lane on the CPU (the card gives one per SM)
+    # threads of 64, 128 or 256; the other layout on request, one block
+    # per lane on the CPU (the card gives GLOBAL_SM_THREADS an SM)
     tape = _tape("mascon12", 15)
     per = jr.block_layout(tape)[1]
     NS = tape.sizes[4]
     assert jr._launch_cfg(tape, 7, torch.device("cpu"))[:4] == (
-        jr.THREADS, per + 8 * (NS + 1 + jr.THREADS), per // 8, 7)
+        64, per + 8 * (NS + 1 + 64), per // 8, 7)
     nt, smem, dbl, blocks, scratch = jr._launch_cfg(
-        tape, 7, torch.device("cpu"), 1024, "global")
-    assert (nt, smem, dbl, blocks) == (1024, 8 * (NS + 1 + 1024), per // 8,
-                                       7)
+        tape, 7, torch.device("cpu"), 256, "global")
+    assert (nt, smem, dbl, blocks) == (256, 8 * (NS + 1 + 256), per // 8, 7)
     assert scratch.numel() == 7 * per // 8
     with pytest.raises(ValueError):
-        jr._launch_cfg(tape, 7, torch.device("cpu"), 128)
+        jr._launch_cfg(tape, 7, torch.device("cpu"), 512)
     with pytest.raises(ValueError):
         jr._launch_cfg(_tape("mascon32b", 19), 7, torch.device("cpu"),
                        None, "nowhere")
+    with pytest.raises(ValueError):  # mascon-1024's lane: over a block
+        fake = types.SimpleNamespace(sizes=(2057, 6151, 0, 6144, 1025),
+                                     order=19, widest=3072)
+        jr._launch_cfg(fake, 7, torch.device("cpu"), None, "smem")
 
 
 def test_trace_of_the_passes():

@@ -18,12 +18,11 @@ from heyoka_tpu_torch.taylor import jet_kernels as jk
 from heyoka_tpu_torch.taylor import jet_phase as jp
 from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
+from heyoka_tpu_torch.tools import mascon_body
 from heyoka_tpu_torch.tools import microbench_conv as mc
 from heyoka_tpu_torch.tools import proto_phase as pp
 
-from chip_smoke import (
-    mascon_body, pendulum_lanes, phase_cases, phase_lanes, seeded_buffer,
-)
+from chip_smoke import pendulum_lanes, phase_cases, phase_lanes, seeded_buffer
 
 MASSES = [1.0, 1e-3, 2e-3]
 BASE = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
@@ -188,10 +187,11 @@ def test_jet_rolled_layouts_and_block_sizes(cuda, name, layout, threads):
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["smem", "global"])
 def test_jet_rolled_mascon512(cuda, layout):
-    # the slice's tape: 3,072 aliases, 214,488 B a lane in shared memory
+    # the slice's tape: 3,072 aliases, 214,488 B a lane, which fits a
+    # block's shared memory but one block an SM: the global layout
     B, K = 24, 19
     tape = _tape("mascon512", K, cuda, jr.RolledTape)
-    assert jr.block_layout(tape) == ("smem", 214_488)
+    assert jr.block_layout(tape) == ("global", 214_488)
     args = (_dev(_orbits(B, 13).T, cuda),
             torch.zeros((0, B), dtype=torch.float64, device=cuda),
             torch.zeros(B, dtype=torch.float64, device=cuda))
@@ -208,7 +208,7 @@ def test_jet_rolled_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         jr.jet_rolled(tape, st.cpu(), pars)  # tables on the card
     with pytest.raises(ValueError):
-        jr._jet_rolled_cuda(tape, st, pars, threads=128)
+        jr._jet_rolled_cuda(tape, st, pars, threads=512)
 
 
 @pytest.mark.gpu

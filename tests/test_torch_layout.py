@@ -19,7 +19,7 @@ from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.tools import GCONST, IC, MASSES, jet_scan
 
-from chip_smoke import mascon_body
+from heyoka_tpu_torch.tools import mascon_body
 
 CSRC = Path(jk.__file__).resolve().parent.parent / "csrc" / "taylor_jet.cu"
 NBODY3_BASE = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
