@@ -60,12 +60,14 @@ if anything is missing or any check fails.  Phases, one line each:
    mascon-128 up (one lane's jet over 227 KB), and is held against
    ``jet_plain`` there at 1e-13 per order, norms too;
 10. kernel B4 (``hy_phase_f64``) against ``phase_plain`` on the card, on
-    the tapes of :func:`phase_cases` (the pendulum, five mixed systems,
-    two more for the hyperbolic and logical ops, and one system per op),
-    which together hold every op of ``convert.PHASE_OPS``: order 19,
-    1,024 lanes, from ``lo = 1`` and from ``lo = 9`` on a buffer whose
+    the tapes of ``tools.cases.phase_cases`` (the pendulum, five mixed
+    systems, two more for the hyperbolic and logical ops, and one system
+    per op), which together hold every op of ``convert.PHASE_OPS``: order
+    19, 1,024 lanes, from ``lo = 1`` and from ``lo = 9`` on a buffer whose
     lower orders came from the twin; 1e-13 relative per order, norms to
-    the same bound;
+    the same bound; then B4 at every block shape and layout it takes
+    (``jet_phase.sweep_shapes``, forced) from both, each equal bit for bit
+    to the default launch;
 11. the pendulum slice: ``taylor_adaptive_batch(pendulum(), ...,
     tol=1e-15, high_accuracy=True, device="cuda")`` at 10,240 librating
     lanes, ``propagate_until(100.0)``: only B4 launched, every lane on
@@ -73,9 +75,14 @@ if anything is missing or any check fails.  Phases, one line each:
     most 1e-12, 4 lanes agreeing with the port's CPU run; then its first
     10 time units again, without and with ``torch.profiler``, for the
     device's busy and idle shares;
-12. the time of B4 against ``phase_plain`` on the card: 10,240 pendulum
-    lanes and 1,024 lanes of the widest mixed tape, with one whole
-    ``jet_phase`` beside each;
+12. the time of B4 against ``phase_plain`` on the card on three inputs:
+    10,240 pendulum lanes, 1,024 lanes of the widest mixed tape (one whole
+    ``jet_phase`` beside each) and 10,240 outer-Solar-System lanes from
+    lo = 9 (phase 14's buffer in f64); for each the chosen block shape and
+    layout, the time at every forced shape (each equal to the default bit
+    for bit) and, on the smem layout, the staging alone with its share of
+    the time (B4's times replayed from a CUDA graph: a pendulum jet takes
+    about as long as its launch from Python);
 13. the convolution microbenchmark (kernel T1, ``tools.microbench_conv.
     run``): ``hy_conv_f32`` and ``hy_conv_dd`` at K = 20, N = 204,800
     against their plain versions (f32 to 1e-6, two-f32 ``hi + lo`` to
@@ -85,7 +92,9 @@ if anything is missing or any check fails.  Phases, one line each:
     ``hy_proto_phase_f32`` on the outer-Solar-System tape, orders 9..19 at
     10,240 lanes, against its plain body (1e-5 of each order's largest
     magnitude), and kernel B4 in f64 from lo = 9 on the same buffer: the
-    times of both and the per-order difference of f32 against f64.
+    times of both, their block shapes, T2 at every block shape (each
+    equal to the default bit for bit) and the per-order difference of f32
+    against f64.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
@@ -111,10 +120,13 @@ from heyoka_tpu_torch.taylor import jet_rolled as jr
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.taylor.stepper import taylor_order_from_tol
 from heyoka_tpu_torch.tools import (
-    GCONST, IC, MASSES, cuda_ms, mascon_body, mascon_lanes, microbench_conv,
-    proto_phase, smi_line,
+    GCONST, IC, MASSES, cuda_ms, graph_ms, mascon_body, mascon_lanes,
+    microbench_conv, proto_phase, smi_line,
 )
 from heyoka_tpu_torch.tools import roofline as rl
+from heyoka_tpu_torch.tools.cases import (
+    pendulum_lanes, phase_cases, phase_lanes,
+)
 
 TOL = 1e-15
 B_CHECK = 256
@@ -168,11 +180,17 @@ SWEEP_THREADS = (128, 256)
 
 def ptxas_name(line):
     """A kernel's name in a ptxas line, with its template arguments
-    (``jet_kernel<3,smem>``) where it has them."""
+    (``jet_kernel<3,smem>``, ``phase_kernel<global>``, the staging alone
+    ``phase_kernel<smem,stage>``) where it has them."""
     fn = next(w for w in PTXAS_NAMES if w in line)
     m = re.search(fn + r"ILi(\d+)ELb([01])E", line)
     if m:
         fn += f"<{m.group(1)},{'smem' if m.group(2) == '1' else 'global'}>"
+    m = re.search(fn + r"I((?:Lb[01]E)+)E", line)
+    if m:
+        flags = re.findall(r"Lb([01])E", m.group(1))
+        fn += "<" + ("smem" if flags[0] == "1" else "global") + (
+            ",stage" if flags[1:] == ["0"] else "") + ">"
     return fn
 
 
@@ -778,74 +796,6 @@ def huge_tapes(dev, order, smi):
         smem_bytes=rep["smem_bytes"], threads=rep["threads"])
 
 
-def phase_cases(pkg):
-    """The tapes of phase 10, built with ``pkg`` (this port; the tests
-    also pass the JAX package): name -> (ODE system, state (2,), pars).
-    The pendulum, the mixed systems of ``tests/test_compact.py``, two
-    for the hyperbolic, division and logical ops, and one per op of
-    ``tests/test_pallas_ops.py``; every state is away from the switch
-    points of relu, select and the relational ops."""
-    m = pkg.math
-    x, y = pkg.make_vars("x", "y")
-    par, tm = pkg.par, pkg.time_
-    cases = {
-        "pendulum": (pkg.models.pendulum(), [0.05, 0.025], []),
-        "trig": ([(x, m.sin(x) * m.cos(y) + m.tan(0.3 * x)),
-                  (y, m.exp(-y) + m.atan2(x, y) + x ** -1.5)],
-                 [0.7, 1.3], []),
-        "kepE": ([(x, m.kepE(0.3, y)),
-                  (y, m.sqrt(x) + m.log(y) + m.erf(x))], [1.2, 0.8], []),
-        "kepFDE": ([(x, m.kepF(0.1, 0.2, y)),
-                    (y, m.kepDE(0.1, 0.2, x) + m.asin(0.3 * x) + m.tanh(y)
-                     + m.sigmoid(x))], [0.9, 0.7], []),
-        "select": ([(x, m.select(m.gt(x, 0.0), x * x, -x) + m.relu(y)),
-                    (y, m.sigmoid(x) + m.atan(y) + m.acos(0.2 * x)
-                     + m.sinh(y))], [0.5, -0.3], []),
-        "par_time": ([(x, par[0] * m.sin(tm) + par[1] * x), (y, tm * y)],
-                     [0.4, 0.6], [1.1, -0.2]),
-        "hyper": ([(x, m.atanh(0.3 * x) + m.asinh(y) / (2.0 + y * y)),
-                   (y, m.acosh(1.5 + 0.1 * x * x) - m.cosh(0.2 * y))],
-                  [0.4, 0.3], []),
-        "logic": ([(x, m.select(m.logical_and(m.lt(x, 2.0), m.ge(y, -3.0)),
-                                y, -y) + 0.1 * m.relup(x)),
-                   (y, m.select(m.logical_or(m.le(x, -5.0), m.ne(y, 7.0)),
-                                -x, x)
-                    + 0.01 * m.logical_not(m.eq(x, 5.0)))],
-                  [0.5, 0.4], []),
-    }
-    per_op = {
-        "tan": -m.tan(x * 0.3), "tanh": -m.tanh(x),
-        "sigmoid": -m.sigmoid(x) + 0.5, "asin": -m.asin(x * 0.5),
-        "acos": m.acos(x * 0.5) - np.pi / 2, "atan": -m.atan(x),
-        "erf": -m.erf(x), "atan2": -m.atan2(x, 2.0 + y * 0.1),
-        "kepE": -m.sin(m.kepE(0.1, x)), "kepF": -m.sin(m.kepF(0.05, 0.05, x)),
-        "kepDE": -m.sin(m.kepDE(0.05, 0.3, x)),
-    }
-    for name, rhs in per_op.items():
-        cases[f"op_{name}"] = ([(x, y), (y, rhs)], [0.25, 0.0], [])
-    return cases
-
-
-def phase_lanes(st0, pars, B, seed):
-    """``B`` lanes near a case's state: the state plus 0.01 N(0, 1) per
-    coordinate, its parameters, times in [0, 2); numpy arrays (B, n),
-    (B, n_pars), (B,)."""
-    rng = np.random.default_rng(seed)
-    st0 = np.asarray(st0, float)
-    st = st0[None] + 0.01 * rng.standard_normal((B, st0.size))
-    return (st, np.tile(np.asarray(pars, float), (B, 1)).reshape(B, -1),
-            rng.uniform(0.0, 2.0, B))
-
-
-def pendulum_lanes(B, seed):
-    """Librating pendulum lanes: x0 = +-U(0.5, 2.0) rad with a random
-    sign, v0 = U(-1, 1); energies 1.2 to 14.4, below the separatrix's
-    19.6."""
-    rng = np.random.default_rng(seed)
-    x0 = rng.choice([-1.0, 1.0], B) * rng.uniform(0.5, 2.0, B)
-    return np.stack([x0, rng.uniform(-1.0, 1.0, B)], 1)
-
-
 def pendulum_energy(st):
     """``models.pendulum_energy`` at g = 9.8, l = m = 1, per lane."""
     return 0.5 * st[:, 1] * st[:, 1] + 9.8 * (1.0 - torch.cos(st[:, 0]))
@@ -888,10 +838,19 @@ def phase_tapes(dev, order, smi):
         # from lo = 9: the orders below from the twin, the rest NaN in
         # every column the kernel must write
         n_w = tape.n_eq + int(tape.arrays["arg_ptr"].size) - 1
-        tc9 = tc_p.clone()
-        tc9[PHASE_LO:, :n_w] = float("nan")
-        jp.phase(tape, tc9, PHASE_LO)
+        tc9_in = tc_p.clone()
+        tc9_in[PHASE_LO:, :n_w] = float("nan")
+        tc9 = jp.phase(tape, tc9_in.clone(), PHASE_LO)
         torch.cuda.synchronize()
+        # every block shape and layout B4 takes, forced: each computes
+        # every item alike, so each equals the default launch bit for bit
+        shapes = jp.sweep_shapes(tape, 8)
+        for lay, L, nt in shapes:
+            for lo, src, ref in ((1, tc0, tc_k), (PHASE_LO, tc9_in, tc9)):
+                check(torch.equal(jp._phase_cuda(tape, src.clone(), lo, L, nt,
+                                                 lay), ref),
+                      f"B4 on {name} from lo = {lo} with {L} lanes x {nt} "
+                      f"threads on {lay} differs from the default")
         r = {}
         for key, tc in (("lo1", tc_k), ("lo9", tc9)):
             check(bool(torch.isfinite(tc).all()),
@@ -903,7 +862,8 @@ def phase_tapes(dev, order, smi):
             phase_err = max(phase_err, float((tc - tc_p).abs().max()))
         check(max(r.values()) <= JET_RTOL,
               f"B4 vs phase_plain on {name}: {r}")
-        res[name] = dict(W=tape.width, **r)
+        res[name] = dict(W=tape.width, shape=jp.layout_report(tape, PHASE_B),
+                         shapes_equal=len(shapes), **r)
     missing = sorted(set(ht.PHASE_OPS) - ops)
     check(not missing, f"phase 10 ran no tape with {missing}")
     say(10, B=PHASE_B, order=order, lo=[1, PHASE_LO], tol=JET_RTOL,
@@ -980,43 +940,75 @@ def phase_tapes(dev, order, smi):
         device_idle_share=1.0 - busy / wall_w if dev_ev else None,
         b4_share_of_busy=b4 / busy if dev_ev else None)
 
-    # -- 12. times: B4 against phase_plain ----------------------------------------
+    # -- 12. times: B4 against phase_plain, per block shape ---------------------
     widest = max((n for n in cases if not n.startswith("op_")
                   and n != "pendulum"), key=lambda n: tapes[n].width)
+    ss_plan = proto_phase.outer_ss_plan(order)
+    tapes["outer_ss"] = jp.PhaseTape(ht.plan_to_arrays(ss_plan), dev)
     runs = {}
-    for name, B, seed in (("pendulum", PEND_B, 3), (widest, PHASE_B, 4)):
+    for name, B, lo, seed in (("pendulum", PEND_B, 1, 3),
+                              (widest, PHASE_B, 1, 4),
+                              ("outer_ss", B_MAIN, PHASE_LO, 0)):
         tape = tapes[name]
-        st0, pars = cases[name][1], cases[name][2]
-        if name == "pendulum":
-            lanes_ = (pendulum_lanes(B, seed), np.zeros((B, 0)),
-                      np.zeros(B))
+        jargs = None
+        if name == "outer_ss":  # phase 14's buffer, in f64
+            tc0 = proto_phase.realistic_buffer(
+                ss_plan, IC, B, lo, dev, seed).permute(1, 0, 2).contiguous(
+                ).double()
         else:
-            lanes_ = phase_lanes(st0, pars, B, seed)
-        tc0 = seeded_buffer(tape, *lanes_, dev)
+            if name == "pendulum":
+                lanes_ = (pendulum_lanes(B, seed), np.zeros((B, 0)),
+                          np.zeros(B))
+            else:
+                lanes_ = phase_lanes(cases[name][1], cases[name][2], B, seed)
+            tc0 = seeded_buffer(tape, *lanes_, dev)
+            jargs = lane_tensors(*lanes_, dev)
         tck, tcp = tc0.clone(), tc0.clone()
-        jargs = lane_tensors(*lanes_, dev)
         t = {"kernel": [], "plain": []}
+        # the kernel's runs replayed from a CUDA graph: a pendulum jet
+        # takes about as long as its launch from Python
         for which in ("plain", "kernel", "kernel", "plain"):
             if which == "kernel":
-                t[which].append(cuda_ms(lambda: jp.phase(tape, tck, 1), 3))
+                t[which].append(graph_ms(lambda: jp.phase(tape, tck, lo), 10))
             else:
                 t[which].append(cuda_ms(
-                    lambda: jp.phase_plain(tape, tcp, 1), 1))
+                    lambda: jp.phase_plain(tape, tcp, lo), 1))
         r = float(rel(tck, tcp).max())
         check(r <= JET_RTOL, f"B4 vs phase_plain on {name} at B={B}: {r}")
         phase_err = max(phase_err, float((tck - tcp).abs().max()))
-        runs[name] = dict(B=B, W=tape.width, ms_runs=t["kernel"],
-                          plain_ms_runs=t["plain"], max_rel_per_order=r,
-                          jet_phase_ms=cuda_ms(
-                              lambda: jp.jet_phase(tape, *jargs), 3))
+        ms = sum(t["kernel"]) / 2
+        # every shape and layout, forced, each equal to the default bit for
+        # bit; the staging alone (rows in and back, no pass; it leaves the
+        # orders it would write undefined, hence a scratch buffer)
+        shapes = {}
+        for lay, L, nt in jp.sweep_shapes(tape, 8):
+            got = jp._phase_cuda(tape, tc0.clone(), lo, L, nt, lay)
+            check(torch.equal(got, tck), f"B4 on {name} at B={B} with {L} "
+                  f"lanes x {nt} threads on {lay} differs from the default")
+            shapes[f"{lay}:{L}x{nt}"] = graph_ms(
+                lambda: jp._phase_cuda(tape, tck, lo, L, nt, lay), 5)
+        shape = jp.layout_report(tape, B)
+        stage = None
+        if shape["layout"] == "smem":
+            scratch = tc0.clone()
+            stage = graph_ms(lambda: jp.stage(tape, scratch, lo), 10)
+        runs[name] = dict(
+            B=B, W=tape.width, lo=lo, ms_runs=t["kernel"],
+            plain_ms_runs=t["plain"], max_rel_per_order=r, shape=shape,
+            stage_ms=stage, stage_share=None if stage is None else stage / ms,
+            shapes_ms=shapes, fastest=min(shapes, key=shapes.get),
+            jet_phase_ms=None if jargs is None else cuda_ms(
+                lambda: jp.jet_phase(tape, *jargs), 3))
         runs[name].update(rl.bound(
-            rl.phase_flops(tape.arrays, 1) * B,
-            rl.phase_bytes(tape.arrays, B, 1, 8)
+            rl.phase_flops(tape.arrays, lo) * B,
+            rl.phase_bytes(tape.arrays, B, lo, 8)
             + rl.nbytes(tape.itab, tape.dtab), torch.float64))
     say(12, nvidia_smi=smi, **runs)
     tm = runs["pendulum"]
-    return launches["phase"], phase_err, timed(tm["ms_runs"],
-                                               tm["plain_ms_runs"], tm)
+    return launches["phase"], phase_err, dict(
+        timed(tm["ms_runs"], tm["plain_ms_runs"], tm),
+        **{k: tm["shape"][k] for k in ("layout", "lanes", "threads",
+                                       "smem")})
 
 
 def tool_row(name, n, res):
@@ -1050,8 +1042,8 @@ def conv_tool(dev, smi):
 def proto_tool(dev, smi):
     """Phase 14, the f32 phase prototype: the tool's ``run`` (T2 checked
     against its plain body, else it raises; B4 in f64 from lo = 9 beside
-    it), and T2's orders within 1e-4 relative of B4's, per order.  Returns
-    T2's row."""
+    it), T2's orders within 1e-4 relative of B4's, per order, then the
+    tool's ``sweep``.  Returns T2's row."""
     for k in jk.LAUNCHES:
         jk.LAUNCHES[k] = 0
     res = proto_phase.run(dev)
@@ -1061,8 +1053,13 @@ def proto_tool(dev, smi):
     vs64 = res["f32_vs_f64_rel_per_order"]
     check(all(np.isfinite(vs64)) and max(vs64) <= 1e-4,
           f"T2 (f32) vs B4 (f64) per order: {vs64}")
-    say(14, nvidia_smi=smi, launches=launches, **res)
-    return tool_row("hy_proto_phase_f32", launches["proto_phase"], res)
+    # every forced block shape and the staging, after the path's counts
+    say(14, nvidia_smi=smi, launches=launches, **res,
+        **proto_phase.sweep(dev))
+    name, n, err, tm = tool_row("hy_proto_phase_f32", launches["proto_phase"],
+                                res)
+    return name, n, err, dict(tm, **{k: res["shape"][k] for k in (
+        "layout", "lanes", "threads", "smem")})
 
 
 if __name__ == "__main__":

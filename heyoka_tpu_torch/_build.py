@@ -49,14 +49,17 @@ SIGNATURES = {
     # itab, dtab, state, pars, t, scratch, V, out, norms, trace, B,
     # threads, smem, lane_dbl, blocks, stream
     "hy_jet_rolled_f64": (_P,) * 10 + (_I,) * 5 + (_P,),
-    # itab, dtab, tc, syn, B, lo, stream
-    "hy_phase_f64": (_P,) * 4 + (_I, _I, _P),
+    # itab, dtab, tc, syn, B, lo, lanes, threads, smem, n_it, n_dt,
+    # global layout, stream (csrc/phase_block.cuh)
+    "hy_phase_f64": (_P,) * 4 + (_I,) * 8 + (_P,),
+    # itab, dtab, tc, B, lo, lanes, threads, smem, n_it, n_dt, stream
+    "hy_phase_stage_f64": (_P,) * 3 + (_I,) * 7 + (_P,),
     # a, b, c, N, K, stream
     "hy_conv_f32": (_P,) * 3 + (_I, _I, _P),
     # ahi, alo, bhi, blo, chi, clo, N, K, stream
     "hy_conv_dd": (_P,) * 6 + (_I, _I, _P),
-    # itab, dtab, tc, B, lo, stream
-    "hy_proto_phase_f32": (_P,) * 3 + (_I,) * 2 + (_P,),
+    # the arguments of hy_phase_f64
+    "hy_proto_phase_f32": (_P,) * 4 + (_I,) * 8 + (_P,),
 }
 
 

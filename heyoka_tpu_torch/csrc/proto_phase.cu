@@ -13,91 +13,93 @@
 // np.float32 constants are.  The prototype needs one exponent per pow
 // group; here each column reads its own from the tables.
 //
-// Design: one thread runs one lane and interprets the tables built by
-// heyoka_tpu_torch/convert.py and packed by taylor/jet_kernels.py (header
-// `enum Hdr` in taylor_common.cuh), as kernels B2 and B4 do; 64 threads per
-// block.  The buffer is f32 in kernel B4's (K+1, W, B) layout, lane index
-// minor; the prototype's (W, K+1, B) is a permuted view of it (the
-// wrapper's callers permute outside the kernel).  The TPU kernel stages each
-// operand's history in VMEM value lists because Mosaic has no value
-// scatter; global memory needs no such staging, so none is ported.  Built
-// with -fmad=false like the other kernels, so every sum rounds as the
-// plain torch body's does.
+// Design: the block engine of phase_block.cuh, the one kernel B4 runs on,
+// with these three rules in f32: the two kernels differ in precision
+// alone, so chip_smoke.py phase 14 compares f32 with f64 on one design.
+// The buffer is f32 in kernel B4's (K+1, W, B) layout, lane index minor;
+// the prototype's (W, K+1, B) is a permuted view of it (the wrapper's
+// callers permute outside the kernel).  A block stages its lanes' rows in
+// shared memory, as the TPU kernel stages each operand's history in VMEM,
+// and runs one barrier-closed pass per level.  Built with -fmad=false like
+// the other kernels, so every sum rounds as the plain torch body's does,
+// and each item keeps the expression and term order of the
+// one-thread-per-lane kernel this design replaced.
 //
-// What bounds it on this card: bytes.  On the outer-Solar-System tape (W =
-// 381, orders 9..19) at B = 10,240 lanes the buffer is 312 MB, of which
-// the kernel writes 166 MB, against about 0.9 GFLOP: 143 us at 3.35 TB/s
-// against 13 us at 67 TFLOP/s.  One thread per lane reads each operand's
-// history once per order, so it moves far more than that and its loads wait
-// in line; the design does nothing about it yet (no row sharing as in B3).
+// What bounds it on this card: on the outer-Solar-System tape (W = 381,
+// orders 9..19) at B = 10,240 lanes the buffer is 312 MB, of which the
+// kernel writes 166 MB, against about 0.9 GFLOP: 143 us at 3.35 TB/s
+// against 13 us at 67 TFLOP/s.  A lane takes 30,480 B of shared memory,
+// so a block holds seven lanes, whose rows (28 B) would stage by parts of
+// 32-byte sectors: this tape runs on the engine's global layout, 32 lanes
+// a block, each block a latency chain of passes.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "phase_block.cuh"
 #include "taylor_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-
-// One lane's view of the f32 (K+1, W, B) buffer: order k of column c at
-// row k W + c of B lanes, from the lane's own first element.  The row
-// index fits an int (at most (K+1) W); only its product with B needs
-// size_t.  Indexed so, the outer-SS phase runs faster on the H100 than
-// with the whole index in size_t from the buffer's start (PERF.md).
-struct LaneF {
-  float* tc;
-  int W;
-  size_t B;
-  __device__ float& at(int k, int c) const {
-    return tc[(size_t)(k * W + c) * B];
+// The engine's rules in f32: the state rows are the engine's; sum over the
+// operands, mul as the full Cauchy product, pow with its f32 weights.
+struct T2Rule {
+  template <class LV, class SV>
+  __device__ static float order_k(const Tape& T, const int*, const int*,
+                                  const LV& L, const SV&, int op, int c,
+                                  int o, int k) {
+    const float kf = (float)k;
+    const int* a = T.args + T.argptr[o];
+    const int na = T.argptr[o + 1] - T.argptr[o];
+    float v;
+    if (op == OP_SUM) {
+      v = L.at(k, a[0]);
+      #pragma unroll 4
+      for (int q = 1; q < na; ++q) v = v + L.at(k, a[q]);
+    } else if (op == OP_MUL) {
+      v = L.at(0, a[0]) * L.at(k, a[1]);
+      #pragma unroll 4
+      for (int j = 1; j <= k; ++j) v = v + L.at(j, a[0]) * L.at(k - j, a[1]);
+    } else {  // OP_POW; the wrapper's tape admits no other op
+      const double alpha = T.alpha[o];
+      v = (L.at(0, c) * L.at(k, a[0])) * (float)(alpha * k);
+      #pragma unroll 4
+      for (int j = 1; j < k; ++j)
+        v = v + (L.at(j, c) * L.at(k - j, a[0]))
+                    * (float)(alpha * (k - j) - j);
+      v = v / (kf * L.at(0, a[0]));
+    }
+    return v;
+  }
+  // the prototype's rule set has no Kepler op, so no synthetic row
+  template <class LV>
+  __device__ static float synth(const Tape&, const int*, const LV&, int, int,
+                                int) {
+    return 0.0f;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kSmem>
+__global__ void __launch_bounds__(kPhaseMaxThreads)
 proto_phase_kernel(const int* __restrict__ it, const double* __restrict__ dt,
-                   float* __restrict__ tc, int B, int lo) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const Tape T = load_tape(it, dt);
-  const LaneF L{tc + lane, T.W, (size_t)B};
-  const int n_eq = T.n_eq;
-  for (int k = lo; k <= T.K; ++k) {
-    const float kf = (float)k;
-    for (int i = 0; i < n_eq; ++i) L.at(k, i) = L.at(k - 1, T.rhs[i]) / kf;
-    for (int g = 0; g < T.n_groups; ++g) {
-      const int op = T.gop[g], s = T.gstart[g], m = T.gm[g];
-      for (int r = 0; r < m; ++r) {
-        const int c = s + r, o = c - n_eq;
-        const int* a = T.args + T.argptr[o];
-        const int na = T.argptr[o + 1] - T.argptr[o];
-        float v;
-        if (op == OP_SUM) {
-          v = L.at(k, a[0]);
-          for (int q = 1; q < na; ++q) v = v + L.at(k, a[q]);
-        } else if (op == OP_MUL) {
-          v = L.at(0, a[0]) * L.at(k, a[1]);
-          for (int j = 1; j <= k; ++j)
-            v = v + L.at(j, a[0]) * L.at(k - j, a[1]);
-        } else {  // OP_POW; the wrapper's tape admits no other op
-          const double alpha = T.alpha[o];
-          v = (L.at(0, c) * L.at(k, a[0])) * (float)(alpha * k);
-          for (int j = 1; j < k; ++j)
-            v = v + (L.at(j, c) * L.at(k - j, a[0]))
-                        * (float)(alpha * (k - j) - j);
-          v = v / (kf * L.at(0, a[0]));
-        }
-        L.at(k, c) = v;
-      }
-    }
-  }
+                   float* __restrict__ tc, float* __restrict__ syn, int B,
+                   int lo, int lanes, int n_it, int n_dt) {
+  phase_block<float, T2Rule, kSmem>(it, dt, tc, syn, B, lo, lanes, n_it,
+                                    n_dt);
 }
 
 }  // namespace
 
+// The arguments of hy_phase_f64 (taylor_phase.cu), on an f32 buffer.
 extern "C" int hy_proto_phase_f32(const int* itab, const double* dtab,
-                                  float* tc, int B, int lo, void* stream) {
-  proto_phase_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                       (cudaStream_t)stream>>>(itab, dtab, tc, B, lo);
-  return (int)cudaGetLastError();
+                                  float* tc, float* syn, int B, int lo,
+                                  int lanes, int threads, int smem, int n_it,
+                                  int n_dt, int global, void* stream) {
+  static bool allowed[2] = {false, false};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (global)
+    return launch_phase(proto_phase_kernel<false>, allowed[0], itab, dtab, tc,
+                        syn, B, lo, lanes, threads, smem, n_it, n_dt, s);
+  return launch_phase(proto_phase_kernel<true>, allowed[1], itab, dtab, tc,
+                      syn, B, lo, lanes, threads, smem, n_it, n_dt, s);
 }

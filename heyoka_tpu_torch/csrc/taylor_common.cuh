@@ -1,8 +1,7 @@
 // Device helpers shared by the jet kernels (taylor_jet.cu: B1, B2;
-// taylor_jet_rolled.cu: B3; taylor_phase.cu: B4): the opcodes of
-// convert.OPCODES, the dense tape tables of B1/B2/B4 and a lane's view of
-// their coefficient buffer, and the order-0 rules that are more than one
-// operation.
+// taylor_jet_rolled.cu: B3; taylor_phase.cu: B4; proto_phase.cu: T2): the
+// opcodes of convert.OPCODES, the dense tape tables of B1/B2/B4/T2, and
+// the order-0 rules that are more than one operation.
 
 #pragma once
 
@@ -21,15 +20,15 @@ enum Op {
   OP_LNOT
 };
 
-// header of the int32 table `it` of kernels B1, B2 and B4
+// header of the int32 table `it` of kernels B1, B2, B4 and T2
 // (taylor/jet_kernels.py _HDR, then taylor/jet_phase.py _PHDR's fields,
-// which only B4 reads): sizes, then offsets of the int sub-tables in `it`
-// and of the f64 ones in `dt`
+// which only B4 and T2 read): sizes, then offsets of the int sub-tables in
+// `it` and of the f64 ones in `dt`
 enum Hdr {
   H_W, H_NEQ, H_K, H_TIME, H_NG, H_NC, H_NPC, H_NNORM,
   H_RHS, H_NORM, H_CCOLS, H_PCOLS, H_PIDX, H_GOP, H_GSTART, H_GM,
   H_ARGPTR, H_ARGS, H_D_RHOFAC, H_D_CVALS, H_D_ALPHA,
-  H_AUX, H_SYN, H_NSYN
+  H_LVL, H_COP, H_SYNC, H_AUX, H_SYN, H_NSYN, H_NLV
 };
 
 struct Tape {
@@ -66,16 +65,6 @@ __device__ Tape load_tape(const int* __restrict__ it,
   T.alpha = dt + it[H_D_ALPHA];
   return T;
 }
-
-// One lane's view of the (K+1, W, B) coefficient buffer.
-struct Lane {
-  double* tc;
-  size_t W, B;
-  int lane;
-  __device__ double& at(int k, int c) const {
-    return tc[((size_t)k * W + (size_t)c) * B + (size_t)lane];
-  }
-};
 
 // min / max that propagate NaN, like torch.minimum / torch.maximum
 __device__ inline double nmin(double a, double b) {

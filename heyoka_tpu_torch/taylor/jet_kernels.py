@@ -57,7 +57,7 @@ LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0, "phase": 0,
 _HDR = ("W", "n_eq", "K", "time_col", "n_groups", "n_const", "n_pcol",
         "n_norm", "rhs", "norm", "ccols", "pcols", "pidx", "gop", "gstart",
         "gm", "argptr", "args", "d_rhofac", "d_cvals", "d_alpha")
-_HDR_LEN = 24
+_HDR_LEN = 28
 
 _F64 = torch.float64
 

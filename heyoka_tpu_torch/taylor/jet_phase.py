@@ -35,6 +35,7 @@ the JAX kernel keeps ``hist[(gi, "synth")]``.
 from __future__ import annotations
 
 import math as _pymath
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,16 +44,19 @@ from .. import _build
 from ..convert import AUX_KEYS, PHASE_OPS
 from ..expr.numeric import evaluate
 from .jet_kernels import (
-    LAUNCHES, JetTape, _F64, _HDR, _HDR_LEN, _check, _device_of, _eval0,
-    _eval_k, _norms, _ptr, _seed_plain,
+    BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, SMEM_MAX, JetTape, _F64,
+    _HDR, _HDR_LEN, _check, _device_of, _eval0, _eval_k, _norms, _ptr,
+    _seed_plain, table_bytes,
 )
 
-#: header of the phase kernel's int32 table (csrc/taylor_phase.cu ``enum
-#: Hdr``): ``jet_kernels._HDR``, then the offsets of the aux table (two
-#: slots per op column, -1 where unused) and of the synthetic-row table
-#: (one per op column, -1 but for Kepler columns), and the number of
-#: synthetic rows
-_PHDR = _HDR + ("aux", "syn", "n_syn")
+#: header of the phase kernels' int32 table (csrc/taylor_common.cuh ``enum
+#: Hdr``): ``jet_kernels._HDR``, then the offsets of the level table (the
+#: first column of each level, then one past the last op column), the
+#: opcode of each op column, the op column of each synthetic row, the aux
+#: table (two slots per op column, -1 where unused) and the synthetic-row
+#: table (one per op column, -1 but for Kepler columns), and the numbers
+#: of synthetic rows and of levels
+_PHDR = _HDR + ("lvl", "cop", "syncol", "aux", "syn", "n_syn", "n_lv")
 assert len(_PHDR) == _HDR_LEN
 
 #: ops with a synthetic convolution series
@@ -74,6 +78,8 @@ class PhaseTape(JetTape):
         aux, syn = arrays["aux"], self._syn_rows(arrays)
         n_eq = self.n_eq
         self.n_syn = int(syn.max(initial=-1)) + 1
+        self.lvl = level_table(arrays)
+        self._shapes = {}  # (B, itemsize, device) -> block_shape's default
 
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -105,9 +111,64 @@ class PhaseTape(JetTape):
 
     def _pack(self, a, norm):
         syn = self._syn_rows(a)
+        lvl = level_table(a)
+        check_levels(a, lvl)
         return super()._pack(
-            a, norm, {"aux": np.asarray(a["aux"]).reshape(-1), "syn": syn},
-            {"n_syn": int(syn.max(initial=-1)) + 1})
+            a, norm, {"lvl": lvl, "cop": op_codes(a),
+                      "syncol": np.flatnonzero(syn >= 0),
+                      "aux": np.asarray(a["aux"]).reshape(-1), "syn": syn},
+            {"n_syn": int(syn.max(initial=-1)) + 1, "n_lv": lvl.size - 1})
+
+
+def level_table(a) -> np.ndarray:
+    """The first column of each level of a plan's arrays, then one past the
+    last op column: the kernels' passes.  Raises ValueError unless every
+    level's groups hold contiguous columns, in level order, from ``n_eq``
+    on (``build_plan`` lays them out so)."""
+    n_eq = int(a["meta"][1])
+    n_w = n_eq + a["arg_ptr"].size - 1
+    lvl, end = [], n_eq
+    for li in range(int(a["g_level"].max(initial=-1)) + 1):
+        lvl.append(end)
+        for s, m in zip(a["g_start"][a["g_level"] == li],
+                        a["g_m"][a["g_level"] == li]):
+            if s != end:
+                raise ValueError(f"level {li}: a group starts at column {s}, "
+                                 f"not {end}")
+            end += int(m)
+    if end != n_w or np.any(np.diff(a["g_level"]) < 0):
+        raise ValueError("the levels do not cover the op columns in order")
+    return np.array(lvl + [n_w], np.int64)
+
+
+def op_codes(a) -> np.ndarray:
+    """The opcode (``convert.OPCODES``) of every op column."""
+    n_eq = int(a["meta"][1])
+    cop = np.empty(a["arg_ptr"].size - 1, np.int64)
+    for op, s, m in zip(a["g_op"], a["g_start"], a["g_m"]):
+        cop[s - n_eq:s - n_eq + m] = op
+    return cop
+
+
+def check_levels(a, lvl) -> None:
+    """Raise ValueError unless every operand of every op column lies in an
+    earlier level (or is a state or virtual column).  The kernels run a
+    level's items in one pass, so an item must not read, at the order being
+    computed, a column written in the same pass; every rule reads at that
+    order its operands only (its own column, the aux columns and the
+    synthetic rows below it), so this check covers them all."""
+    n_eq = int(a["meta"][1])
+    n_w = int(lvl[-1])
+    col_lvl = np.full(int(a["meta"][0]), -1, np.int64)
+    for v in range(lvl.size - 1):
+        col_lvl[lvl[v]:lvl[v + 1]] = v
+    ptr, args = a["arg_ptr"], a["args"]
+    for c in range(n_eq, n_w):
+        ops = args[ptr[c - n_eq]:ptr[c - n_eq + 1]]
+        ops = ops[ops != c]  # its own column: below the order only
+        if ops.size and col_lvl[ops].max() >= col_lvl[c]:
+            raise ValueError(f"column {c} (level {col_lvl[c]}) reads a "
+                             f"column of level {col_lvl[ops].max()}")
 
 
 # ---------------------------------------------------------------------------
@@ -294,25 +355,220 @@ def _check_lo(lo, K):
 def phase(tape: PhaseTape, tc, lo: int):
     """Orders ``lo..K`` of ``tc (K+1, W, B)`` f64 in place; returns
     ``tc``.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor launches
-    kernel B4 (``hy_phase_f64``)."""
-    dev = _device_of(tc, tape)
-    if dev.type == "cpu":
+    kernel B4 (``hy_phase_f64``) at the block shape of
+    :func:`block_shape`."""
+    if _device_of(tc, tape).type == "cpu":
         return phase_plain(tape, tc, lo)
-    K = tape.order
+    return _phase_cuda(tape, tc, lo)
+
+
+def _phase_cuda(tape: PhaseTape, tc, lo: int, lanes=None, threads=None,
+                layout=None):
+    """Kernel B4 at a block shape of ``lanes`` x ``threads`` on ``layout``
+    (default: :func:`block_shape`'s)."""
+    return launch("hy_phase_f64", "phase", tape, tc, lo, _F64, lanes,
+                  threads, layout)
+
+
+def stage(tape: PhaseTape, tc, lo: int):
+    """The staging alone of kernel B4's default launch on ``tc``: the
+    blocks' rows copied in and back, no pass (``hy_phase_stage_f64``),
+    for timing it; leaves orders ``lo..K`` of the written columns
+    undefined, so give it a scratch buffer.  Not counted in ``LAUNCHES``.
+    Raises ValueError where the default shape is on the global layout,
+    which stages nothing."""
+    sh, cfg, stream = _launch_args(tape, tc, lo, _F64)
+    if sh is None:
+        return tc
+    if sh.layout != "smem":
+        raise ValueError("kernel B4 stages nothing on the global layout")
+    _run("hy_phase_stage_f64", _ptr(tape.itab), _ptr(tape.dtab), _ptr(tc),
+         *cfg, stream)
+    return tc
+
+
+def launch(entry, counter, tape, tc, lo, dtype, lanes=None, threads=None,
+           layout=None):
+    """One launch of kernel B4 or T2 (C entry ``entry``, counted in
+    ``LAUNCHES[counter]``) on ``tc (K+1, W, B)`` of ``dtype``, in place;
+    returns ``tc``.  No launch where there is no work (no lanes, or ``lo =
+    K + 1``).  On the global layout the Kepler synthetic rows go to a
+    ``(K+1, n_syn, B)`` scratch buffer."""
+    sh, cfg, stream = _launch_args(tape, tc, lo, dtype, lanes, threads,
+                                  layout)
+    if sh is None:
+        return tc
+    glob = sh.layout == "global"
+    syn = None
+    if glob and tape.n_syn:
+        syn = torch.empty((tape.order + 1, tape.n_syn, tc.shape[-1]),
+                          dtype=dtype, device=tc.device)
+    _run(entry, _ptr(tape.itab), _ptr(tape.dtab), _ptr(tc),
+         None if syn is None else _ptr(syn), *cfg, int(glob), stream)
+    LAUNCHES[counter] += 1
+    return tc
+
+
+def _launch_args(tape, tc, lo, dtype, lanes=None, threads=None, layout=None):
+    """Checks ``tc`` and returns ``(shape, (B, lo, lanes, threads, smem,
+    n_it, n_dt), stream)`` of a launch on it, or ``(None, None, None)``
+    where there is no work.  The default shape is cached on the tape."""
+    dev, K = tc.device, tape.order
     _check_lo(lo, K)
     B = tc.shape[-1] if tc.ndim == 3 else 0
-    _check("tc", tc, (K + 1, tape.width, B), _F64, dev)
-    if B == 0:
-        return tc
-    syn = torch.empty((K + 1, tape.n_syn, B), dtype=_F64, device=dev)
-    lib = _build.load()
-    rc = lib.hy_phase_f64(
-        _ptr(tape.itab), _ptr(tape.dtab), _ptr(tc), _ptr(syn), B, int(lo),
-        torch.cuda.current_stream(dev).cuda_stream)
+    _check("tc", tc, (K + 1, tape.width, B), dtype, dev)
+    if B == 0 or lo > K:
+        return None, None, None
+    if lanes is None and threads is None and layout is None:
+        key = (B, tc.element_size(), dev)
+        if key not in tape._shapes:
+            tape._shapes[key] = block_shape(tape, B, key[1], sms=_sms(dev))
+        sh = tape._shapes[key]
+    else:
+        sh = block_shape(tape, B, tc.element_size(), lanes, threads, layout,
+                         _sms(dev))
+    return sh, (B, int(lo), sh.lanes, sh.threads, sh.smem, sh.n_it,
+                sh.n_dt), torch.cuda.current_stream(dev).cuda_stream
+
+
+def _run(entry, *args):
+    rc = getattr(_build.load(), entry)(*args)
     if rc != 0:
-        raise RuntimeError(f"hy_phase_f64 launch failed: CUDA error {rc}")
-    LAUNCHES["phase"] += 1
-    return tc
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' block shape
+# ---------------------------------------------------------------------------
+
+#: threads a block of kernels B4 and T2 may have (csrc/phase_block.cuh
+#: ``kPhaseMaxThreads``), and the threads a block gives each item of its
+#: widest pass: the spare ones speed the staging
+BLOCK_THREADS = (32, 64, 128, 256)
+THREADS_PER_ITEM = 2
+#: the most lanes a block (a row of them fills eight sectors of f64)
+MAX_LANES = 32
+#: a sector of global memory (bytes): where a row of the lanes a block's
+#: shared memory holds is shorter, the staging would read and write
+#: sectors by parts, and the global layout runs instead
+SECTOR = 32
+#: the blocks an SM holds at most (Hopper), and the H100's SMs (the
+#: rule's default off the card)
+SM_BLOCKS, SMS = 32, 132
+
+
+class PhaseShape(NamedTuple):
+    """A launch of kernel B4 or T2: ``layout`` (``"smem"``: the block's
+    lanes staged in shared memory; ``"global"``: worked on in place in
+    the caller's buffer), ``lanes`` and ``threads`` a block, ``smem`` (the
+    dynamic shared memory of a block, in bytes) and the lengths of the
+    tables copied into it (``n_it`` ints, ``n_dt`` doubles; 0 where they
+    are read in place)."""
+    layout: str
+    lanes: int
+    threads: int
+    smem: int
+    n_it: int
+    n_dt: int
+
+
+def lane_bytes(tape: PhaseTape, itemsize: int) -> int:
+    """Shared memory of one lane: its ``(K+1, W)`` coefficients and its
+    ``(K+1, n_syn)`` synthetic rows."""
+    return itemsize * (tape.order + 1) * (tape.width + tape.n_syn)
+
+
+def widest(tape: PhaseTape) -> int:
+    """Rows of the widest pass at orders k >= lo: a level, or the synthetic
+    rows of one order with the state rows of the next."""
+    return int(max(np.diff(tape.lvl).max(initial=0),
+                   tape.n_eq + tape.n_syn))
+
+
+def _blocks_per_sm(smem: int, threads: int) -> int:
+    return min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads,
+               SM_BLOCKS)
+
+
+def _threads_for(tape: PhaseTape, lanes: int) -> int:
+    fit = [t for t in BLOCK_THREADS
+           if t >= THREADS_PER_ITEM * widest(tape) * lanes]
+    return min(fit, default=BLOCK_THREADS[-1])
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else SMS
+
+
+def block_shape(tape: PhaseTape, B: int, itemsize: int, lanes=None,
+                threads=None, layout=None, sms: int = SMS) -> PhaseShape:
+    """The block shape of kernel B4 (``itemsize`` 8) or T2 (4) on ``B``
+    lanes of ``tape``, or the ``lanes``, ``threads`` and ``layout`` given
+    (the tests and ``chip_smoke.py`` hold every shape to the default).
+
+    - Lanes: as many as a block's shared memory holds (:func:`lane_bytes`),
+      up to ``MAX_LANES`` and to ``B``; ``MAX_LANES`` on the global layout.
+    - Layout: ``"smem"`` where a row of the lanes a block holds fills a
+      ``SECTOR``, else ``"global"``.
+    - Threads: the fewest of ``BLOCK_THREADS`` that give each item of the
+      widest pass (:func:`widest`) ``THREADS_PER_ITEM`` threads, else the
+      most.
+    - The tables go to shared memory where they cost no block an SM that
+      the launch's blocks need.
+
+    Measured on an H100 (``chip_smoke.py`` phases 12 and 14, every forced
+    shape): a block's time is its chain of barrier-closed passes, which
+    more lanes do not lengthen, so the fewest, largest blocks win even
+    where they leave SMs idle (1,024 ``hyper`` lanes: 32 blocks of 32
+    lanes beat 79 of 13), and where a block holds under a sector's row of
+    lanes (the outer SS: three f64 lanes, seven f32 ones) the global
+    layout's blocks of 32 lanes beat the staged ones.  The rule picks the
+    fastest forced shape, or one within 2% of it, on the pendulum at
+    10,240 lanes, ``hyper`` at 1,024 and the outer SS at 10,240 in f64 and
+    f32; tapes whose blocks hold 4-31 f64 lanes are not measured."""
+    per = lane_bytes(tape, itemsize)
+    fits = min(MAX_LANES, SMEM_MAX // per)
+    own = "smem" if fits * itemsize >= SECTOR else "global"
+    layout = own if layout is None else layout
+    if layout not in ("smem", "global"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if lanes is None:
+        lanes = max(1, min(MAX_LANES if layout == "global" else fits, B))
+    lanes = int(lanes)
+    nt = _threads_for(tape, lanes) if threads is None else int(threads)
+    if nt not in BLOCK_THREADS or lanes < 1:
+        raise ValueError(f"kernels B4/T2 take 1 lane or more and "
+                         f"{BLOCK_THREADS} threads a block, not {lanes} x "
+                         f"{nt}")
+    smem = lanes * per if layout == "smem" else 0
+    if smem > SMEM_MAX:
+        raise ValueError(f"{lanes} lanes of {per} B exceed a block's "
+                         f"{SMEM_MAX} B of shared memory")
+    tab = table_bytes(tape)
+    need = min(_blocks_per_sm(smem, nt), -(-B // (lanes * sms)))
+    if smem + tab <= SMEM_MAX and _blocks_per_sm(smem + tab, nt) >= need:
+        return PhaseShape(layout, lanes, nt, smem + tab, tape.itab.numel(),
+                          tape.dtab.numel())
+    return PhaseShape(layout, lanes, nt, smem, 0, 0)
+
+
+def sweep_shapes(tape: PhaseTape, itemsize: int,
+                 lanes=(1, 2, 3, 8, 16, 32)) -> list:
+    """``(layout, lanes, threads)`` of the block shapes that
+    ``chip_smoke.py``, ``tools.proto_phase`` and the GPU tests force: each
+    of ``lanes`` with each of ``BLOCK_THREADS`` on the smem layout where
+    the lanes fit a block, and on the global layout."""
+    per = lane_bytes(tape, itemsize)
+    return [("smem", L, nt) for L in lanes if L * per <= SMEM_MAX
+            for nt in BLOCK_THREADS] \
+        + [("global", L, nt) for L in lanes for nt in BLOCK_THREADS]
+
+
+def layout_report(tape: PhaseTape, B: int, itemsize: int = 8) -> dict:
+    """:func:`block_shape` as a dict, with the bytes of one lane."""
+    return dict(block_shape(tape, B, itemsize)._asdict(),
+                lane_bytes=lane_bytes(tape, itemsize))
 
 
 def jet_phase(tape: PhaseTape, state, pars, t=None):

@@ -11,9 +11,10 @@ the root of the repository), and what they share with ``chip_smoke.py``.
   against the order, on the outer-Solar-System tape;
 - :mod:`.rolled_scan`: where kernel B3's time goes on the mascon-512 tape
   (against K, lanes, block size and layout, and a per-pass clock trace);
-- :mod:`.same_bits`: kernels B1, B2 and B3 of two checkouts of the port on
-  the same inputs, bit for bit (a script run with a checkout on
-  ``PYTHONPATH``).
+- :mod:`.same_bits`: kernels B1, B2, B3, B4 and T2 of two checkouts of the
+  port on the same inputs, bit for bit, and the pendulum slice of either
+  (a script run with a checkout on ``PYTHONPATH``);
+- :mod:`.cases`: the phase route's test tapes and lanes.
 
 Each tool runs on the card: ``python -m heyoka_tpu_torch.tools.<name>``.
 
@@ -87,6 +88,28 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs captured in
+    one CUDA graph and replayed, after one warm-up run and one replay: for
+    a kernel that takes about as long as its launch from Python, whose
+    back-to-back launches :func:`cuda_ms` would time at the host's rate."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps

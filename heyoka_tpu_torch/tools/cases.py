@@ -1,0 +1,80 @@
+"""The phase route's test tapes and lanes, shared by ``chip_smoke.py``
+(phases 10-12), the tests and :mod:`.same_bits`.
+
+The module imports numpy only and takes the package that builds the
+systems as an argument (this port, or the JAX package in the tests), so
+that ``same_bits.py`` can load it from its own directory and give any
+checkout of the port the same inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def phase_cases(pkg):
+    """The tapes of phase 10, built with ``pkg`` (this port; the tests
+    also pass the JAX package): name -> (ODE system, state (2,), pars).
+    The pendulum, the mixed systems of ``tests/test_compact.py``, two
+    for the hyperbolic, division and logical ops, and one per op of
+    ``tests/test_pallas_ops.py``; every state is away from the switch
+    points of relu, select and the relational ops."""
+    m = pkg.math
+    x, y = pkg.make_vars("x", "y")
+    par, tm = pkg.par, pkg.time_
+    cases = {
+        "pendulum": (pkg.models.pendulum(), [0.05, 0.025], []),
+        "trig": ([(x, m.sin(x) * m.cos(y) + m.tan(0.3 * x)),
+                  (y, m.exp(-y) + m.atan2(x, y) + x ** -1.5)],
+                 [0.7, 1.3], []),
+        "kepE": ([(x, m.kepE(0.3, y)),
+                  (y, m.sqrt(x) + m.log(y) + m.erf(x))], [1.2, 0.8], []),
+        "kepFDE": ([(x, m.kepF(0.1, 0.2, y)),
+                    (y, m.kepDE(0.1, 0.2, x) + m.asin(0.3 * x) + m.tanh(y)
+                     + m.sigmoid(x))], [0.9, 0.7], []),
+        "select": ([(x, m.select(m.gt(x, 0.0), x * x, -x) + m.relu(y)),
+                    (y, m.sigmoid(x) + m.atan(y) + m.acos(0.2 * x)
+                     + m.sinh(y))], [0.5, -0.3], []),
+        "par_time": ([(x, par[0] * m.sin(tm) + par[1] * x), (y, tm * y)],
+                     [0.4, 0.6], [1.1, -0.2]),
+        "hyper": ([(x, m.atanh(0.3 * x) + m.asinh(y) / (2.0 + y * y)),
+                   (y, m.acosh(1.5 + 0.1 * x * x) - m.cosh(0.2 * y))],
+                  [0.4, 0.3], []),
+        "logic": ([(x, m.select(m.logical_and(m.lt(x, 2.0), m.ge(y, -3.0)),
+                                y, -y) + 0.1 * m.relup(x)),
+                   (y, m.select(m.logical_or(m.le(x, -5.0), m.ne(y, 7.0)),
+                                -x, x)
+                    + 0.01 * m.logical_not(m.eq(x, 5.0)))],
+                  [0.5, 0.4], []),
+    }
+    per_op = {
+        "tan": -m.tan(x * 0.3), "tanh": -m.tanh(x),
+        "sigmoid": -m.sigmoid(x) + 0.5, "asin": -m.asin(x * 0.5),
+        "acos": m.acos(x * 0.5) - np.pi / 2, "atan": -m.atan(x),
+        "erf": -m.erf(x), "atan2": -m.atan2(x, 2.0 + y * 0.1),
+        "kepE": -m.sin(m.kepE(0.1, x)), "kepF": -m.sin(m.kepF(0.05, 0.05, x)),
+        "kepDE": -m.sin(m.kepDE(0.05, 0.3, x)),
+    }
+    for name, rhs in per_op.items():
+        cases[f"op_{name}"] = ([(x, y), (y, rhs)], [0.25, 0.0], [])
+    return cases
+
+
+def phase_lanes(st0, pars, B, seed):
+    """``B`` lanes near a case's state: the state plus 0.01 N(0, 1) per
+    coordinate, its parameters, times in [0, 2); numpy arrays (B, n),
+    (B, n_pars), (B,)."""
+    rng = np.random.default_rng(seed)
+    st0 = np.asarray(st0, float)
+    st = st0[None] + 0.01 * rng.standard_normal((B, st0.size))
+    return (st, np.tile(np.asarray(pars, float), (B, 1)).reshape(B, -1),
+            rng.uniform(0.0, 2.0, B))
+
+
+def pendulum_lanes(B, seed):
+    """Librating pendulum lanes: x0 = +-U(0.5, 2.0) rad with a random
+    sign, v0 = U(-1, 1); energies 1.2 to 14.4, below the separatrix's
+    19.6."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.choice([-1.0, 1.0], B) * rng.uniform(0.5, 2.0, B)
+    return np.stack([x0, rng.uniform(-1.0, 1.0, B)], 1)

@@ -18,7 +18,8 @@ the in-kernel f32 phase that became kernel B4 (``make_phase_kernel``):
   B = 10,240, lo = 9), with kernel B4 (``jet_phase.phase``) in f64 from
   ``lo = 9`` on the same buffer beside it: the times of both and the
   per-order difference of f32 against f64, the measurement ROADMAP's
-  precision ground rule asks for.
+  precision ground rule asks for; :func:`sweep`: T2 at every block shape
+  on the same buffer.
 
 The other public functions keep the prototype's ``(W, K+1, B)`` f32
 layout, lane index minor; :func:`run` permutes between the two outside
@@ -35,14 +36,13 @@ import json
 import numpy as np
 import torch
 
-from .. import _build
 from ..convert import plan_from_arrays, plan_to_arrays
 from ..expr.decompose import taylor_decompose_sys
 from ..models import nbody
 from ..taylor import jet_phase as jp
 from ..taylor.compact import build_plan
-from ..taylor.jet_kernels import LAUNCHES, JetTape, _check, _device_of, _ptr
-from . import GCONST, IC, MASSES, cuda_device, cuda_ms, smi_line
+from ..taylor.jet_kernels import _device_of
+from . import GCONST, IC, MASSES, cuda_device, cuda_ms, graph_ms, smi_line
 from .roofline import bound, nbytes, phase_bytes, phase_flops
 
 ORDER = 19
@@ -50,6 +50,8 @@ LO = 9
 B = 10_240
 #: the prototype's rule set (the n-body tape's)
 RULES = ("sum", "mul", "pow")
+#: lanes a block of T2 that :func:`run` forces (``jet_phase.sweep_shapes``)
+SWEEP_LANES = (1, 2, 3, 7, 16, 32)
 #: kernel vs plain body, per order, relative to the order's largest
 #: magnitude: f32 in both over sums of up to 20 terms; the kernel repeats
 #: the body's order without FMA, so they should agree far closer
@@ -179,11 +181,11 @@ def realistic_buffer(plan, ic, n_lanes: int, lo: int, device, seed: int = 0):
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-class ProtoTape(JetTape):
-    """A plan's tables for kernel T2 (``JetTape``'s packed ``itab`` and
-    ``dtab``; the header of ``csrc/taylor_common.cuh``), restricted to
-    :data:`RULES` (else ``UnsupportedKernelOp``), and the plan itself for
-    the plain body."""
+class ProtoTape(jp.PhaseTape):
+    """A plan's tables for kernel T2: kernel B4's (``PhaseTape``'s packed
+    ``itab`` and ``dtab``, with the level table; the header of
+    ``csrc/taylor_common.cuh``), restricted to :data:`RULES` (else
+    ``UnsupportedKernelOp``), and the plan itself for the plain body."""
 
     RULES = RULES
 
@@ -196,26 +198,23 @@ def phase_f32(tables: ProtoTape, tc, lo: int):
     """Orders ``lo..K`` of the f32 buffer ``tc``, ``(K+1, W, B)`` as kernel
     B4's, in place; returns ``tc``.  A CPU tensor runs
     :func:`phase_body_plain` (on the prototype's view, ``tc.permute(1, 0,
-    2)``); a CUDA tensor launches kernel T2 (``hy_proto_phase_f32``)."""
+    2)``); a CUDA tensor launches kernel T2 (``hy_proto_phase_f32``) at
+    the block shape of ``jet_phase.block_shape``."""
     dev = _device_of(tc, tables)
-    K, W = tables.order, tables.width
-    if not 1 <= lo <= K + 1:
-        raise ValueError(f"lo must lie in 1..{K + 1}; got {lo}")
     if dev.type == "cpu":
+        K = tables.order
+        jp._check_lo(lo, K)
         body = phase_body_plain(tables.plan, lo, K, tables.n_eq)
         return tc.copy_(body(tc.permute(1, 0, 2)).permute(1, 0, 2))
-    n = tc.shape[-1] if tc.ndim == 3 else 0
-    _check("tc", tc, (K + 1, W, n), _F32, dev)
-    if n == 0:
-        return tc
-    rc = _build.load().hy_proto_phase_f32(
-        _ptr(tables.itab), _ptr(tables.dtab), _ptr(tc), n, int(lo),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"hy_proto_phase_f32 launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["proto_phase"] += 1
-    return tc
+    return _phase_f32_cuda(tables, tc, lo)
+
+
+def _phase_f32_cuda(tables: ProtoTape, tc, lo: int, lanes=None,
+                    threads=None, layout=None):
+    """Kernel T2 at a block shape of ``lanes`` x ``threads`` on ``layout``
+    (default: ``jet_phase.block_shape``'s)."""
+    return jp.launch("hy_proto_phase_f32", "proto_phase", tables, tc, lo,
+                     _F32, lanes, threads, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +236,30 @@ def outer_ss_plan(order: int = ORDER):
         nbody(6, masses=MASSES, Gconst=GCONST)), order)
 
 
+def _setup(device, n_lanes: int, lo: int):
+    """The tables and buffers of :func:`run` and :func:`sweep`: T2's and
+    B4's tapes, the realistic buffer in the prototype's layout and in B4's,
+    and B4's f64 copy of the latter."""
+    dev = cuda_device(device)
+    plan = outer_ss_plan()
+    arrays = plan_to_arrays(plan)
+    tc_in = realistic_buffer(plan, IC, n_lanes, lo, dev)
+    return (plan, arrays, ProtoTape(arrays, dev), jp.PhaseTape(arrays, dev),
+            tc_in, tc_in.permute(1, 0, 2).contiguous())
+
+
 def run(device="cuda", n_lanes: int = B, lo: int = LO) -> dict:
     """The prototype's ``main`` on the card: kernel T2 on the realistic
     buffer against the plain body (:data:`RTOL` per order, else
     RuntimeError; the prototype's max abs diff and scale), kernel B4 in f64
     from ``lo`` on the same buffer at the same layout, the per-order
     relative difference of T2's orders ``lo..K`` against B4's, the times
-    (CUDA events) in the order plain, T2, B4, B4, T2, plain, and both
+    in the order plain, T2, B4, B4, T2, plain (CUDA events; the kernels'
+    replayed from a CUDA graph), both kernels' block shapes, and both
     bounds."""
-    dev = cuda_device(device)
-    plan = outer_ss_plan()
-    arrays = plan_to_arrays(plan)
-    tape = ProtoTape(arrays, dev)
-    tc_in = realistic_buffer(plan, IC, n_lanes, lo, dev)
+    plan, arrays, tape, tape64, tc_in, tc_k = _setup(device, n_lanes, lo)
     body = phase_body_plain(plan, lo, ORDER, plan.n_eq)
     ref = body(tc_in)
-    tc_k = tc_in.permute(1, 0, 2).contiguous()  # B4's (K+1, W, B)
     out = phase_f32(tape, tc_k.clone(), lo)
     torch.cuda.synchronize()
     got = out.permute(1, 0, 2)
@@ -264,7 +271,6 @@ def run(device="cuda", n_lanes: int = B, lo: int = LO) -> dict:
     scale = float(ref.abs().max())
 
     # B4 in f64 from lo on the same orders 0..lo-1
-    tape64 = jp.PhaseTape(arrays, dev)
     tc64 = tc_k.double()
     jp.phase(tape64, tc64, lo)
     torch.cuda.synchronize()
@@ -276,8 +282,7 @@ def run(device="cuda", n_lanes: int = B, lo: int = LO) -> dict:
     t = {name: [] for name in fns}
     for name in ("plain", "kernel", "b4", "b4", "kernel", "plain"):
         t[name].append(cuda_ms(fns[name], 1, warmup=False) if name == "plain"
-                       else cuda_ms(fns[name], 5))
-
+                       else graph_ms(fns[name], 5))
     tables = nbytes(tape.itab, tape.dtab)
     return dict(
         W=plan.width, K=ORDER, B=n_lanes, lo=lo, tol=RTOL,
@@ -285,6 +290,8 @@ def run(device="cuda", n_lanes: int = B, lo: int = LO) -> dict:
         f32_vs_f64_rel_per_order=vs64.tolist(),
         ms=sum(t["kernel"]) / 2, plain_ms=sum(t["plain"]) / 2,
         b4_f64_ms=sum(t["b4"]) / 2, runs_ms=t,
+        shape=jp.layout_report(tape, n_lanes, 4),
+        b4_shape=jp.layout_report(tape64, n_lanes, 8),
         **bound(phase_flops(arrays, lo) * n_lanes,
                 phase_bytes(arrays, n_lanes, lo, 4) + tables, _F32),
         b4_f64=bound(phase_flops(arrays, lo) * n_lanes,
@@ -292,11 +299,30 @@ def run(device="cuda", n_lanes: int = B, lo: int = LO) -> dict:
                      torch.float64))
 
 
+def sweep(device="cuda", n_lanes: int = B, lo: int = LO) -> dict:
+    """Kernel T2 on :func:`run`'s buffer at every block shape of
+    ``jet_phase.sweep_shapes`` over :data:`SWEEP_LANES`, forced (each equal
+    to the default bit for bit, else RuntimeError), with its times (a CUDA
+    graph's replay) and the fastest."""
+    _, _, tape, _, _, tc_k = _setup(device, n_lanes, lo)
+    out = phase_f32(tape, tc_k.clone(), lo)
+    shapes = {}
+    for lay, L, nt in jp.sweep_shapes(tape, 4, SWEEP_LANES):
+        got = _phase_f32_cuda(tape, tc_k.clone(), lo, L, nt, lay)
+        if not torch.equal(got, out):
+            raise RuntimeError(f"hy_proto_phase_f32 with {L} lanes x {nt} "
+                               f"threads on {lay} differs from the default "
+                               f"shape")
+        shapes[f"{lay}:{L}x{nt}"] = graph_ms(
+            lambda: _phase_f32_cuda(tape, out, lo, L, nt, lay), 3)
+    return dict(shapes_ms=shapes, fastest=min(shapes, key=shapes.get))
+
+
 def main():
     dev = cuda_device("cuda")
     print(smi_line(), flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(dev),
-                      **run(dev)}), flush=True)
+                      **run(dev), **sweep(dev)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Kernels B1, B2 and B3 of two checkouts of the port on the same inputs,
-bit for bit, on one CUDA card.
+"""Kernels B1, B2, B3, B4 and T2 of two checkouts of the port on the same
+inputs, bit for bit, on one CUDA card.
 
 A redesign that keeps every coefficient's expression (the same terms,
 summed in the same order, with no FMA) must give the bits of the build it
@@ -22,17 +22,37 @@ jets of B2, B3 jets of mascon-512 and mascon-32 at 1,024 lanes and of a
 tape with parameters, a time column, div, sqrt and two exponents, and
 mascon-32's slice end to end (``taylor_adaptive_batch`` on the rolled
 route: 1,024 bound lanes over two orbits, its final states and times, and
-its lane-steps/s).  ``compare`` prints one JSON line with, for every
-output, whether the two dumps are equal bit for bit (NaN where both are
-NaN) and their largest difference, and both dumps' lane-steps/s; it exits
-1 unless every output is equal.  The script imports only torch, numpy and
-the port's public modules, so it runs against any checkout since the
-port's first huge-tape slice.
+its lane-steps/s).  Then kernel B4 (``jet_phase.phase``) on every tape of
+``cases.phase_cases`` at order 19 and 1,024 lanes, from lo = 1 and from
+lo = 9, and on 10,240 pendulum lanes; the pendulum slice end to end
+(``taylor_adaptive_batch`` on the phase route: 10,240 librating lanes over
+10 time units, its final states and times, and its lane-steps/s); and
+kernel T2 (``proto_phase.phase_f32``) on the outer-Solar-System tape from
+lo = 9 at 10,240 lanes; with the times (a CUDA graph's replay) of B4 on
+the pendulum lanes and of T2 and B4 from lo = 9 on the outer-SS lanes,
+the rows of PERF.md's kernel table.  ``compare`` prints one JSON line
+with, for every output, whether the two dumps are equal bit for bit (NaN
+where both are NaN) and their largest difference, and both dumps' times
+and lane-steps/s; it exits 1 unless every output is equal.
+
+    PYTHONPATH=<checkout> python3 heyoka_tpu_torch/tools/same_bits.py \\
+        slice <tag>
+
+runs the pendulum slice alone and times kernel B4's wrapper on the host
+(:func:`slice_run`), one JSON line: alternate it between two checkouts
+to compare their end-to-end rates.
+
+The script imports only torch, numpy, the port's public modules and
+``cases.py`` from its own directory (the phase tapes and lanes, loaded by
+path, so that both dumps get the same inputs), so it runs against any
+checkout since the port's B4 and T2 slices.
 """
 
+import importlib.util
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -145,6 +165,7 @@ def dump(path):
         torch.as_tensor(rng.uniform(0.5, 1.5, (2, B)), **f64),
         torch.as_tensor(rng.uniform(0.0, 2.0, B), **f64))
     timing = {"e2e_mascon32": _slice(ht, out, B)}
+    timing["e2e_pendulum"] = _phase(ht, out, dev)
     torch.cuda.synchronize()
     dumped = {k: [x.cpu() for x in v] for k, v in out.items()}
     torch.save(dict(dumped, _timing=timing), path)
@@ -178,6 +199,144 @@ def _slice(ht, out, B):
                 lane_steps=steps, steps_per_s=steps / wall)
 
 
+def _cases():
+    """``cases.py`` beside this script, loaded by its path: the phase tapes
+    and lanes, the same whichever checkout ``PYTHONPATH`` names (an older
+    one may lack the module)."""
+    spec = importlib.util.spec_from_file_location(
+        "_same_bits_cases", Path(__file__).with_name("cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _seeded(tape, st, pars, t, dev):
+    """The ``(K+1, W, B)`` buffer of kernel B4 with order 0 of every
+    column and the virtual columns seeded, from numpy lanes."""
+    from heyoka_tpu_torch.taylor import jet_kernels as jk
+    from heyoka_tpu_torch.taylor import jet_phase as jp
+
+    f = dict(dtype=torch.float64, device=dev)
+    tc = jk._seed_plain(tape, torch.as_tensor(st.T.copy(), **f),
+                        torch.as_tensor(pars.T.copy(), **f),
+                        torch.as_tensor(t, **f))
+    jp.order0(tape, tc)
+    return tc
+
+
+def _phase(ht, out, dev):
+    """Kernels B4 and T2 into ``out``; returns the pendulum slice's route
+    and lane-steps/s."""
+    from heyoka_tpu_torch.taylor import jet_phase as jp
+    from heyoka_tpu_torch.taylor.compact import build_plan
+    from heyoka_tpu_torch.tools import IC, proto_phase as pp
+
+    cs = _cases()
+
+    def tape(sys_):
+        return jp.PhaseTape(ht.plan_to_arrays(build_plan(
+            ht.taylor_decompose_sys(sys_), 19)), dev)
+
+    for i, (name, (sys_, st0, pars)) in enumerate(
+            cs.phase_cases(ht).items()):
+        t = tape(sys_)
+        tc0 = _seeded(t, *cs.phase_lanes(st0, pars, 1024, 100 + i), dev)
+        tc1 = jp.phase(t, tc0.clone(), 1)
+        tc9 = tc1.clone()
+        tc9[9:, :t.n_eq + t.arrays["arg_ptr"].size - 1] = float("nan")
+        out[f"b4_{name}"] = [tc1, jp.phase(t, tc9, 9)]
+    B = 10_240
+    st = cs.pendulum_lanes(B, 21)
+    t = tape(ht.models.pendulum())
+    tc = _seeded(t, st, np.zeros((B, 0)), np.zeros(B), dev)
+    out["b4_pendulum_10240"] = [jp.phase(t, tc.clone(), 1)]
+    timing = {"b4_pendulum_10240_ms": _graph_ms(lambda: jp.phase(t, tc, 1))}
+    plan = pp.outer_ss_plan()
+    arrays = ht.plan_to_arrays(plan)
+    t2, t64 = pp.ProtoTape(arrays, dev), jp.PhaseTape(arrays, dev)
+    tc = pp.realistic_buffer(plan, IC, B, 9, dev, 3).permute(
+        1, 0, 2).contiguous()
+    out["t2_outer_ss_lo9"] = [pp.phase_f32(t2, tc.clone(), 9)]
+    tc64 = tc.double()
+    timing["t2_outer_ss_lo9_ms"] = _graph_ms(lambda: pp.phase_f32(t2, tc, 9))
+    timing["b4_outer_ss_lo9_ms"] = _graph_ms(lambda: jp.phase(t64, tc64, 9))
+    res = _pendulum_slice(ht, cs, out)
+    return dict(res, **timing)
+
+
+def _pendulum_slice(ht, cs, out=None):
+    """The pendulum slice on the card: 10,240 librating lanes over 10 time
+    units through ``taylor_adaptive_batch`` after a warm-up; stores the
+    final states and times in ``out`` and returns the route and its
+    lane-steps/s."""
+    st = cs.pendulum_lanes(10_240, 21)
+    kw = dict(tol=1e-15, high_accuracy=True, device="cuda")
+    ht.taylor_adaptive_batch(ht.models.pendulum(), st[:8],
+                             **kw).propagate_until(1.0)
+    ta = ht.taylor_adaptive_batch(ht.models.pendulum(), st, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nsteps = ta.propagate_until(10.0)[3]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if out is not None:
+        out["e2e_pendulum"] = [torch.as_tensor(np.asarray(ta.state)),
+                               torch.as_tensor(np.asarray(ta.time))]
+    steps = int(np.asarray(nsteps).sum())
+    return dict(jet=ta.engine_report()["jet"], wall_s=wall,
+                lane_steps=steps, steps_per_s=steps / wall)
+
+
+def slice_run(tag):
+    """One run of the pendulum slice (:func:`_pendulum_slice`) and the host
+    time of one call of kernel B4's wrapper (``jet_phase.phase`` on 10,240
+    pendulum lanes from lo = 1: 500 calls timed on the host's clock before
+    the sync, too few to fill the launch queue); prints one JSON line."""
+    import heyoka_tpu_torch as ht
+    from heyoka_tpu_torch.taylor import jet_phase as jp
+    from heyoka_tpu_torch.taylor.compact import build_plan
+
+    dev = torch.device("cuda")
+    cs = _cases()
+    B = 10_240
+    t = jp.PhaseTape(ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(ht.models.pendulum()), 19)), dev)
+    tc = _seeded(t, cs.pendulum_lanes(B, 21), np.zeros((B, 0)),
+                 np.zeros(B), dev)
+    for _ in range(20):
+        jp.phase(t, tc, 1)
+    torch.cuda.synchronize()
+    n = 500
+    t0 = time.perf_counter()
+    for _ in range(n):
+        jp.phase(t, tc, 1)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    print(json.dumps(dict(tag=tag, wrapper_host_us=host_us,
+                          **_pendulum_slice(ht, cs))))
+
+
+def _graph_ms(fn, reps=10):
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs replayed
+    from one CUDA graph (``heyoka_tpu_torch.tools.graph_ms``, which older
+    checkouts lack)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _same(a, b):
     if a.dtype.is_floating_point:
         nan = torch.isnan(a) & torch.isnan(b)
@@ -207,6 +366,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise SystemExit("same_bits: no CUDA device")
         dump(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "slice":
+        if not torch.cuda.is_available():
+            raise SystemExit("same_bits: no CUDA device")
+        slice_run(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "compare":
         sys.exit(0 if compare(sys.argv[2], sys.argv[3]) else 1)
     else:

@@ -434,6 +434,62 @@ def test_phase_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pendulum", "kepFDE", "hyper"])
+def test_phase_kernel_every_shape_equals_the_default(cuda, name):
+    # kernel B4 at every block shape and layout it takes, forced, from
+    # lo = 1 and lo = 9, on a lane count that no shape divides: each item
+    # keeps its expression and term order, so the bits do not move
+    B, K = 203, 15
+    tape = _phase_tape(name, K, cuda)
+    st0, pars = PHASE_CASES[name][1:]
+    tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, B, 7), cuda)
+    ref = jp.phase(tape, tc0.clone(), 1)
+    tc9 = ref.clone()
+    tc9[9:, :int(tape.lvl[-1])] = float("nan")
+    for lay, L, nt in jp.sweep_shapes(tape, 8):
+        for lo, src in ((1, tc0), (9, tc9)):
+            got = jp._phase_cuda(tape, src.clone(), lo, L, nt, lay)
+            assert torch.equal(got, ref), (lay, L, nt, lo)
+
+
+@pytest.mark.gpu
+def test_proto_phase_every_shape_equals_the_default(cuda):
+    # kernel T2 likewise, on the outer-SS tape at order 12 from lo = 5
+    plan, lo = pp.outer_ss_plan(12), 5
+    tape = pp.ProtoTape(ht.plan_to_arrays(plan), cuda)
+    tc = pp.realistic_buffer(plan, pp.IC, 37, lo, cuda).permute(
+        1, 0, 2).contiguous()
+    ref = pp.phase_f32(tape, tc.clone(), lo)
+    for lay, L, nt in jp.sweep_shapes(tape, 4, pp.SWEEP_LANES):
+        got = pp._phase_f32_cuda(tape, tc.clone(), lo, L, nt, lay)
+        assert torch.equal(got, ref), (lay, L, nt)
+
+
+@pytest.mark.gpu
+def test_phase_stage_keeps_the_rows_it_does_not_write(cuda):
+    # the staging alone copies the rows in and back: orders below lo and
+    # the virtual columns come back as they were, not counted as a launch;
+    # a tape on the global layout stages nothing and is refused
+    B, K, lo = 203, 15, 5
+    tape = _phase_tape("par_time", K, cuda)
+    st0, pars = PHASE_CASES["par_time"][1:]
+    tc = jp.phase(tape, seeded_buffer(tape, *phase_lanes(st0, pars, B, 3),
+                                      cuda), 1)
+    ref, n0 = tc.clone(), jk.LAUNCHES["phase"]
+    assert jp.block_shape(tape, B, 8).layout == "smem"
+    jp.stage(tape, tc, lo)
+    torch.cuda.synchronize()
+    n_w = int(tape.lvl[-1])
+    assert torch.equal(tc[:lo], ref[:lo])
+    assert torch.equal(tc[:, n_w:], ref[:, n_w:])
+    assert jk.LAUNCHES["phase"] == n0
+    ss = jp.PhaseTape(ht.plan_to_arrays(pp.outer_ss_plan(19)), cuda)
+    with pytest.raises(ValueError):
+        jp.stage(ss, torch.zeros((20, ss.width, B), dtype=torch.float64,
+                                 device=cuda), lo)
+
+
+@pytest.mark.gpu
 def test_phase_rejects_bad_inputs(cuda):
     tape = _phase_tape("pendulum", 8, cuda)
     tc = seeded_buffer(tape, pendulum_lanes(4, 0), np.zeros((4, 0)),
