@@ -85,9 +85,15 @@ if anything is missing or any check fails.  Phases, one line each:
     about as long as its launch from Python);
 13. the convolution microbenchmark (kernel T1, ``tools.microbench_conv.
     run``): ``hy_conv_f32`` and ``hy_conv_dd`` at K = 20, N = 204,800
-    against their plain versions (f32 to 1e-6, two-f32 ``hi + lo`` to
-    1e-12, relative to max(1, |c|)) and the f64 reference, their times and
-    the grouped ``conv1d`` (cuDNN's TF32 off) beside the f32 kernel;
+    against their plain versions (bit for bit) and the f64 reference,
+    their times (replayed from a CUDA graph, and from back-to-back
+    launches beside) and the grouped ``conv1d`` (cuDNN's TF32 off) beside
+    the f32 kernel, ``hy_conv_dd_direct`` (the ring's yardstick: the same
+    lane body over plain loads) beside T1-dd; then ``hy_conv_dd`` and the
+    yardstick at every tile (``tools.microbench_conv.sweep``), each equal
+    to the rule's launch bit for bit, with its time, shared memory and
+    blocks an SM, the ring's per-tile clock trace, and T1-dd beside its
+    parent's time and the predictions;
 14. the f32 phase prototype (kernel T2, ``tools.proto_phase.run``):
     ``hy_proto_phase_f32`` on the outer-Solar-System tape, orders 9..19 at
     10,240 lanes, against its plain body (1e-5 of each order's largest
@@ -148,6 +154,16 @@ JACOBI_MAX = 1e-12
 SWEEP_N = (32, 128, 256)
 MID_N = 32  # phase 8's mid-width tape
 
+#: kernel T1-dd before the ring (one thread a lane, its loads then its
+#: arithmetic) replayed from a CUDA graph: the lower quartile, median and
+#: upper quartile of its medians in ten alternating processes of
+#: ``tools/same_bits.py t1``, and the ring's predictions, made before any
+#: version of it ran, before its TMA version ran and before its one-stage
+#: version ran (PERF.md, the T1 findings)
+T1_DD_PARENT_MS = (0.06122, 0.06150, 0.06154)
+T1_DD_PREDICTED_MS = {"first": (0.035, 0.045), "TMA ring": (0.050, 0.056),
+                      "one stage": (0.057, 0.060)}
+
 PHASE_B = 1024
 PHASE_LO = 9  # the JAX route's split at mp_order = 8
 PEND_B = 10_240
@@ -172,7 +188,7 @@ REPLACES = {"hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
 #: another
 PTXAS_NAMES = ("jet_rolled_kernel", "jet_kernel", "prop_kernel",
                "proto_phase_kernel", "phase_kernel", "conv_f32_kernel",
-               "conv_dd_kernel")
+               "conv_dd_ring", "conv_dd_direct")
 #: block shapes of B1/B2 with the jets in shared memory timed in phase 6
 SWEEP_LANES = (1, 2, 3)
 SWEEP_THREADS = (128, 256)
@@ -181,8 +197,11 @@ SWEEP_THREADS = (128, 256)
 def ptxas_name(line):
     """A kernel's name in a ptxas line, with its template arguments
     (``jet_kernel<3,smem>``, ``phase_kernel<global>``, the staging alone
-    ``phase_kernel<smem,stage>``) where it has them."""
+    ``phase_kernel<smem,stage>``, T1-dd's trace instance
+    ``conv_dd_ring<trace>``) where it has them."""
     fn = next(w for w in PTXAS_NAMES if w in line)
+    if fn == "conv_dd_ring":
+        return fn + ("<trace>" if fn + "ILb1E" in line else "")
     m = re.search(fn + r"ILi(\d+)ELb([01])E", line)
     if m:
         fn += f"<{m.group(1)},{'smem' if m.group(2) == '1' else 'global'}>"
@@ -1020,23 +1039,50 @@ def tool_row(name, n, res):
 
 def conv_tool(dev, smi):
     """Phase 13, the convolution microbenchmark: the tool's ``run`` (both
-    kernels checked against their plain versions, else it raises), then
-    each kernel's error against f64: f32 over 20-term sums within 1e-5,
-    two-f32 within 1e-12 (relative to max(1, |c|)).  Returns the kernels'
-    rows."""
+    kernels checked against their plain versions, else it raises; its
+    ``launches``, those of its first call, outside the CUDA graphs it
+    times with), each kernel equal to its plain version bit for bit and
+    within its bound of f64 (f32 over 20-term sums 1e-5, two-f32 1e-12,
+    relative to max(1, |c|)), then the tool's ``sweep`` (T1-dd and its
+    yardstick at every tile, each equal to the rule's launch bit for bit,
+    with the blocks an SM the runtime holds, at least the rule's count), the
+    ring's clock trace (``trace``: per tile, waiting, reading, arithmetic)
+    and T1-dd beside its parent and the predictions (PERF.md).
+    Returns the kernels' rows: ``ms`` replayed from a CUDA graph,
+    ``cuda_ms`` from back-to-back launches beside it."""
     for k in jk.LAUNCHES:
         jk.LAUNCHES[k] = 0
     res = microbench_conv.run(dev)
-    launches = dict(jk.LAUNCHES)
+    launches = res["launches"]
     check(launches["conv_f32"] > 0 and launches["conv_dd"] > 0,
           f"T1: kernels launched {launches}")
+    check(res["f32"]["same_bits_as_plain"] and res["dd"]["same_bits_as_plain"],
+          "T1: a kernel differs from its plain version")
     check(res["f32"]["rel_err_vs_f64"] <= 1e-5
           and res["dd"]["rel_err_vs_f64"] <= 1e-12,
           f"T1 vs f64: {res['f32']['rel_err_vs_f64']}, "
           f"{res['dd']['rel_err_vs_f64']}")
-    say(13, nvidia_smi=smi, launches=launches, **res)
-    return [tool_row("hy_conv_f32", launches["conv_f32"], res["f32"]),
-            tool_row("hy_conv_dd", launches["conv_dd"], res["dd"])]
+    sweep = microbench_conv.sweep(dev)
+    for key, sh in sweep["tiles"].items():
+        check(sh["occupancy"] >= sh["blocks_per_sm"],
+              f"T1-dd at tile {key}: the runtime holds {sh['occupancy']} blocks "
+              f"an SM, the rule counts {sh['blocks_per_sm']}")
+    dd_ms = res["dd"]["ms"]
+    say(13, nvidia_smi=smi, **res, dd_sweep=sweep,
+        dd_trace=microbench_conv.trace(dev), dd_vs_parent=dict(
+        ms=dd_ms, parent_ms=T1_DD_PARENT_MS, bound_ms=res["dd"]["bound_ms"],
+        x_bound=dd_ms / res["dd"]["bound_ms"], predictions={
+            k: dict(ms=[lo, hi], hit=lo <= dd_ms <= hi)
+            for k, (lo, hi) in T1_DD_PREDICTED_MS.items()}))
+    rows = []
+    for name, which in (("hy_conv_f32", "f32"), ("hy_conv_dd", "dd")):
+        row = tool_row(name, launches[f"conv_{which}"], res[which])
+        row[3].update(timer=res["timer"], cuda_ms=res[which]["cuda_ms"])
+        if which == "dd":
+            row[3].update(shape=res["dd_shape"],
+                          direct_ms=res["dd_direct_ms"])
+        rows.append(row)
+    return rows
 
 
 def proto_tool(dev, smi):

@@ -56,8 +56,14 @@ SIGNATURES = {
     "hy_phase_stage_f64": (_P,) * 3 + (_I,) * 7 + (_P,),
     # a, b, c, N, K, stream
     "hy_conv_f32": (_P,) * 3 + (_I, _I, _P),
-    # ahi, alo, bhi, blo, chi, clo, N, K, stream
-    "hy_conv_dd": (_P,) * 6 + (_I, _I, _P),
+    # ahi, alo, bhi, blo, chi, clo, N, K, tile, blocks, stream
+    "hy_conv_dd": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # the same with the trace before the stream
+    "hy_conv_dd_trace": (_P,) * 6 + (_I,) * 4 + (_P, _P),
+    # the arguments of hy_conv_dd
+    "hy_conv_dd_direct": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # tile
+    "hy_conv_dd_occupancy": (_I,),
     # the arguments of hy_phase_f64
     "hy_proto_phase_f32": (_P,) * 4 + (_I,) * 8 + (_P,),
 }

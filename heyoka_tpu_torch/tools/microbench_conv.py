@@ -15,22 +15,31 @@ at the tool's shapes (K = 20, N = M B = 20 x 10,240 = 204,800).
   torch;
 - :func:`conv_f64`: the f64 accuracy reference (the tool's host-side numpy
   loop, :122-125), in torch f64 on the inputs' device;
-- :func:`run`: the tool's ``main`` on the card.
+- :func:`conv_shape`: the launch of T1-dd's persistent ring (lanes a
+  tile, blocks), pure Python; :func:`conv_dd_direct`: the ring's
+  yardstick, the same lane body over plain loads;
+- :func:`run`: the tool's ``main`` on the card; :func:`sweep`: T1-dd and
+  its yardstick at every tile; :func:`trace`: where T1-dd's time goes,
+  per tile, from the kernel's clock readings.
 
-``python -m heyoka_tpu_torch.tools.microbench_conv`` runs :func:`run` on
-the card and prints its result as one JSON line; it fails without a card.
+``python -m heyoka_tpu_torch.tools.microbench_conv`` runs all three on
+the card and prints the result as one JSON line; it fails without a card.
 """
 
 from __future__ import annotations
 
 import json
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..taylor.jet_kernels import LAUNCHES, _check, _ptr
-from . import cuda_device, cuda_ms, smi_line
+from ..taylor.jet_kernels import (
+    BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, _check, _ptr,
+)
+from ..taylor.jet_phase import SM_BLOCKS, SMS, _sms
+from . import cuda_device, cuda_ms, graph_ms, smi_line
 from .roofline import bound, nbytes
 
 K = 20
@@ -50,6 +59,19 @@ DD_RTOL = 1e-12
 
 _F32 = torch.float32
 
+#: kernel T1-dd's ring (csrc/conv_microbench.cu ``conv_dd_ring``): the
+#: lanes a tile the rule chooses among (one thread a lane, whole warps),
+#: and the source's limits (``kMaxThreads`` threads a block, ``kMaxRegs``
+#: registers a thread, ptxas's most, which a lane's 160 inputs and splits
+#: take; ``kBarBytes`` of mbarrier and read count before the stage)
+TILES = (32, 64, 128)
+MAX_THREADS, MAX_REGS, BAR_BYTES = 128, 255, 128
+#: the ring's inputs: ahi, alo, bhi, blo
+DD_IN = 4
+#: tiles a block records in the ring's trace (csrc ``kTraceTiles``)
+TRACE_TILES = 8
+#: registers an SM holds
+SM_REGS = 65_536
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -127,6 +149,59 @@ def conv_library(a, b):
 
 
 # ---------------------------------------------------------------------------
+# the ring's shape
+# ---------------------------------------------------------------------------
+
+class ConvShape(NamedTuple):
+    """A launch of kernel T1-dd: ``tile`` lanes a tile (one thread each),
+    the block's dynamic shared memory ``smem`` (bytes), the
+    ``blocks_per_sm`` the launch counts on and its persistent ``blocks``."""
+    tile: int
+    smem: int
+    blocks_per_sm: int
+    blocks: int
+
+
+def ring_smem(tile: int) -> int:
+    """Dynamic shared memory of a block: the ring's bookkeeping, then one
+    tile of the four inputs' K rows."""
+    return BAR_BYTES + DD_IN * K * tile * 4
+
+
+def ring_blocks_per_sm(tile: int) -> int:
+    """Blocks an SM holds as far as shared memory, threads and registers
+    (:data:`MAX_REGS` a thread) limit them."""
+    regs = -(-MAX_REGS // 8) * 8  # a thread's registers, in units of 8
+    return min(SM_SMEM // (ring_smem(tile) + BLOCK_RESERVED),
+               SM_THREADS // tile, SM_REGS // (regs * tile), SM_BLOCKS)
+
+
+def conv_shape(n: int, tile=None, sms: int = SMS) -> ConvShape:
+    """The launch of kernel T1-dd on ``n`` lanes: as many blocks as the
+    ``sms`` SMs hold, or one a tile where there are fewer tiles; ``tile``
+    as given, else the one of :data:`TILES` whose busiest SM processes the
+    fewest lanes (its blocks, up to what it holds, each taking its share of
+    the tiles in turn), the largest on a tie."""
+    if n < 1:
+        raise ValueError(f"kernel T1-dd takes 1 lane or more, not {n}")
+
+    def launch(T):
+        per_sm = ring_blocks_per_sm(T)
+        tiles = -(-n // T)
+        blocks = min(tiles, per_sm * sms)
+        busiest = min(per_sm, -(-blocks // sms)) * -(-tiles // blocks) * T
+        return busiest, ConvShape(T, ring_smem(T), per_sm, blocks)
+
+    if tile is not None:
+        if int(tile) not in TILES:
+            raise ValueError(f"kernel T1-dd takes tiles of {TILES} lanes, "
+                             f"not {tile}")
+        return launch(int(tile))[1]
+    return min((launch(T) for T in TILES),
+               key=lambda c: (c[0], -c[1].tile))[1]
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -171,21 +246,61 @@ def conv_f32(a, b):
 def conv_dd(ahi, alo, bhi, blo):
     """The two-f32 convolution of ``(ahi, alo), (bhi, blo)`` (each ``(K,
     N)`` f32) -> ``(chi, clo)``.  A CPU tensor runs :func:`conv_dd_plain`;
-    a CUDA tensor launches ``hy_conv_dd``."""
+    a CUDA tensor launches ``hy_conv_dd`` at :func:`conv_shape`'s
+    launch."""
     dev = _device(ahi)
     if dev.type == "cpu":
         return conv_dd_plain(ahi, alo, bhi, blo)
-    n = _checked(("ahi", "alo", "bhi", "blo"), (ahi, alo, bhi, blo), dev)
-    chi, clo = torch.empty_like(ahi), torch.empty_like(ahi)
+    return _conv_dd_cuda(ahi, alo, bhi, blo)
+
+
+def _conv_dd_cuda(ahi, alo, bhi, blo, tile=None, trace=None):
+    """``hy_conv_dd`` on CUDA tensors at :func:`conv_shape`'s launch for
+    the given ``tile`` (None: the rule's); with ``trace``, a zeroed int64
+    tensor of ``(blocks, TRACE_TILES, 4)``, ``hy_conv_dd_trace``, which
+    also writes the kernel's clock readings there (:func:`trace`)."""
+    if trace is None:
+        out = _launch_dd("hy_conv_dd", (ahi, alo, bhi, blo), tile)
+    else:
+        out = _launch_dd("hy_conv_dd_trace", (ahi, alo, bhi, blo), tile,
+                         _ptr(trace))
+    LAUNCHES["conv_dd"] += 1
+    return out
+
+
+def conv_dd_direct(ahi, alo, bhi, blo, tile=None):
+    """The ring's yardstick on CUDA tensors: ``hy_conv_dd_direct``, the
+    ring's lane body in the same persistent loop at the same launch, each
+    lane's inputs loaded straight from global memory (no shared memory,
+    no copies in flight).  Not on the tool's path: a comparison only.  A
+    CPU tensor runs :func:`conv_dd_plain`."""
+    if _device(ahi).type == "cpu":
+        return conv_dd_plain(ahi, alo, bhi, blo)
+    return _launch_dd("hy_conv_dd_direct", (ahi, alo, bhi, blo), tile)
+
+
+def _launch_dd(entry, xs, tile, *extra):
+    dev = _device(*xs)
+    n = _checked(("ahi", "alo", "bhi", "blo"), xs, dev)
+    chi, clo = torch.empty_like(xs[0]), torch.empty_like(xs[0])
     if n == 0:
         return chi, clo
-    rc = _build.load().hy_conv_dd(
-        _ptr(ahi), _ptr(alo), _ptr(bhi), _ptr(blo), _ptr(chi), _ptr(clo),
-        n, K, torch.cuda.current_stream(dev).cuda_stream)
+    sh = conv_shape(n, tile, _sms(dev))
+    rc = getattr(_build.load(), entry)(
+        *(_ptr(x) for x in xs), _ptr(chi), _ptr(clo), n, K, sh.tile,
+        sh.blocks, *extra, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"hy_conv_dd launch failed: CUDA error {rc}")
-    LAUNCHES["conv_dd"] += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return chi, clo
+
+
+def occupancy(tile: int) -> int:
+    """Blocks of kernel T1-dd an SM holds at ``tile`` lanes as the CUDA
+    runtime counts them (registers included); on the card."""
+    got = _build.load().hy_conv_dd_occupancy(tile)
+    if got < 0:
+        raise RuntimeError(f"hy_conv_dd_occupancy failed: CUDA error {-got}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +338,18 @@ def flops(n: int = N) -> dict:
 
 
 def run(device="cuda", n: int = N) -> dict:
-    """The tool's ``main`` on the card: both kernels on the seeded inputs,
-    each checked against its plain version (:data:`F32_RTOL`,
-    :data:`DD_RTOL`, else RuntimeError) and against the f64 reference;
-    times (CUDA events) in the order plain, kernel, kernel, plain, with the
-    grouped ``conv1d`` beside the f32 kernel (cuDNN's TF32 off); bounds."""
+    """The tool's ``main`` on the card: both kernels on the seeded inputs
+    (``launches``: the wrappers' launches of this first call, outside any
+    CUDA graph), each checked against its plain version (:data:`F32_RTOL`,
+    :data:`DD_RTOL`, else RuntimeError; ``same_bits_as_plain``) and
+    against the f64 reference;
+    times in the order plain, kernel, yardstick, yardstick, kernel, plain,
+    the yardstick being the grouped ``conv1d`` for the f32 kernel (cuDNN's
+    TF32 off) and :func:`conv_dd_direct` for T1-dd: ``ms``,
+    ``dd_direct_ms`` and ``library_ms`` replayed from a CUDA graph
+    (``graph_ms``: a kernel of a few tens of microseconds takes about as
+    long as its launch from Python), ``cuda_ms`` and ``library_cuda_ms`` from CUDA events around
+    back-to-back launches (the timer of the rows before); bounds."""
     dev = cuda_device(device)
     a64, b64, dd_np = inputs(n)
     a64_t, b64_t = (torch.as_tensor(x, device=dev) for x in (a64, b64))
@@ -235,8 +357,10 @@ def run(device="cuda", n: int = N) -> dict:
     dd = tuple(torch.as_tensor(x, device=dev) for x in dd_np)
     c64 = conv_f64(a64_t, b64_t)
 
+    before = dict(LAUNCHES)
     c32 = conv_f32(a32, b32)
     chi, clo = conv_dd(*dd)
+    launches = {k: LAUNCHES[k] - before[k] for k in ("conv_f32", "conv_dd")}
     torch.cuda.synchronize()
     p32 = conv_f32_plain(a32, b32)
     phi, plo = conv_dd_plain(*dd)
@@ -246,6 +370,8 @@ def run(device="cuda", n: int = N) -> dict:
         raise RuntimeError(f"hy_conv_f32 vs conv_f32_plain: {f32_vs_plain}")
     if not (bool(torch.isfinite(cdd).all()) and dd_vs_plain <= DD_RTOL):
         raise RuntimeError(f"hy_conv_dd vs conv_dd_plain: {dd_vs_plain}")
+    same = {"f32": torch.equal(c32, p32),
+            "dd": torch.equal(chi, phi) and torch.equal(clo, plo)}
 
     lib = conv_library(a32, b32)
     tf32 = torch.backends.cudnn.allow_tf32
@@ -256,43 +382,112 @@ def run(device="cuda", n: int = N) -> dict:
                         "kernel": lambda: conv_f32(a32, b32),
                         "library": lib},
                 "dd": {"plain": lambda: conv_dd_plain(*dd),
-                       "kernel": lambda: conv_dd(*dd)}}
-        reps = {"plain": 2, "kernel": 20, "library": 20}
+                       "kernel": lambda: conv_dd(*dd),
+                       "direct": lambda: conv_dd_direct(*dd)}}
         order = {"f32": ("plain", "kernel", "library", "library", "kernel",
                          "plain"),
-                 "dd": ("plain", "kernel", "kernel", "plain")}
+                 "dd": ("plain", "kernel", "direct", "direct", "kernel",
+                        "plain")}
         t = {}
         for which, fns in runs.items():
             t[which] = {name: [] for name in fns}
+            t[which].update({f"{name}_cuda": [] for name in fns
+                             if name != "plain"})
             for name in order[which]:
-                t[which][name].append(cuda_ms(fns[name], reps[name]))
+                if name == "plain":
+                    t[which][name].append(cuda_ms(fns[name], 2))
+                else:
+                    t[which][name].append(graph_ms(fns[name], 20))
+                    t[which][f"{name}_cuda"].append(cuda_ms(fns[name], 20))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
     fl = flops(n)
-    out = dict(K=K, N=n, cudnn_allow_tf32=False,
-               library_max_rel_vs_kernel=lib_rel)
+    out = dict(K=K, N=n, cudnn_allow_tf32=False, timer="graph_ms",
+               launches=launches, library_max_rel_vs_kernel=lib_rel,
+               dd_shape=conv_shape(n, sms=_sms(dev))._asdict(),
+               dd_direct_ms=sum(t["dd"]["direct"]) / 2)
     for which, c, p, err_plain, io in (
             ("f32", c32, p32, f32_vs_plain, (a32, b32, c32)),
             ("dd", cdd, pdd, dd_vs_plain, (*dd, chi, clo))):
         tw = t[which]
         ms = sum(tw["kernel"]) / 2
+        lib_t = "library" in tw
         out[which] = dict(
-            ms=ms, plain_ms=sum(tw["plain"]) / 2,
-            library_ms=sum(tw["library"]) / 2 if "library" in tw else None,
+            ms=ms, cuda_ms=sum(tw["kernel_cuda"]) / 2,
+            plain_ms=sum(tw["plain"]) / 2,
+            library_ms=sum(tw["library"]) / 2 if lib_t else None,
+            library_cuda_ms=sum(tw["library_cuda"]) / 2 if lib_t else None,
             runs_ms=tw, rel_err_vs_f64=rel_err(c, c64),
-            max_rel_vs_plain=err_plain,
+            max_rel_vs_plain=err_plain, same_bits_as_plain=same[which],
             max_abs_err=float((c.double() - p.double()).abs().max()),
             gmacs_per_s=K * (K + 1) / 2 * n / ms / 1e6,
             **bound(fl[which], nbytes(*io), _F32))
     return out
 
 
+def sweep(device="cuda", n: int = N) -> dict:
+    """Kernel T1-dd and its yardstick :func:`conv_dd_direct` on
+    :func:`run`'s inputs at every tile of :data:`TILES`, forced (each equal
+    to the rule's launch bit for bit, else RuntimeError), with their times
+    (a CUDA graph's replay), the ring's dynamic shared memory, the blocks
+    an SM the rule counts and the CUDA runtime's count (registers
+    included), and the fastest."""
+    dev = cuda_device(device)
+    dd = [torch.as_tensor(x, device=dev) for x in inputs(n)[2]]
+    ref = conv_dd(*dd)
+    tiles = {}
+    for T in TILES:
+        for name, fn in (("ring", _conv_dd_cuda), ("direct", conv_dd_direct)):
+            got = fn(*dd, T)
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                raise RuntimeError(f"hy_conv_dd ({name}) at tile {T} "
+                                   f"differs from the rule's launch")
+        sh = conv_shape(n, T, _sms(dev))
+        tiles[T] = dict(
+            ms=graph_ms(lambda: _conv_dd_cuda(*dd, T), 20),
+            direct_ms=graph_ms(lambda: conv_dd_direct(*dd, T), 20),
+            smem=sh.smem, blocks_per_sm=sh.blocks_per_sm,
+            occupancy=occupancy(T), blocks=sh.blocks)
+    fastest = min(tiles, key=lambda k: tiles[k]["ms"])
+    return dict(shape=conv_shape(n, sms=_sms(dev))._asdict(),
+                tiles=tiles, fastest=fastest)
+
+
+def trace(device="cuda", n: int = N, tile=None) -> dict:
+    """Where kernel T1-dd's time goes, from the ring's clock readings
+    (thread 0 of each block, the first :data:`TRACE_TILES` tiles, the
+    global timer) on :func:`run`'s inputs at the rule's tile or the one
+    given: per tile in the block's order, the mean microseconds waiting
+    for its data, reading its lane and refilling the stage, and in the
+    arithmetic; and when the blocks end (quantiles, from the first
+    reading)."""
+    dev = cuda_device(device)
+    dd = [torch.as_tensor(x, device=dev) for x in inputs(n)[2]]
+    sh = conv_shape(n, tile, _sms(dev))
+    _conv_dd_cuda(*dd, tile)
+    tr = torch.zeros((sh.blocks, TRACE_TILES, 4), dtype=torch.int64,
+                     device=dev)
+    _conv_dd_cuda(*dd, tile, trace=tr)
+    torch.cuda.synchronize()
+    t = tr.cpu().double()
+    used = t[:, :, 0] > 0
+    t = (t - t[:, 0, 0].min()) / 1e3
+    steps = t.diff(dim=2)  # wait, read, arithmetic
+    mean = [[float(steps[:, i, j][used[:, i]].mean()) if used[:, i].any()
+             else None for i in range(TRACE_TILES)] for j in range(3)]
+    ends = t[:, :, 3].where(used, torch.zeros(())).amax(1)
+    return dict(shape=sh._asdict(), wait_us=mean[0], read_us=mean[1],
+                arithmetic_us=mean[2], end_us={
+                    q: float(ends.quantile(q)) for q in (0.1, 0.5, 0.9, 1.0)})
+
+
 def main():
     dev = cuda_device("cuda")
     print(smi_line(), flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(dev),
-                      **run(dev)}), flush=True)
+                      **run(dev), "dd_sweep": sweep(dev),
+                      "dd_trace": trace(dev)}), flush=True)
 
 
 if __name__ == "__main__":

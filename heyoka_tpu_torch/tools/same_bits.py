@@ -1,4 +1,4 @@
-"""Kernels B1, B2, B3, B4 and T2 of two checkouts of the port on the same
+"""Kernels B1, B2, B3, B4, T1 and T2 of two checkouts of the port on the same
 inputs, bit for bit, on one CUDA card.
 
 A redesign that keeps every coefficient's expression (the same terms,
@@ -28,12 +28,15 @@ lo = 9, and on 10,240 pendulum lanes; the pendulum slice end to end
 (``taylor_adaptive_batch`` on the phase route: 10,240 librating lanes over
 10 time units, its final states and times, and its lane-steps/s); and
 kernel T2 (``proto_phase.phase_f32``) on the outer-Solar-System tape from
-lo = 9 at 10,240 lanes; with the times (a CUDA graph's replay) of B4 on
-the pendulum lanes and of T2 and B4 from lo = 9 on the outer-SS lanes,
-the rows of PERF.md's kernel table.  ``compare`` prints one JSON line
-with, for every output, whether the two dumps are equal bit for bit (NaN
-where both are NaN) and their largest difference, and both dumps' times
-and lane-steps/s; it exits 1 unless every output is equal.
+lo = 9 at 10,240 lanes; kernel T1 (``microbench_conv.conv_f32`` and
+``conv_dd``) on the tool's inputs at N = 204,800 and at a ragged N =
+204,797; with the times (a CUDA graph's replay) of B4 on the pendulum
+lanes, of T2 and B4 from lo = 9 on the outer-SS lanes and of both T1
+kernels at N = 204,800, the rows of PERF.md's kernel table.  ``compare``
+prints one JSON line with, for every output, whether the two dumps are
+equal bit for bit (NaN where both are NaN) and their largest difference,
+and both dumps' times and lane-steps/s; it exits 1 unless every output is
+equal.
 
     PYTHONPATH=<checkout> python3 heyoka_tpu_torch/tools/same_bits.py \\
         slice <tag>
@@ -41,6 +44,14 @@ and lane-steps/s; it exits 1 unless every output is equal.
 runs the pendulum slice alone and times kernel B4's wrapper on the host
 (:func:`slice_run`), one JSON line: alternate it between two checkouts
 to compare their end-to-end rates.
+
+    PYTHONPATH=<checkout> python3 heyoka_tpu_torch/tools/same_bits.py \\
+        t1 <tag>
+
+times kernel T1-dd (``microbench_conv.conv_dd``) on the tool's inputs
+(:func:`t1_run`), and its yardstick ``conv_dd_direct`` where the checkout
+has one, alternately, one JSON line: alternate it between two checkouts to
+compare their T1-dd.
 
 The script imports only torch, numpy, the port's public modules and
 ``cases.py`` from its own directory (the phase tapes and lanes, loaded by
@@ -166,6 +177,7 @@ def dump(path):
         torch.as_tensor(rng.uniform(0.0, 2.0, B), **f64))
     timing = {"e2e_mascon32": _slice(ht, out, B)}
     timing["e2e_pendulum"] = _phase(ht, out, dev)
+    timing.update(_t1(out, dev))
     torch.cuda.synchronize()
     dumped = {k: [x.cpu() for x in v] for k, v in out.items()}
     torch.save(dict(dumped, _timing=timing), path)
@@ -264,6 +276,26 @@ def _phase(ht, out, dev):
     return dict(res, **timing)
 
 
+def _t1(out, dev):
+    """Kernel T1 (``microbench_conv.conv_f32`` and ``conv_dd``) into
+    ``out`` on the tool's seeded inputs at its N = 204,800 and at a ragged
+    N = 204,797 (rows past the first off 16-B alignment); returns both
+    kernels' times at N = 204,800 (a CUDA graph's replay)."""
+    from heyoka_tpu_torch.tools import microbench_conv as mc
+
+    timing = {}
+    for n in (mc.N, mc.N - 3):
+        _, _, dd_np = mc.inputs(n, 0)
+        dd = [torch.as_tensor(x, device=dev) for x in dd_np]
+        a, b = dd[0], dd[2]
+        out[f"t1_f32_{n}"] = [mc.conv_f32(a, b)]
+        out[f"t1_dd_{n}"] = list(mc.conv_dd(*dd))
+        if n == mc.N:
+            timing["t1_f32_ms"] = _graph_ms(lambda: mc.conv_f32(a, b), 20)
+            timing["t1_dd_ms"] = _graph_ms(lambda: mc.conv_dd(*dd), 20)
+    return timing
+
+
 def _pendulum_slice(ht, cs, out=None):
     """The pendulum slice on the card: 10,240 librating lanes over 10 time
     units through ``taylor_adaptive_batch`` after a warm-up; stores the
@@ -316,6 +348,25 @@ def slice_run(tag):
                           **_pendulum_slice(ht, cs))))
 
 
+def t1_run(tag, readings=5):
+    """``readings`` times (each a CUDA graph's replay of 20 calls) of
+    kernel T1-dd at the tool's N = 204,800, seed 0, alternating with its
+    yardstick ``microbench_conv.conv_dd_direct`` where the checkout has
+    it; prints one JSON line."""
+    from heyoka_tpu_torch.tools import microbench_conv as mc
+
+    dev = torch.device("cuda")
+    dd = [torch.as_tensor(x, device=dev) for x in mc.inputs(mc.N, 0)[2]]
+    fns = {"t1_dd_ms": lambda: mc.conv_dd(*dd)}
+    if hasattr(mc, "conv_dd_direct"):
+        fns["t1_dd_direct_ms"] = lambda: mc.conv_dd_direct(*dd)
+    got = {k: [] for k in fns}
+    for _ in range(readings):
+        for k, fn in fns.items():
+            got[k].append(_graph_ms(fn, 20))
+    print(json.dumps(dict(tag=tag, **got)))
+
+
 def _graph_ms(fn, reps=10):
     """Mean device milliseconds of ``fn()`` over ``reps`` runs replayed
     from one CUDA graph (``heyoka_tpu_torch.tools.graph_ms``, which older
@@ -341,7 +392,8 @@ def _same(a, b):
     if a.dtype.is_floating_point:
         nan = torch.isnan(a) & torch.isnan(b)
         a, b = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
-        same = bool((a.view(torch.int64) == b.view(torch.int64)).all())
+        bits = torch.int64 if a.element_size() == 8 else torch.int32
+        same = bool((a.view(bits) == b.view(bits)).all())
         diff = torch.where(a == b, 0.0, (a - b).abs())  # inf == inf
         return same, float(diff.max()) if a.numel() else 0.0
     return bool(torch.equal(a, b)), float((a - b).abs().max())
@@ -370,6 +422,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise SystemExit("same_bits: no CUDA device")
         slice_run(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "t1":
+        if not torch.cuda.is_available():
+            raise SystemExit("same_bits: no CUDA device")
+        t1_run(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "compare":
         sys.exit(0 if compare(sys.argv[2], sys.argv[3]) else 1)
     else:

@@ -550,6 +550,59 @@ def test_conv_kernels_match_plain(cuda, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 300, mc.N - 3, mc.N])
+def test_conv_dd_ring_tiles_match_plain(cuda, n):
+    # kernel T1-dd and its yardstick at every forced tile, bit for bit
+    # equal to conv_dd_plain: the same terms in the same order without FMA;
+    # N = 1 and 300 fit one block, N - 3 takes the 4-B copies (rows off
+    # 16-B alignment), N the bulk ones
+    dd = [torch.as_tensor(x, device=cuda) for x in mc.inputs(n, seed=5)[2]]
+    phi, plo = mc.conv_dd_plain(*dd)
+    for T in mc.TILES:
+        for fn in (mc._conv_dd_cuda, mc.conv_dd_direct):
+            hi, lo = fn(*dd, T)
+            assert torch.equal(hi, phi) and torch.equal(lo, plo), (T, fn)
+
+
+@pytest.mark.gpu
+def test_conv_dd_ring_off_16_bytes(cuda):
+    # inputs 4 B past a 16-B boundary at the tool's N: the 4-B copies
+    dd = []
+    for x in mc.inputs(mc.N, seed=6)[2]:
+        buf = torch.empty(x.size + 1, device=cuda)
+        t = buf[1:].view(x.shape)
+        t.copy_(torch.as_tensor(x))
+        dd.append(t)
+    assert dd[0].data_ptr() % 16 == 4
+    hi, lo = mc.conv_dd(*dd)
+    phi, plo = mc.conv_dd_plain(*dd)
+    assert torch.equal(hi, phi) and torch.equal(lo, plo)
+
+
+@pytest.mark.gpu
+def test_conv_dd_ring_trace(cuda):
+    # the trace instance leaves the bits alone and its clock readings come
+    # in order: before the wait, data in, lane read, arithmetic done, for
+    # each tile a block took (two tiles a block here, zeros after)
+    n = 4 * 132 * 128
+    dd = [torch.as_tensor(x, device=cuda) for x in mc.inputs(n, seed=7)[2]]
+    sh = mc.conv_shape(n, 128)
+    tr = torch.zeros((sh.blocks, mc.TRACE_TILES, 4), dtype=torch.int64,
+                     device=cuda)
+    hi, lo = mc._conv_dd_cuda(*dd, 128, trace=tr)
+    phi, plo = mc.conv_dd_plain(*dd)
+    assert torch.equal(hi, phi) and torch.equal(lo, plo)
+    own = torch.full((sh.blocks,), n // 128 // sh.blocks)
+    own[:n // 128 - int(own.sum())] += 1
+    for b in range(sh.blocks):
+        t = tr[b].cpu()
+        assert (t[:own[b]] > 0).all() and (t[own[b]:] == 0).all()
+        assert (t[:own[b]].flatten().diff() >= 0).all()
+    summary = mc.trace(cuda)
+    assert len(summary["arithmetic_us"]) == mc.TRACE_TILES
+
+
+@pytest.mark.gpu
 def test_conv_rejects_bad_inputs(cuda):
     a = torch.ones((mc.K, 64), device=cuda)
     with pytest.raises(ValueError):

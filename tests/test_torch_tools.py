@@ -10,7 +10,9 @@ Both JAX tools run in f32 with ``jax_enable_x64`` off, as their ``main``
 does; the fixtures set the flag and restore it."""
 
 import importlib
+import re
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -135,6 +137,86 @@ def test_conv_plain_versions_against_f64():
     assert mc.rel_err(hi.double() + lo.double(), c64) <= 1e-12
     assert mc.rel_err(mc.conv_library(a.float(), b.float())()[0].t(),
                       c32) <= 5e-6
+
+
+# -- T1-dd's ring: the shape rule and the kernel's order ----------------------
+
+CONV_CU = Path(mc.__file__).resolve().parent.parent / "csrc" \
+    / "conv_microbench.cu"
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kK", mc.K), ("kMaxThreads", mc.MAX_THREADS), ("kMaxRegs", mc.MAX_REGS),
+    ("kBarBytes", mc.BAR_BYTES), ("kTraceTiles", mc.TRACE_TILES),
+    ("kSmemMax", jk.SMEM_MAX)])
+def test_ring_constants_match_the_kernel_source(name, value):
+    # the rule counts the bytes, threads and registers the kernel takes
+    m = re.search(rf"constexpr int {name} = (\d+);", CONV_CU.read_text())
+    assert m and int(m.group(1)) == value
+
+
+# counted by hand: smem = 128 + 4 K T 4 B = 128 + 320 T; blocks an SM =
+# the least of 233,472 // (smem + 1,024), 2,048 // T, 65,536 // (256 T)
+# (255 registers a thread, allocated by 8) and 32; the busiest SM's lanes
+# = its blocks x ceil(tiles / blocks) x T, the fewest win, the larger tile
+# on a tie
+@pytest.mark.parametrize("n, shape", [
+    # the tool's N: 256 lanes an SM whatever the tile, 6.06 tiles a block,
+    # so 8 x 7 x 32 = 4 x 7 x 64 = 2 x 7 x 128 = 1,792 lanes: the largest
+    (204_800, (128, 41_088, 2, 264)),
+    # not a multiple of 4: the same tiles (1,600 of 128, the last of 125)
+    (204_797, (128, 41_088, 2, 264)),
+    # below one tile: one block, the smallest tile
+    (20, (32, 10_368, 8, 1)),
+    (1, (32, 10_368, 8, 1)),
+    # 125 tiles of 32 lanes, one a block; 63 of 64 as well, but twice the
+    # lanes each
+    (4_000, (32, 10_368, 8, 125)),
+])
+def test_conv_shape_rule(n, shape):
+    assert tuple(mc.conv_shape(n)) == shape
+
+
+@pytest.mark.parametrize("n, tile, sms, shape", [
+    # registers bind at every tile: 8, 4 and 2 blocks an SM
+    (mc.N, 32, 132, (32, 10_368, 8, 1_056)),
+    (mc.N, 64, 132, (64, 20_608, 4, 528)),
+    (mc.N, 128, 132, (128, 41_088, 2, 264)),
+    # 3,200 tiles of 64, the last of 61 lanes
+    (204_797, 64, 132, (64, 20_608, 4, 528)),
+    # fewer tiles than the SMs hold: one block a tile
+    (4_000, 128, 132, (128, 41_088, 2, 32)),
+    # a card of 114 SMs
+    (mc.N, 128, 114, (128, 41_088, 2, 228)),
+])
+def test_conv_shape_forced(n, tile, sms, shape):
+    assert tuple(mc.conv_shape(n, tile, sms)) == shape
+
+
+def test_conv_shape_refuses_and_tiles():
+    for bad in (16, 48, 256):
+        with pytest.raises(ValueError):
+            mc.conv_shape(mc.N, bad)
+    with pytest.raises(ValueError):
+        mc.conv_shape(0)
+    for T in mc.TILES:
+        sh = mc.conv_shape(mc.N, T)
+        # csrc bad_tile: whole warps, at most kMaxThreads
+        assert T % 32 == 0 and T <= mc.MAX_THREADS
+        assert sh.smem + jk.BLOCK_RESERVED <= jk.SMEM_MAX
+        assert sh.blocks == min(-(-mc.N // T), 132 * sh.blocks_per_sm) >= 132
+    assert mc.conv_shape(mc.N).tile in mc.TILES
+
+
+@pytest.mark.parametrize("fn", [mc.conv_dd, mc.conv_dd_direct])
+def test_conv_dd_on_cpu_runs_the_plain_version(fn):
+    _, _, dd = mc.inputs(40, seed=2)
+    x = [torch.as_tensor(v) for v in dd]
+    before = dict(jk.LAUNCHES)
+    hi, lo = fn(*x)
+    assert jk.LAUNCHES == before
+    phi, plo = mc.conv_dd_plain(*x)
+    assert torch.equal(hi, phi) and torch.equal(lo, plo)
 
 
 # -- T2: the f32 phase prototype -------------------------------------------
