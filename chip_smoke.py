@@ -101,15 +101,37 @@ if anything is missing or any check fails.  Phases, one line each:
     times of both, their block shapes, T2 at every block shape (each
     equal to the default bit for bit) and the per-order difference of f32
     against f64.
+15. ``propagate_grid`` at full width on the three routes, each through the
+    per-step driver over its jet: the outer SS on phase 5's 10,240 lanes
+    over ``np.linspace(0, 100, 101)`` (only B2 launched, every lane
+    ``time_limit``, the last row equal to phase 5's fused landing state to
+    1e-11, the energy drift over every row at most 1e-12, 4 lanes equal to
+    the port's CPU run to 1e-11), mascon-512 on phase 8's 1,024 lanes over
+    two periods at 70 points (only B3, the Jacobi drift over every row at
+    most 1e-12, 2 lanes against the CPU) and the pendulum on phase 11's
+    10,240 lanes to t = 100 at 1,001 points (only B4, the energy drift at
+    most 1e-12, 4 lanes against the CPU); each route's lane-steps/s beside
+    its ``propagate_until``'s, and the first tenth of the outer-SS grid
+    under ``torch.profiler`` for the device's idle share;
+16. dense and continuous output: ``propagate_until(..., c_output=True)`` on
+    the outer SS (only B2) and mascon-512 (only B3) at full width, the
+    records' peak device memory, ``n_steps`` equal to ``nsteps``, the
+    continuous output at phase 15's grid times equal to its rows to 1e-13
+    per lane (and whether bit for bit); ``update_d_output`` at mid-step
+    after one ``step()`` on each route against the CPU run; a pickle round
+    trip of each route's integrator on the card, then one more
+    ``propagate_until`` from the original and the copy, equal bit for bit.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
 plain version's, its bound from ``tools.roofline`` and, where one torch
-call computes the same function, that call's time); the last line is
+call computes the same function, that call's time; for B2, B3 and B4 also
+``path_launches``, the launches on phases 15-16's paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import pickle
 import re
 import sys
 import time
@@ -169,6 +191,12 @@ PHASE_LO = 9  # the JAX route's split at mp_order = 8
 PEND_B = 10_240
 PEND_T = 100.0
 PROFILE_T = 10.0  # the window of phase 11 timed under the profiler
+
+GRID_N = 101  # phase 15: the outer SS's grid, one point a year
+MASCON_GRID_N = 70
+PEND_GRID_N = 1001
+GRID_RTOL = 1e-11
+COUT_RTOL = 1e-13  # phase 16: the continuous output against the grid rows
 
 SOURCES = {"hy_jet_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_prop_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
@@ -369,8 +397,7 @@ def main():
     ta = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
     e0 = energy(torch.as_tensor(ics, device=dev), MASSES, GCONST)
     torch.cuda.synchronize()
-    for k in jk.LAUNCHES:
-        jk.LAUNCHES[k] = 0
+    zero_launches()
     t0 = time.perf_counter()
     oc, min_h, max_h, nsteps = ta.propagate_until(T_END)
     torch.cuda.synchronize()
@@ -402,6 +429,7 @@ def main():
         launches=launches, energy_drift_max_rel=drift,
         cpu_ref_max_rel=ref_rel, engine=ta.engine_report(),
         rolled_route=rolled)
+    ss_until = dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall)
 
     # -- 6. kernel vs plain at 10,240 lanes -----------------------------------------
     stm = torch.as_tensor(lanes(IC, B_MAIN, 2).T.copy(), device=dev)
@@ -464,10 +492,24 @@ def main():
                       plain_ms_runs=t[name][1], **bounds[name])
            for name in runs}, block_shapes=shapes)
 
-    rolled = huge_tapes(dev, order, smi)
-    phased = phase_tapes(dev, order, smi)
+    rolled, mascon_until = huge_tapes(dev, order, smi)
+    phased, pend_until = phase_tapes(dev, order, smi)
     convs = conv_tool(dev, smi)
     proto = proto_tool(dev, smi)
+
+    until = {"outer_ss": ss_until, "mascon512": mascon_until,
+             "pendulum": pend_until}
+    grids = grid_paths(dev, smi, sys_, ics, st_end, until)
+    couts = cout_paths(dev, smi, sys_, grids)
+    # each kernel's launches on the new paths, each path counted alone
+    times["jet"]["path_launches"] = dict(
+        propagate_grid=grids["outer_ss"]["launches"]["jet"],
+        c_output=couts["outer_ss"]["jet"])
+    rolled[2]["path_launches"] = dict(
+        propagate_grid=grids["mascon512"]["launches"]["jet_rolled"],
+        c_output=couts["mascon512"]["jet_rolled"])
+    phased[2]["path_launches"] = dict(
+        propagate_grid=grids["pendulum"]["launches"]["phase"])
 
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
@@ -636,7 +678,8 @@ def block_shapes(tape, st, pars, aux, auxi, jet_ref, prop_ref):
 def huge_tapes(dev, order, smi):
     """Phases 7-9, the huge-tape path: kernel B3 against its twin and B2,
     the mascon-512 slice, and the jets' times.  Returns B3's launches in
-    the slice, its largest abs error against the twin, and its times."""
+    the slice, its largest abs error against the twin and its times, and
+    the slice's wall time and lane-steps/s."""
     f64 = dict(dtype=torch.float64, device=dev)
     kw, rng = mascon_body(MASCON_N)
     ics = mascon_lanes(rng, MASCON_B)
@@ -699,8 +742,7 @@ def huge_tapes(dev, order, smi):
           f"mascon-512: not the rolled route: {eng}")
     j0 = jacobi(torch.as_tensor(orbits, device=dev), kw)
     torch.cuda.synchronize()
-    for k in jk.LAUNCHES:
-        jk.LAUNCHES[k] = 0
+    zero_launches()
     ta.step()
     t0 = time.perf_counter()
     oc, _, _, nsteps = ta.propagate_until(MASCON_T)
@@ -738,6 +780,7 @@ def huge_tapes(dev, order, smi):
         r_end_range=[float(np.linalg.norm(st_end[:, :3], axis=1).min()),
                      float(np.linalg.norm(st_end[:, :3], axis=1).max())],
         engine=eng, fused_route=fused, mid_width=mid_width(dev))
+    until = dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall)
 
     # -- 9. times: B3, its twin and B2 at 1,024 lanes -----------------------------
     args = jet_args(ics)
@@ -810,9 +853,9 @@ def huge_tapes(dev, order, smi):
         b3_chosen=f"{rep['layout']}x{rep['threads']}", sweep=sweep,
         b2_global_vs_plain=dict(tape="mascon128", max_rel_per_order=g_rel,
                                 norms_max_rel=g_nrel, tol=JET_RTOL))
-    return launches["jet_rolled"], rolled_err, dict(
+    return (launches["jet_rolled"], rolled_err, dict(
         timed(t["b3"], t["plain"], bnd), layout=rep["layout"],
-        smem_bytes=rep["smem_bytes"], threads=rep["threads"])
+        smem_bytes=rep["smem_bytes"], threads=rep["threads"])), until
 
 
 def pendulum_energy(st):
@@ -839,7 +882,8 @@ def seeded_buffer(tape, st, pars, t, dev):
 def phase_tapes(dev, order, smi):
     """Phases 10-12, the phase route: kernel B4 against its twin on every
     tape, the pendulum slice, and the times.  Returns B4's launches in
-    the slice, its largest abs error against the twin, and its times."""
+    the slice, its largest abs error against the twin and its times, and
+    the slice's wall time and lane-steps/s."""
     def rel(a, b):  # (K+1, W, B) buffers, per order
         return per_order_rel(a.permute(1, 0, 2), b.permute(1, 0, 2))
 
@@ -899,12 +943,12 @@ def phase_tapes(dev, order, smi):
     ta = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
     eng = ta.engine_report()
     check(eng == dict(device=str(dev), jet="hy_phase_f64",
-                      propagate_engine="flat", prop=None, layout=None),
+                      propagate_engine="flat", prop=None, grid_engine="flat",
+                      c_output_engine="flat", layout=None),
           f"pendulum: not the phase route: {eng}")
     e0 = pendulum_energy(torch.as_tensor(ics, device=dev))
     torch.cuda.synchronize()
-    for k in jk.LAUNCHES:
-        jk.LAUNCHES[k] = 0
+    zero_launches()
     t0 = time.perf_counter()
     oc, _, _, nsteps = ta.propagate_until(PEND_T)
     torch.cuda.synchronize()
@@ -958,6 +1002,7 @@ def phase_tapes(dev, order, smi):
         device_busy_s=busy if dev_ev else None,
         device_idle_share=1.0 - busy / wall_w if dev_ev else None,
         b4_share_of_busy=b4 / busy if dev_ev else None)
+    until = dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall)
 
     # -- 12. times: B4 against phase_plain, per block shape ---------------------
     widest = max((n for n in cases if not n.startswith("op_")
@@ -1024,10 +1069,287 @@ def phase_tapes(dev, order, smi):
             + rl.nbytes(tape.itab, tape.dtab), torch.float64))
     say(12, nvidia_smi=smi, **runs)
     tm = runs["pendulum"]
-    return launches["phase"], phase_err, dict(
+    return (launches["phase"], phase_err, dict(
         timed(tm["ms_runs"], tm["plain_ms_runs"], tm),
         **{k: tm["shape"][k] for k in ("layout", "lanes", "threads",
-                                       "smem")})
+                                       "smem")})), until
+
+
+def zero_launches():
+    for k in jk.LAUNCHES:
+        jk.LAUNCHES[k] = 0
+
+
+def timed_call(make, call):
+    """``call(make())``, the call between two device syncs: (integrator,
+    result, wall seconds)."""
+    ta = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = call(ta)
+    torch.cuda.synchronize()
+    return ta, res, time.perf_counter() - t0
+
+
+def lane_rates(runs):
+    """Lane-steps/s of ``(result, wall)`` pairs (``nsteps`` at index 3)."""
+    return [int(r[3].sum()) / w for r, w in runs]
+
+
+def grid_run(name, sys_, ics, grid, kernel, dev, ref_lanes):
+    """``propagate_grid(grid)`` on ``ics`` at full width through the
+    per-step driver over ``kernel`` (a ``LAUNCHES`` key; the counts set to
+    0 just before the run and read just after): only that kernel, every
+    lane ``time_limit``, finite rows, and ``ref_lanes`` lanes equal to the
+    port's CPU run to ``GRID_RTOL``.  Timed beside ``propagate_until`` to
+    the grid's end on the same lanes, in turns (until, grid, grid, until;
+    a fresh integrator each).  Returns the checked run's integrator and
+    rows (B, len(grid), n), and the summary."""
+    kw = dict(tol=TOL, high_accuracy=True)
+    ht.taylor_adaptive_batch(sys_, ics[:CHUNK], device=dev, **kw
+                             ).propagate_grid(grid[:3])
+
+    def make():
+        return ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw)
+
+    def until(ta):
+        return ta.propagate_until(grid[-1])
+
+    def on_grid(ta):
+        return ta.propagate_grid(grid)
+
+    runs = {"until": [timed_call(make, until)[1:]]}
+    zero_launches()
+    ta, res, wall = timed_call(make, on_grid)
+    launches = dict(jk.LAUNCHES)
+    oc, out = res[0], res[4]
+    check(launches[kernel] > 0 and all(
+        n == 0 for k, n in launches.items() if k != kernel),
+        f"{name} grid: kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc),
+          f"{name} grid: an outcome is not time_limit")
+    check(out.shape == (len(ics), len(grid), ta.dim)
+          and bool(np.isfinite(out).all()), f"{name} grid: bad rows")
+    runs["grid"] = [(res, wall), timed_call(make, on_grid)[1:]]
+    runs["until"].append(timed_call(make, until)[1:])
+    ref = ht.taylor_adaptive_batch(sys_, ics[:ref_lanes], device="cpu", **kw)
+    rc = ref.propagate_grid(grid)
+    ref_rel = float(np.abs(out[:ref_lanes] - rc[4]).max()
+                    / np.abs(rc[4]).max())
+    check(rc[0] == oc[:ref_lanes] and ref_rel <= GRID_RTOL,
+          f"{name} grid vs the CPU run: {ref_rel}")
+    return ta, out, dict(
+        B=len(ics), n_grid=len(grid), t_end=float(grid[-1]),
+        lane_steps=int(res[3].sum()), wall_s=[w for _, w in runs["grid"]],
+        steps_per_s=lane_rates(runs["grid"]),
+        until_wall_s=[w for _, w in runs["until"]],
+        until_steps_per_s=lane_rates(runs["until"]), launches=launches,
+        cpu_ref_lanes=ref_lanes, cpu_ref_max_rel=ref_rel,
+        engine=ta.engine_report())
+
+
+def drift_over_rows(inv, rows, st0, dev):
+    """The largest relative change of the invariant ``inv`` (a function of
+    (N, n) states on ``dev``) over every row of every lane."""
+    r = torch.as_tensor(rows, device=dev)
+    B, n_grid, n = r.shape
+    i0 = inv(torch.as_tensor(st0, device=dev))
+    i1 = inv(r.reshape(B * n_grid, n)).reshape(B, n_grid)
+    return float(((i1 - i0[:, None]).abs() / i0.abs()[:, None]).max())
+
+
+def grid_paths(dev, smi, sys_ss, ics_ss, st_fused, until):
+    """Phase 15, ``propagate_grid`` at full width on the three routes: the
+    outer SS on phase 5's lanes (B2 only; the last row equal to phase 5's
+    fused landing state to ``GRID_RTOL``), mascon-512 on phase 8's (B3
+    only) and the pendulum on phase 11's (B4 only); every row within
+    ``DRIFT_MAX`` / ``JACOBI_MAX`` of the invariant, lanes against the CPU
+    run, each route's lane-steps/s beside its ``propagate_until``'s
+    (``until``); then the first tenth of the outer-SS grid without and with
+    ``torch.profiler``, for the device's idle share on this route.
+    Returns each route's integrator, rows, grid and launches."""
+    res, out = {}, {}
+    # -- the outer Solar System: kernel B2 ---------------------------------
+    grid = np.linspace(0.0, T_END, GRID_N)
+    ta, rows, r = grid_run("outer SS", sys_ss, ics_ss, grid, "jet", dev,
+                           REF_LANES)
+    last_rel = float(np.abs(rows[:, -1] - st_fused).max()
+                     / np.abs(st_fused).max())
+    check(last_rel <= GRID_RTOL, f"outer SS grid: last row vs phase 5 "
+          f"{last_rel}")
+    drift = drift_over_rows(lambda x: energy(x, MASSES, GCONST), rows,
+                            ics_ss, dev)
+    check(drift <= DRIFT_MAX, f"outer SS grid: energy drift {drift}")
+    res["outer_ss"] = dict(r, last_row_vs_fused_max_rel=last_rel,
+                           energy_drift_max_rel=drift,
+                           slice_phase_5=until["outer_ss"])
+    out["outer_ss"] = dict(ta=ta, rows=rows, grid=grid, sys=sys_ss,
+                           ics=ics_ss, launches=r["launches"])
+    # the grid's first tenth, timed three times without and then once with
+    # the profiler; the idle share against the median of the three
+    from torch.profiler import ProfilerActivity, profile
+    short = grid[:GRID_N // 10 + 1]
+    kw = dict(tol=TOL, high_accuracy=True)
+    walls = [timed_call(
+        lambda: ht.taylor_adaptive_batch(sys_ss, ics_ss, device=dev, **kw),
+        lambda ta: ta.propagate_grid(short))[2] for _ in range(3)]
+    wall_w = sorted(walls)[1]
+    tp = ht.taylor_adaptive_batch(sys_ss, ics_ss, device=dev, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp.propagate_grid(short)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e6
+    b2 = sum(e.time_range.elapsed_us() for e in dev_ev
+             if "jet_kernel" in e.name) / 1e6
+    res["outer_ss"]["profile"] = dict(
+        t_end=float(short[-1]), wall_s=walls, device_events=len(dev_ev),
+        device_busy_s=busy if dev_ev else None,
+        device_idle_share=1.0 - busy / wall_w if dev_ev else None,
+        b2_share_of_busy=b2 / busy if dev_ev else None)
+
+    # -- mascon-512: kernel B3 ---------------------------------------------
+    kw_m, _ = mascon_body(MASCON_N)
+    orbits = mascon_lanes(mascon_body(MASCON_N)[1], MASCON_B, kw_m["omega"])
+    sys_m = ht.models.mascon(**kw_m)
+    grid = np.linspace(0.0, MASCON_T, MASCON_GRID_N)
+    ta, rows, r = grid_run("mascon-512", sys_m, orbits, grid, "jet_rolled",
+                           dev, MASCON_REF_LANES)
+    drift = drift_over_rows(lambda x: jacobi(x, kw_m), rows, orbits, dev)
+    check(drift <= JACOBI_MAX, f"mascon-512 grid: Jacobi drift {drift}")
+    res["mascon512"] = dict(r, jacobi_drift_max_rel=drift,
+                            slice_phase_8=until["mascon512"])
+    out["mascon512"] = dict(ta=ta, rows=rows, grid=grid, sys=sys_m,
+                            ics=orbits, launches=r["launches"])
+
+    # -- the pendulum: kernel B4 -------------------------------------------
+    ics_p = pendulum_lanes(PEND_B, 0)
+    grid = np.linspace(0.0, PEND_T, PEND_GRID_N)
+    ta, rows, r = grid_run("pendulum", ht.models.pendulum(), ics_p, grid,
+                           "phase", dev, REF_LANES)
+    drift = drift_over_rows(pendulum_energy, rows, ics_p, dev)
+    check(drift <= DRIFT_MAX, f"pendulum grid: energy drift {drift}")
+    res["pendulum"] = dict(r, energy_drift_max_rel=drift,
+                           slice_phase_11=until["pendulum"])
+    out["pendulum"] = dict(ta=ta, launches=r["launches"])
+    say(15, nvidia_smi=smi, tol=GRID_RTOL, **res)
+    return out
+
+
+def cout_paths(dev, smi, sys_ss, grids):
+    """Phase 16, dense and continuous output: ``propagate_until(...,
+    c_output=True)`` at full width on the outer SS (B2 only) and
+    mascon-512 (B3 only), the counts set to 0 just before each run; the
+    records' peak device memory; ``n_steps`` equal to ``nsteps``; the
+    continuous output at phase 15's grid times equal to its rows to
+    ``COUT_RTOL`` per lane (and whether bit for bit); timed beside
+    ``propagate_until`` in turns (c_output, until, until, c_output; a
+    fresh integrator each); ``update_d_output`` at mid-step after one
+    ``step()`` on each route against the CPU run; a pickle round trip of
+    each route's integrator on the card, then one more ``propagate_until``
+    from each copy, equal bit for bit.  Returns each c_output run's
+    launches."""
+    kw = dict(tol=TOL, high_accuracy=True)
+    res, launches_out = {}, {}
+    for name, kernel in (("outer_ss", "jet"), ("mascon512", "jet_rolled")):
+        g = grids[name]
+        grid, rows, ics = g["grid"], g["rows"], g["ics"]
+
+        def make():
+            return ht.taylor_adaptive_batch(g["sys"], ics, device=dev, **kw)
+
+        def cout(ta):
+            return ta.propagate_until(grid[-1], c_output=True)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        zero_launches()
+        ta, first, wall = timed_call(make, cout)
+        launches = dict(jk.LAUNCHES)
+        oc, _, _, nsteps, co = first
+        check(ta.engine_report()["c_output_engine"] == "flat",
+              f"{name}: c_output not on the per-step driver")
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(launches[kernel] > 0 and all(
+            n == 0 for k, n in launches.items() if k != kernel),
+            f"{name} c_output: kernels launched {launches}")
+        check(all(o == ht.TaylorOutcome.time_limit for o in oc),
+              f"{name} c_output: an outcome is not time_limit")
+        check(bool((co.n_steps == nsteps).all()),
+              f"{name} c_output: n_steps differs from nsteps")
+        vals = co(np.repeat(grid[:, None], len(ics), 1)).transpose(1, 0, 2)
+        lane_rel = (np.abs(vals - rows).max((1, 2))
+                    / np.abs(rows).max((1, 2)))
+        check(float(lane_rel.max()) <= COUT_RTOL,
+              f"{name}: c_output vs the grid rows {float(lane_rel.max())}")
+        tcs_bytes = co._tcs.numel() * 8
+        del co, first
+        runs = {"c_output": [(nsteps, wall)], "until": [
+            timed_call(make, lambda ta: ta.propagate_until(grid[-1]))[1:]
+            for _ in range(2)]}
+        _, again, w2 = timed_call(make, cout)
+        runs["c_output"].append((again[3], w2))
+        del again
+        res[name] = dict(
+            B=len(ics), t_end=float(grid[-1]),
+            lane_steps=int(nsteps.sum()),
+            wall_s=[w for _, w in runs["c_output"]],
+            steps_per_s=[int(n.sum()) / w for n, w in runs["c_output"]],
+            until_wall_s=[w for _, w in runs["until"]],
+            until_steps_per_s=lane_rates(runs["until"]), launches=launches,
+            records_bytes=tcs_bytes, base_bytes=base,
+            peak_memory_bytes=peak, vs_grid_max_rel=float(lane_rel.max()),
+            vs_grid_bit_equal=bool(np.array_equal(vals, rows)),
+            vs_grid_equal_share=float((vals == rows).all(2).mean()),
+            grid_lane_steps=int(sum(r[3] for r in g["ta"].get_propagate_res())),
+            tol=COUT_RTOL)
+        launches_out[name] = launches
+        g["ta_cout"] = ta
+
+    # update_d_output at mid-step after one step on each route, held
+    # against the same lanes on the CPU
+    d_out = {}
+    cases = (("outer_ss", grids["outer_ss"]["sys"],
+              grids["outer_ss"]["ics"][:REF_LANES]),
+             ("mascon512", grids["mascon512"]["sys"],
+              grids["mascon512"]["ics"][:MASCON_REF_LANES]),
+             ("pendulum", ht.models.pendulum(), pendulum_lanes(REF_LANES, 0)))
+    for name, sys_, st in cases:
+        pair = [ht.taylor_adaptive_batch(sys_, st, device=d, **kw)
+                for d in (dev, "cpu")]
+        d = []
+        for x in pair:
+            x.step()
+            d.append((x.update_d_output(x.time - x.last_h / 2),
+                      x.update_d_output(x.last_h / 3, rel_time=True)))
+        rel = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(*d))
+        check(rel <= PROP_RTOL, f"{name}: d_output vs the CPU run {rel}")
+        d_out[name] = dict(lanes=len(st), max_rel=rel, tol=PROP_RTOL)
+
+    # a pickle round trip on the card, then the same propagate_until from
+    # the original and the copy
+    pick = {}
+    for name, ta, dt in (("outer_ss", grids["outer_ss"]["ta_cout"], 10.0),
+                         ("mascon512", grids["mascon512"]["ta_cout"],
+                          MASCON_T / 4),
+                         ("pendulum", grids["pendulum"]["ta"], 1.0)):
+        cp = pickle.loads(pickle.dumps(ta))
+        t1 = float(ta.time[0]) + dt
+        ra, rb = ta.propagate_until(t1), cp.propagate_until(t1)
+        same = (ra[0] == rb[0] and all(
+            np.array_equal(a, b) for a, b in (
+                (ta.state, cp.state), (ta.tc, cp.tc), (ra[3], rb[3]),
+                *zip(ta.dtime, cp.dtime))))
+        check(same, f"{name}: the pickled copy's propagation differs")
+        pick[name] = dict(device=cp.engine_report()["device"], t_end=t1,
+                          bit_equal=same)
+    say(16, nvidia_smi=smi, c_output=res, d_output=d_out, pickle=pick)
+    return launches_out
 
 
 def tool_row(name, n, res):
@@ -1050,8 +1372,7 @@ def conv_tool(dev, smi):
     and T1-dd beside its parent and the predictions (PERF.md).
     Returns the kernels' rows: ``ms`` replayed from a CUDA graph,
     ``cuda_ms`` from back-to-back launches beside it."""
-    for k in jk.LAUNCHES:
-        jk.LAUNCHES[k] = 0
+    zero_launches()
     res = microbench_conv.run(dev)
     launches = res["launches"]
     check(launches["conv_f32"] > 0 and launches["conv_dd"] > 0,
@@ -1090,8 +1411,7 @@ def proto_tool(dev, smi):
     against its plain body, else it raises; B4 in f64 from lo = 9 beside
     it), T2's orders within 1e-4 relative of B4's, per order, then the
     tool's ``sweep``.  Returns T2's row."""
-    for k in jk.LAUNCHES:
-        jk.LAUNCHES[k] = 0
+    zero_launches()
     res = proto_phase.run(dev)
     launches = dict(jk.LAUNCHES)
     check(launches["proto_phase"] > 0 and launches["phase"] > 0,

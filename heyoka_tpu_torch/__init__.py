@@ -6,9 +6,10 @@ the originals by the tests.  Everything runs in f64 on an explicit
 ``device``: a CPU tensor runs the plain torch versions, a CUDA tensor the
 hand-written CUDA kernels of ``csrc/`` (built with ``nvcc`` at first use).
 
-The port covers the batch integrator's ``step`` and
-``propagate_until``/``propagate_for``: tapes made of sum, mul, div, sqrt
-and pow — the outer-Solar-System N-body workload (kernels B1, B2) and
+The port covers the batch integrator without events and callbacks
+(``step``, ``propagate_until``/``propagate_for`` with continuous output,
+``propagate_grid``, the dense output of the last step, pickling): tapes
+made of sum, mul, div, sqrt and pow — the outer-Solar-System N-body workload (kernels B1, B2) and
 huge instance-regular tapes such as mascons (kernel B3) — and tapes with
 any other op of the recurrence rule set (trig, hyperbolic, Kepler,
 relational ...), such as the pendulum, through the phase jet (kernel B4).
@@ -39,6 +40,7 @@ from .convert import (  # noqa: F401
     plan_to_arrays, state_from_numpy,
 )
 from .taylor.batch import TaylorAdaptiveBatch, taylor_adaptive_batch  # noqa: F401
+from .taylor.continuous import ContinuousOutput, ContinuousOutputBatch  # noqa: F401
 from .taylor.outcome import TaylorOutcome  # noqa: F401
 from .taylor.jet_kernels import LAUNCHES  # noqa: F401
 from .taylor.jet_phase import PhaseTape, jet_phase, phase  # noqa: F401

@@ -184,6 +184,18 @@ def plan_from_arrays(d: dict) -> _Plan:
     )
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a CUDA
+    device where there is none (the port never falls back to the CPU:
+    pass ``device="cpu"`` for the plain versions of the kernels)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested, but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain versions")
+    return dev
+
+
 def state_from_numpy(state, pars, t_hi, t_lo, device) -> dict:
     """The port's lane state from the arrays of a JAX
     ``TaylorAdaptiveBatch`` (``state`` (B, n), ``pars`` (B, p), and the

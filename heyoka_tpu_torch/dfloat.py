@@ -36,3 +36,9 @@ def dd_add_dd(ahi, alo, bhi, blo):
     s, e = two_sum(ahi, bhi)
     e = e + alo + blo
     return quick_two_sum(s, e)
+
+
+def dd_normalize(hi, lo):
+    """(hi, lo) renormalized so that hi = fl(hi + lo) (heyoka
+    ``set_dtime``)."""
+    return quick_two_sum(hi, lo)

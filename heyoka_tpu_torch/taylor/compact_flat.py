@@ -1,9 +1,10 @@
 """The batched adaptive step over the jet, and the per-step
-propagate-until driver.
+propagate-until and propagate-grid drivers.
 
 The counterpart of ``heyoka_tpu/taylor/compact_flat.py``:
-``make_batched_step_flat`` (:168), ``make_propagate_until_flat`` (:1157)
-and its lockstep loop ``_pu_while`` (:1214).  The JAX step evaluates the
+``make_batched_step_flat`` (:168), ``make_propagate_until_flat`` (:1157),
+its lockstep loop ``_pu_while`` (:1214) and ``make_propagate_grid_flat``
+(:1571).  The JAX step evaluates the
 jet in XLA (or in a Pallas kernel) and then the step size and the state
 update; here the jet is the one passed in — ``jet_kernels.jet`` (kernel
 B2) or, for huge tapes, ``jet_rolled.jet_rolled`` (kernel B3), each
@@ -15,12 +16,13 @@ counterpart.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..dfloat import dd_add_d, dd_add_dd
 from .jet_kernels import JetTape, jet
 from .outcome import TaylorOutcome
-from .stepper import ceval_update, h_from_norms, horner_update
+from .stepper import ceval_update, h_from_norms, horner, horner_update
 
 
 def make_batched_step_flat(tape: JetTape, *, high_accuracy: bool = True,
@@ -48,14 +50,15 @@ def make_propagate_until_flat(tape: JetTape, *, high_accuracy: bool = True,
     """Lockstep propagate-until over :func:`make_batched_step_flat` with
     ``jet``:
     ``pu(state (B, n), pars (B, p), t_hi, t_lo, target_hi, target_lo,
-    max_delta_t, max_steps) -> dict`` of per-lane fields (``state``,
-    ``t_hi``, ``t_lo``, ``last_h``, ``tc``, ``nsteps``, ``min_h``,
-    ``max_h``, ``outcome``, ``done``)."""
+    max_delta_t, max_steps, record=None) -> dict`` of per-lane fields
+    (``state``, ``t_hi``, ``t_lo``, ``last_h``, ``tc``, ``nsteps``,
+    ``min_h``, ``max_h``, ``outcome``, ``done``); ``record``, a list, gets
+    each step's records (:func:`_pu_while`)."""
     step = make_batched_step_flat(tape, high_accuracy=high_accuracy,
                                   jet=jet)
 
     def pu(state, pars, t_hi, t_lo, target_hi, target_lo, max_delta_t,
-           max_steps):
+           max_steps, record=None):
         B = state.shape[0]
         dev = state.device
         rem0, _ = dd_add_dd(target_hi, target_lo, -t_hi, -t_lo)
@@ -73,18 +76,21 @@ def make_propagate_until_flat(tape: JetTape, *, high_accuracy: bool = True,
             done=rem0 == 0.0,
         )
         return _pu_while(step, pars, target_hi, target_lo, max_delta_t,
-                         max_steps, rem0 > 0.0, init)
+                         max_steps, rem0 > 0.0, init, record)
 
     return pu
 
 
 def _pu_while(step, pars, target_hi, target_lo, max_delta_t, max_steps,
-              fwd, c):
+              fwd, c, record=None):
     """The lockstep propagate-until loop over a batched ``step``, from the
     carry ``c`` (the fields of :func:`make_propagate_until_flat`'s
     result).  Shared with the fused driver (:mod:`.fused`), whose exact
     landing enters mid-flight with the kernel's state, time and
-    statistics.  One host sync per step (the loop's exit test)."""
+    statistics.  One host sync per step (the loop's exit test).  With a
+    list ``record``, each step appends the whole batch's ``(tc (B, K+1,
+    n), t_hi, t_lo)``, the coefficients and the start time of the step,
+    on the device (the continuous-output recorder, :mod:`.continuous`)."""
     c = dict(c)
 
     def remaining(th, tl):
@@ -101,6 +107,8 @@ def _pu_while(step, pars, target_hi, target_lo, max_delta_t, max_steps,
 
         new_state, h, tc = step(c["state"], pars, c["t_hi"], dt)
         nt_hi, nt_lo = dd_add_d(c["t_hi"], c["t_lo"], h)
+        if record is not None:
+            record.append((tc, c["t_hi"], c["t_lo"]))
 
         finite = torch.isfinite(new_state).all(1) & torch.isfinite(h)
         nsteps = c["nsteps"] + 1
@@ -130,3 +138,142 @@ def _pu_while(step, pars, target_hi, target_lo, max_delta_t, max_steps,
             done=sel(~finite | hit_step_limit | reached, done),
         )
     return c
+
+
+def make_propagate_grid_flat(tape: JetTape, *, high_accuracy: bool = True,
+                             jet=jet):
+    """Lockstep propagate-grid over :func:`make_batched_step_flat` with
+    ``jet``: ``pg(state (B, n), pars (B, p), t_hi, t_lo, grid (ngrid,),
+    max_delta_t, max_steps) -> dict`` with the fields of
+    :func:`make_propagate_until_flat`'s result and ``out (B, ngrid, n)``,
+    the state at every grid point (zeros where a lane stopped first).
+
+    The JAX driver's rules (``compact_flat.py:1571-1741``): grid points
+    equal to a lane's start time take its state; the step is capped by
+    ``grid[-1] - t_hi`` in single f64; a grid point inside a step's span
+    takes the step's Taylor polynomials at the high part of ``grid - t``
+    (double-length); a lane is done when its last grid point is filled, on
+    a non-finite state or at the step limit.  The grid is shared and
+    monotonic (:func:`check_grid`); a lane whose direction of travel goes
+    against the grid's order reaches no point and, without a step limit,
+    raises ``ValueError``.  One host sync per step: the exit
+    test and the most grid points any lane filled, after which one Horner
+    over ``(B, m)`` points fills them."""
+    step = make_batched_step_flat(tape, high_accuracy=high_accuracy,
+                                  jet=jet)
+    K, n_eq = tape.order, tape.n_eq
+
+    def pg(state, pars, t_hi, t_lo, grid, max_delta_t, max_steps):
+        B, ngrid = state.shape[0], grid.shape[0]
+        dev, f64 = state.device, state.dtype
+        lanes = torch.arange(B, device=dev)
+        target = grid[-1]
+        fwd = target - t_hi >= 0.0
+        # a forward lane fills the grid points <= its time, a backward one
+        # those >= it: on a grid sorted the lane's way a prefix of the grid
+        # (binary search); a lane going against the grid's order stops at
+        # grid[-1] and never reaches grid[0], so it fills nothing
+        s = 1.0 if bool(grid[-1] >= grid[0]) else -1.0
+        key = s * grid
+        along = fwd == (s > 0)
+
+        def cursor(gi, t):
+            prefix = torch.searchsorted(key, (s * t)[:, None],
+                                        right=True)[:, 0]
+            return torch.where(along, torch.maximum(gi, prefix), gi)
+
+        # row ngrid takes the writes of the lanes that fill fewer points
+        out = torch.zeros((B, ngrid + 1, n_eq), dtype=f64, device=dev)
+        # leading grid points equal to the start time take the state
+        lead = (grid[None, :] == t_hi[:, None]).to(torch.int64).cumprod(1)
+        gi = lead.sum(1)
+        out[:, :ngrid] = torch.where(lead.bool()[:, :, None], state[:, None],
+                                     out[:, :ngrid])
+        c = dict(
+            state=state, t_hi=t_hi, t_lo=t_lo,
+            last_h=torch.zeros(B, dtype=f64, device=dev),
+            tc=torch.zeros((B, K + 1, n_eq), dtype=f64, device=dev),
+            nsteps=torch.zeros(B, dtype=torch.int64, device=dev),
+            min_h=torch.full((B,), float("inf"), dtype=f64, device=dev),
+            max_h=torch.zeros(B, dtype=f64, device=dev),
+            outcome=torch.full((B,), int(TaylorOutcome.time_limit),
+                               dtype=torch.int32, device=dev),
+            done=gi >= ngrid, gi=gi,
+        )
+        all_done, stuck = torch.stack([c["done"].all(),
+                                       (~along & ~c["done"]).any()]).tolist()
+        if stuck and max_steps <= 0:
+            # the JAX driver would step such a lane forever
+            raise ValueError("a lane goes against the grid's order: it can "
+                             "reach no grid point (pass max_steps to let "
+                             "it stop)")
+        while not all_done:
+            done, gi = c["done"], c["gi"]
+            alive = ~done
+            cap = torch.minimum(torch.abs(target - c["t_hi"]), max_delta_t)
+            cap = torch.where(alive, cap, torch.zeros_like(cap))
+            dt = torch.where(fwd, cap, -cap)
+
+            new_state, h, tc = step(c["state"], pars, c["t_hi"], dt)
+            nt_hi, nt_lo = dd_add_d(c["t_hi"], c["t_lo"], h)
+            finite = torch.isfinite(new_state).all(1) & torch.isfinite(h)
+            new_gi = torch.where(finite & alive, cursor(gi, nt_hi), gi)
+
+            nsteps = c["nsteps"] + 1
+            reached = new_gi >= ngrid
+            hit_step_limit = (nsteps >= max_steps) & ~reached \
+                if max_steps > 0 else torch.zeros_like(reached)
+            outcome = torch.full_like(c["outcome"],
+                                      int(TaylorOutcome.time_limit))
+            outcome.masked_fill_(hit_step_limit, int(TaylorOutcome.step_limit))
+            outcome.masked_fill_(~finite, int(TaylorOutcome.err_nf_state))
+
+            def sel(new, old):
+                return torch.where(alive, new, old)
+
+            abs_h = torch.abs(h)
+            t_prev_hi, t_prev_lo = c["t_hi"], c["t_lo"]
+            c = dict(
+                state=torch.where(alive[:, None], new_state, c["state"]),
+                t_hi=sel(nt_hi, c["t_hi"]),
+                t_lo=sel(nt_lo, c["t_lo"]),
+                last_h=sel(h, c["last_h"]),
+                tc=torch.where(alive[:, None, None], tc, c["tc"]),
+                nsteps=sel(nsteps, c["nsteps"]),
+                min_h=sel(torch.minimum(c["min_h"], abs_h), c["min_h"]),
+                max_h=sel(torch.maximum(c["max_h"], abs_h), c["max_h"]),
+                outcome=sel(outcome, c["outcome"]),
+                done=sel(~finite | hit_step_limit | reached, done),
+                gi=new_gi,
+            )
+            n_fill = new_gi - gi
+            all_done, m = torch.stack([c["done"].all().to(torch.int64),
+                                       n_fill.max()]).tolist()
+            if m:
+                j = torch.arange(m, device=dev)
+                idx = gi[:, None] + j
+                tg = grid[idx.clamp(max=ngrid - 1)]
+                rel, _ = dd_add_dd(tg, torch.zeros_like(tg),
+                                   -t_prev_hi[:, None], -t_prev_lo[:, None])
+                idx = torch.where(j < n_fill[:, None], idx, ngrid)
+                out[lanes[:, None], idx] = horner(
+                    lambda i: tc[:, i, None, :], rel, K)
+        c["out"] = out[:, :ngrid]
+        return c
+
+    return pg
+
+
+def check_grid(grid):
+    """``grid`` as a non-empty 1-D f64 numpy array, monotonic
+    (non-decreasing or non-increasing): the grid driver finds each lane's
+    next point by binary search.  Raises ``ValueError`` otherwise."""
+    grid = np.asarray(grid, dtype=np.float64)
+    if grid.ndim != 1 or grid.size == 0:
+        raise ValueError("the grid must be a non-empty 1-D array")
+    if not np.isfinite(grid).all():
+        raise ValueError("the grid must be finite")
+    d = np.diff(grid)
+    if not ((d >= 0).all() or (d <= 0).all()):
+        raise ValueError("the grid must be monotonic")
+    return grid

@@ -62,6 +62,17 @@ def horner_update(tc, h, order: int, n_eq: int):
     return res
 
 
+def horner(tc_at, x, order: int):
+    """``sum_i c_i x^i`` by Horner (``tc[K] ... + res * x``, the JAX
+    package's dense-output order), ``tc_at(i)`` the order-i coefficients,
+    broadcast against ``x[..., None]``: the dense output of a step, of the
+    grid driver and of the continuous output."""
+    res = tc_at(order)
+    for i in range(1, order + 1):
+        res = tc_at(order - i) + res * x[..., None]
+    return res
+
+
 def ceval_update(tc, h, order: int, n_eq: int):
     """New state ``(n_eq, B)`` via compensated-summation monomial
     evaluation — the ``high_accuracy`` mode (``taylor_run_ceval``)."""

@@ -1,5 +1,6 @@
 """The phase route's test tapes and lanes, shared by ``chip_smoke.py``
-(phases 10-12), the tests and :mod:`.same_bits`.
+(phases 10-12), the tests and :mod:`.same_bits`, and the small cases of
+the batch integrator's three routes (the tests).
 
 The module imports numpy only and takes the package that builds the
 systems as an argument (this port, or the JAX package in the tests), so
@@ -78,3 +79,42 @@ def pendulum_lanes(B, seed):
     rng = np.random.default_rng(seed)
     x0 = rng.choice([-1.0, 1.0], B) * rng.uniform(0.5, 2.0, B)
     return np.stack([x0, rng.uniform(-1.0, 1.0, B)], 1)
+
+
+#: the three routes of the batch integrator in the tests, by the jet each
+#: runs: kernel B2 (the 3-body problem), B3 (12 mascons in the unit ball,
+#: taken by the rolled route once ``taylor.batch.ROLLED_MIN_WIDTH`` is
+#: lowered to ``ROLLED_TEST_WIDTH``, above the 3-body tape's 98 columns and
+#: below the mascons' 237) and B4 (the pendulum)
+ROUTES = ("b2", "b3", "b4")
+ROLLED_TEST_WIDTH = 128
+
+
+def route_case(pkg, route, B, seed):
+    """``(ODE system, state (B, n))`` of a route's small test case, built
+    with ``pkg``: the 3-body lanes near a hierarchical triple, bound r = 2
+    orbits about the 12 mascons (``tests/test_pallas_rolled.py``'s body,
+    spinning at 0.3), librating pendulum lanes."""
+    rng = np.random.default_rng(seed)
+    if route == "b2":
+        base = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
+                         0, 1.5, 0, -0.8, 0, 0], float)
+        return (pkg.models.nbody(3, masses=[1.0, 1e-3, 2e-3]),
+                base[None] + 0.01 * rng.standard_normal((B, 18)))
+    if route == "b3":
+        body = np.random.default_rng(7)
+        pts = body.uniform(-1.0, 1.0, (48, 3))
+        pts = pts[np.linalg.norm(pts, axis=1) <= 1.0][:12]
+        masses = body.uniform(0.5, 1.0, 12)
+        sys_ = pkg.models.mascon(Gconst=1.0,
+                                 masses=(masses / masses.sum()).tolist(),
+                                 positions=pts.tolist(),
+                                 omega=(0.0, 0.0, 0.3))
+        ang = rng.uniform(0, 2 * np.pi, B)
+        st = np.zeros((B, 6))
+        st[:, 0], st[:, 1] = 2.0 * np.cos(ang), 2.0 * np.sin(ang)
+        st[:, 3], st[:, 4] = -0.7 * np.sin(ang), 0.7 * np.cos(ang)
+        return sys_, st
+    if route == "b4":
+        return pkg.models.pendulum(), pendulum_lanes(B, seed)
+    raise ValueError(f"unknown route {route!r}")

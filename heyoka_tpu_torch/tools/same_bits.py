@@ -46,6 +46,14 @@ runs the pendulum slice alone and times kernel B4's wrapper on the host
 to compare their end-to-end rates.
 
     PYTHONPATH=<checkout> python3 heyoka_tpu_torch/tools/same_bits.py \\
+        ss <tag>
+
+runs ``chip_smoke.py`` phase 5's outer-Solar-System slice alone (the
+fused route, 10,240 lanes over 100 yr after a 64-lane warm-up), twice on
+fresh integrators (:func:`ss_run`), one JSON line: alternate it between
+two checkouts to compare the first, cold run and the second.
+
+    PYTHONPATH=<checkout> python3 heyoka_tpu_torch/tools/same_bits.py \\
         t1 <tag>
 
 times kernel T1-dd (``microbench_conv.conv_dd``) on the tool's inputs
@@ -348,6 +356,48 @@ def slice_run(tag):
                           **_pendulum_slice(ht, cs))))
 
 
+def ss_run(tag, B=10_240):
+    """Phase 5's slice: ``taylor_adaptive_batch(nbody(6), ...)`` on
+    ``B`` lanes of the outer Solar System perturbed by 1e-8 (seed 0),
+    ``propagate_until(100.0)`` after a 64-lane warm-up, then again on a
+    fresh integrator; prints the lane-steps/s of both runs, the seconds
+    each spent in the propagation driver (``_pu_fn``, closed by a device
+    sync), the device memory the allocator held before and after each,
+    and a checksum of the final states (equal between checkouts that keep
+    the bits)."""
+    import heyoka_tpu_torch as ht
+    from heyoka_tpu_torch.tools import GCONST, IC, MASSES
+
+    sys_ = ht.models.nbody(6, masses=MASSES, Gconst=GCONST)
+    ics = _lanes(IC, B, 0)
+    kw = dict(tol=1e-15, high_accuracy=True, device="cuda")
+    ht.taylor_adaptive_batch(sys_, ics[:64], **kw).propagate_until(1.0)
+    rates, driver_s, reserved = [], [], []
+    for _ in range(2):
+        ta = ht.taylor_adaptive_batch(sys_, ics, **kw)
+        pu = ta._pu_fn
+
+        def timed_pu(*args):
+            t1 = time.perf_counter()
+            res = pu(*args)
+            torch.cuda.synchronize()
+            driver_s.append(time.perf_counter() - t1)
+            return res
+
+        ta._pu_fn = timed_pu
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        t0 = time.perf_counter()
+        nsteps = ta.propagate_until(100.0)[3]
+        torch.cuda.synchronize()
+        rates.append(int(np.asarray(nsteps).sum())
+                     / (time.perf_counter() - t0))
+        reserved.append(torch.cuda.memory_reserved())
+    print(json.dumps(dict(tag=tag, steps_per_s=rates, driver_s=driver_s,
+                          reserved_bytes=reserved,
+                          state_sum=float(np.abs(ta.state).sum()))))
+
+
 def t1_run(tag, readings=5):
     """``readings`` times (each a CUDA graph's replay of 20 calls) of
     kernel T1-dd at the tool's N = 204,800, seed 0, alternating with its
@@ -422,6 +472,10 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise SystemExit("same_bits: no CUDA device")
         slice_run(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "ss":
+        if not torch.cuda.is_available():
+            raise SystemExit("same_bits: no CUDA device")
+        ss_run(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "t1":
         if not torch.cuda.is_available():
             raise SystemExit("same_bits: no CUDA device")

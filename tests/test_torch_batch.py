@@ -109,7 +109,8 @@ def test_engine_report():
     smem = jk.LANES * 8 * ((p.order + 1) * 98 + jk.LANE_SCALARS)
     assert p.engine_report() == dict(
         device="cpu", jet="jet_plain", propagate_engine="fused",
-        prop="prop_plain", layout=dict(layout="smem",
+        prop="prop_plain", grid_engine="flat", c_output_engine="flat",
+        layout=dict(layout="smem",
                                        lanes_per_block=jk.LANES,
                                        smem_bytes=smem, tables="smem"))
     _, q = _pair("timedep")

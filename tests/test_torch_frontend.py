@@ -202,7 +202,8 @@ def test_unsupported_op_raises():
     ta = ht.taylor_adaptive_batch(sys_, np.ones((2, 2)), device="cpu")
     assert ta.engine_report() == dict(device="cpu", jet="phase_plain",
                                       propagate_engine="flat", prop=None,
-                                      layout=None)
+                                      grid_engine="flat",
+                                      c_output_engine="flat", layout=None)
     ta.step()
     assert np.isfinite(ta.state).all() and (ta.time > 0).all()
 

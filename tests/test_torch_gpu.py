@@ -7,6 +7,8 @@ where JAX is not installed:
 Without a CUDA device every test skips.  ``chip_smoke.py`` makes the same
 comparisons at the main path's shapes."""
 
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,8 @@ from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.tools import mascon_body
 from heyoka_tpu_torch.tools import microbench_conv as mc
 from heyoka_tpu_torch.tools import proto_phase as pp
+
+from heyoka_tpu_torch.tools.cases import ROLLED_TEST_WIDTH, ROUTES, route_case
 
 from chip_smoke import pendulum_lanes, phase_cases, phase_lanes, seeded_buffer
 
@@ -662,3 +666,83 @@ def test_proto_phase_rejects_bad_inputs(cuda):
         pp.phase_f32(tape, tc.cpu(), 4)  # the tables live on the card
     with pytest.raises(ValueError):
         pp.phase_f32(tape, tc, 0)  # order 0 is not the kernel's
+
+
+# -- propagate_grid, continuous output and pickling on the card ----------------
+
+#: the kernel each route's per-step drivers launch (``LAUNCHES`` keys)
+ROUTE_KERNEL = {"b2": "jet", "b3": "jet_rolled", "b4": "phase"}
+
+
+def _route_pair(cuda, monkeypatch, route, B=6, seed=8):
+    """A route's small case on the CPU and on the card (tools/cases.py)."""
+    if route == "b3":
+        monkeypatch.setattr(tbatch, "ROLLED_MIN_WIDTH", ROLLED_TEST_WIDTH)
+    sys_, st = route_case(ht, route, B, seed)
+    kw = dict(tol=1e-12, high_accuracy=True)
+    return (ht.taylor_adaptive_batch(sys_, st, device="cpu", **kw),
+            ht.taylor_adaptive_batch(sys_, st, device=cuda, **kw))
+
+
+def _only(route, n0):
+    """Launches since ``n0``: the route's kernel only, at least once."""
+    grown = {k for k in jk.LAUNCHES if jk.LAUNCHES[k] != n0[k]}
+    return grown == {ROUTE_KERNEL[route]}
+
+
+def _close(a, b, tol=1e-11):
+    np.testing.assert_allclose(a, b, rtol=0, atol=tol * np.abs(b).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ROUTES)
+def test_grid_on_cuda_matches_cpu(cuda, monkeypatch, route):
+    c, g = _route_pair(cuda, monkeypatch, route)
+    for grid in (np.linspace(0.0, 3.0, 13), np.linspace(3.0, -1.0, 9)):
+        n0 = dict(jk.LAUNCHES)
+        rg = g.propagate_grid(grid)
+        torch.cuda.synchronize()
+        assert _only(route, n0)
+        rc = c.propagate_grid(grid)
+        assert rg[0] == rc[0]
+        assert all(o == ht.TaylorOutcome.time_limit for o in rg[0])
+        _close(rg[4], rc[4])
+        _close(g.state, c.state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ROUTES)
+def test_c_output_on_cuda_matches_cpu(cuda, monkeypatch, route):
+    c, g = _route_pair(cuda, monkeypatch, route)
+    targets = np.array([3.0, 3.0, -1.5, 3.0, 2.0, 3.0])
+    n0 = dict(jk.LAUNCHES)
+    rg = g.propagate_until(targets, c_output=True)
+    torch.cuda.synchronize()
+    assert _only(route, n0)
+    rc = c.propagate_until(targets, c_output=True)
+    assert rg[0] == rc[0]
+    np.testing.assert_array_equal(rg[4].n_steps, rg[3])
+    q = np.linspace(0.0, 1.0, 7)[:, None] * targets[None, :]
+    _close(rg[4](q), rc[4](q))
+    # the dense output of one more step, at mid-step
+    g.step()
+    c.step()
+    _close(g.update_d_output(g.time - g.last_h / 2),
+           c.update_d_output(c.time - c.last_h / 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ROUTES)
+def test_pickle_on_cuda(cuda, monkeypatch, route):
+    _, g = _route_pair(cuda, monkeypatch, route)
+    g.propagate_for(1.0)
+    q = pickle.loads(pickle.dumps(g))
+    assert q.engine_report() == g.engine_report()
+    rg = g.propagate_until(2.0, c_output=True)
+    rq = q.propagate_until(2.0, c_output=True)
+    for a, b in ((g.state, q.state), (g.tc, q.tc), (rg[3], rq[3])):
+        np.testing.assert_array_equal(a, b)
+    co = pickle.loads(pickle.dumps(rg[4]))
+    t = np.full(g.batch_size, 1.5)
+    np.testing.assert_array_equal(co(t), rg[4](t))
+    np.testing.assert_array_equal(rq[4](t), rg[4](t))

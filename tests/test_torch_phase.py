@@ -292,7 +292,8 @@ def test_batch_matches_jax(name):
     assert p.order == j.order
     assert p.engine_report() == dict(device="cpu", jet="phase_plain",
                                      propagate_engine="flat", prop=None,
-                                     layout=None)
+                                     grid_engine="flat",
+                                     c_output_engine="flat", layout=None)
     for mdt in (None, 0.05):
         j.step(max_delta_t=mdt)
         p.step(max_delta_t=mdt)

@@ -318,6 +318,8 @@ def test_batch_routes_wide_tape_to_rolled(rolled_only):
     p = ht.taylor_adaptive_batch(_mascon12(ht), st, device="cpu", **kw)
     assert p.engine_report() == dict(device="cpu", jet="jet_rolled_plain",
                                      propagate_engine="flat", prop=None,
+                                     grid_engine="flat",
+                                     c_output_engine="flat",
                                      layout=jr.layout_report(p._jtape))
     assert p.engine_report()["layout"]["layout"] == "smem"
     assert isinstance(p._jtape, jr.RolledTape)
