@@ -122,12 +122,39 @@ if anything is missing or any check fails.  Phases, one line each:
     trip of each route's integrator on the card, then one more
     ``propagate_until`` from the original and the copy, equal bit for bit.
 
+17. the event rows: kernels B2, B3 and B4 on tapes with event equations
+    (their sv-func rows after the state rows) against their plain
+    versions, 1e-13 relative per order, norms too: B2 on Henon-Heiles with
+    its event y and on the outer SS with a close approach at 10,240 lanes,
+    B3 on mascon-512 with the alias-form x - 1.5 and an impact at 1,024
+    (the alias-form event costs 8 bytes a lane, its order 0), B4 on the
+    pendulum with v and x at 10,240; their times;
+18. the Henon-Heiles Poincare batch (``benchmarks/hh_event_bench.py``):
+    ``nt_event(y, direction=positive)`` to t = 200 at tol 1e-15 at 10,240
+    and 1,024 lanes: only B2 on the event path, one launch a lockstep
+    step; the energy drift at most 1e-12; 64 lanes' hits equal to the
+    port's CPU run in count and sign, times within 1e-10; at 1,024 the
+    same run with ``c_output``, |y| at most 1e-12 at every hit; the rates
+    with the event and without it (fused B1) in turns, their ratio; the
+    device idle share on a tenth of the run (profiler); the isolation's
+    share of an event step;
+19. terminal events and callbacks at scale: the pendulum at 10,240 lanes
+    (B4) with ``t_event(v, callback=continue)`` to t = 20 (the resume
+    loop's rounds and rate, drift at most 1e-12); mascon-512 at 1,024 (B3)
+    with the alias-form ``nt_event(x - 1.5)`` and an impact over two
+    orbits (Jacobi drift at most 1e-12, the hits); the outer SS at 10,240
+    (B2) with a host callback that stops after 10 steps (``cb_stop`` on
+    every lane); ``propagate_grid`` with the HH event to t = 20 over 201
+    points (rows within 1e-12 of the event-free grid's, hits equal to
+    ``propagate_until``'s).
+
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
 plain version's, its bound from ``tools.roofline`` and, where one torch
-call computes the same function, that call's time; for B2, B3 and B4 also
-``path_launches``, the launches on phases 15-16's paths); the last line is
-``{"ok": true, "device": {...}}``.
+call computes the same function, that call's time; for B1-B4 also
+``path_launches``, the launches on phases 15-16's and 17-19's paths, and
+for B2-B4 ``event_rows_ms``, phase 17's times with event rows); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -510,6 +537,32 @@ def main():
         c_output=couts["mascon512"]["jet_rolled"])
     phased[2]["path_launches"] = dict(
         propagate_grid=grids["pendulum"]["launches"]["phase"])
+    # the event paths (phases 17-19): each kernel's launches on them, its
+    # event rows' error and time
+    ev_errs, ev_rows = event_rows(dev, smi, order)
+    hh = hh_poincare(dev, smi)
+    evp = event_paths(dev, smi, sys_, ics)
+    times["jet"]["path_launches"].update(
+        hh_events=hh[f"B{HH_B}"]["launches"]["jet"],
+        hh_events_b1024=hh[f"B{HH_B_REF}"]["launches"]["jet"],
+        hh_grid_events=evp["hh_grid_events"]["launches"]["jet"],
+        outer_ss_host_callback=evp["outer_ss_host_callback"]["launches"][
+            "jet"])
+    times["prop"]["path_launches"] = dict(
+        hh_events=hh[f"B{HH_B}"]["launches"]["prop"],
+        hh_without_events=hh[f"B{HH_B}"]["plain_launches"]["prop"])
+    rolled[2]["path_launches"]["mascon512_events"] = evp[
+        "mascon512_events"]["launches"]["jet_rolled"]
+    phased[2]["path_launches"]["pendulum_te_callback"] = evp[
+        "pendulum_te_callback"]["launches"]["phase"]
+    for row, key in ((times["jet"], "b2_hh"), (rolled[2], "b3_mascon512"),
+                     (phased[2], "b4_pendulum")):
+        row["event_rows_ms"] = ev_rows[key]["ms_runs"]
+    times["jet"]["event_rows_ms_outer_ss"] = ev_rows["b2_outer_ss"][
+        "ms_runs"]
+    jet_err = max(jet_err, ev_errs["jet"])
+    rolled = (rolled[0], max(rolled[1], ev_errs["jet_rolled"]), rolled[2])
+    phased = (phased[0], max(phased[1], ev_errs["phase"]), phased[2])
 
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
@@ -1426,6 +1479,480 @@ def proto_tool(dev, smi):
                                 res)
     return name, n, err, dict(tm, **{k: res["shape"][k] for k in (
         "layout", "lanes", "threads", "smem")})
+
+
+# -- events (phases 17-19) ------------------------------------------------------
+
+HH_B = 10_240
+HH_B_REF = 1_024  # the reference benchmark's width (hh_event_bench.py:53)
+HH_T = 200.0
+HH_REF_LANES = 64
+HH_HIT_ATOL = 1e-10
+HH_COUT_Y = 1e-12
+HH_GRID_T = 20.0
+HH_GRID_N = 201
+HH_GRID_ATOL = 1e-12
+TE_PEND_T = 20.0
+SS_CB_STEPS = 10
+
+
+def hh_sys():
+    """Henon-Heiles (``benchmarks/hh_event_bench.py:14-21``) and its y."""
+    x, y, px, py = ht.make_vars("x", "y", "px", "py")
+    return [(x, px), (y, py), (px, -x - 2.0 * x * y),
+            (py, -y - (x * x - y * y))], y
+
+
+def hh_energy(st):
+    """H = (px^2 + py^2)/2 + (x^2 + y^2)/2 + x^2 y - y^3/3 per lane."""
+    x, y, px, py = st.unbind(1)
+    return (0.5 * (px * px + py * py) + 0.5 * (x * x + y * y) + x * x * y
+            - y * y * y / 3.0)
+
+
+def hh_lanes(B):
+    """``[0, 0.1, 0.35, 0.1] + 1e-3 N(0, 1)``, numpy rng 0
+    (``hh_event_bench.py:55-58``); the first 1,024 of any B are the
+    reference's lanes."""
+    rng = np.random.default_rng(0)
+    return (np.array([0.0, 0.1, 0.35, 0.1])[None]
+            + 1e-3 * rng.standard_normal((B, 4)))
+
+
+class HitArrays:
+    """A vectorized non-terminal callback that keeps every hit: the arrays
+    of one call an event, sorted by lane and then time."""
+
+    vectorized = True
+
+    def __init__(self):
+        self.parts = []
+
+    def __call__(self, tb, ts, sgn, lanes):
+        self.parts.append((np.asarray(ts), np.asarray(sgn),
+                           np.asarray(lanes)))
+
+    def arrays(self):
+        if not self.parts:
+            return np.zeros(0), np.zeros(0, int), np.zeros(0, int)
+        return tuple(np.concatenate(x) for x in zip(*self.parts))
+
+    def per_lane(self, B):
+        ts, sg, ln = self.arrays()
+        return [(ts[ln == i], sg[ln == i]) for i in range(B)]
+
+
+def hh_batch(ics, dev, cb=None, **kw):
+    sys_, y = hh_sys()
+    ev = [] if cb is None else [ht.nt_event(
+        y, cb, direction=ht.EventDirection.positive)]
+    return ht.taylor_adaptive_batch(sys_, ics, device=dev, tol=TOL,
+                                    high_accuracy=True, nt_events=ev, **kw)
+
+
+def event_rows(dev, smi, order):
+    """Phase 17, the sv-func rows of B2, B3 and B4 against their plain
+    versions on the card, 1e-13 relative per order (norms too): B2 on the
+    Henon-Heiles tape with its event y and on the outer-SS tape with a
+    close approach (Uranus and Neptune within 10 au) at 10,240 lanes, B3
+    on mascon-512 with the alias-form x - 1.5 and the impact x^2 + y^2 +
+    z^2 - 1 at 1,024 lanes (its layout; its bytes a lane beside the
+    tape's without events and with the alias-form event alone, which
+    costs its order 0, 8 bytes), B4 on the pendulum with v and x at 10,240.  Returns
+    each kernel's largest error and times."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    res, errs = {}, {}
+
+    def compare(name, jet_fn, plain_fn, tape, args, kernel, B):
+        zero_launches()
+        tc, nrm = jet_fn(tape, *args)
+        torch.cuda.synchronize()
+        check(jk.LAUNCHES[kernel] == 1, f"{name}: {kernel} not launched")
+        tc_p, nrm_p = plain_fn(tape, *args)
+        rel = float(per_order_rel(tc, tc_p).max())
+        nrel = float(((nrm - nrm_p).abs().amax(1)
+                      / nrm_p.abs().amax(1)).max())
+        check(rel <= JET_RTOL and nrel <= JET_RTOL,
+              f"{name}: event rows vs plain {rel}, norms {nrel}")
+        err = float((tc - tc_p).abs().max())
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        t_k = [cuda_ms(lambda: jet_fn(tape, *args), 5) for _ in range(2)]
+        res[name] = dict(B=B, rows=int(tc.shape[0]), n_eq=tape.n_eq,
+                         n_out=tape.n_out, max_rel_per_order=rel,
+                         norms_max_rel=nrel, max_abs_err=err, ms_runs=t_k)
+
+    def tape_of(sys_, evs, cls):
+        return cls(ht.plan_to_arrays(build_plan(
+            ht.taylor_decompose_sys(sys_, extra_outputs=evs), order)), dev)
+
+    # B2: Henon-Heiles with y, the outer SS with a close approach
+    sys_h, y = hh_sys()
+    st = torch.as_tensor(hh_lanes(HH_B).T.copy(), **f64)
+    np0 = torch.zeros((0, HH_B), **f64)
+    compare("b2_hh", jk.jet, jk.jet_plain, tape_of(sys_h, [y], jk.JetTape),
+            (st, np0), "jet", HH_B)
+    sys_ss = nbody(6, masses=MASSES, Gconst=GCONST)
+    v = [lhs for lhs, _ in sys_ss]
+    d2 = sum((v[18 + i] - v[24 + i]) ** 2 for i in range(3))
+    st = torch.as_tensor(lanes(IC, B_MAIN, 3).T.copy(), **f64)
+    compare("b2_outer_ss", jk.jet, jk.jet_plain,
+            tape_of(sys_ss, [d2 - 100.0], jk.JetTape), (st, np0), "jet",
+            B_MAIN)
+    # B3: mascon-512 with an alias-form event and an impact
+    kw_m, rng_m = mascon_body(MASCON_N)
+    sys_m = ht.models.mascon(**kw_m)
+    x, yv, z = (lhs for lhs, _ in sys_m[:3])
+    evs = [x * x + yv * yv + z * z - 1.0, x - 1.5]
+    tr = tape_of(sys_m, evs, jr.RolledTape)
+    orbits = mascon_lanes(rng_m, MASCON_B, kw_m["omega"])
+    st = torch.as_tensor(orbits.T.copy(), **f64)
+    npm = torch.zeros((0, MASCON_B), **f64)
+    compare("b3_mascon512", jr.jet_rolled, jr.jet_rolled_plain, tr,
+            (st, npm, torch.zeros(MASCON_B, **f64)), "jet_rolled", MASCON_B)
+    # bytes a lane: the alias-form event alone is an alias (its order 0,
+    # 8 bytes); the impact adds the history of its new columns
+    per = {k: jr.layout_report(tape_of(sys_m, e, jr.RolledTape))[
+        "lane_bytes"] for k, e in (("none", []), ("alias", [x - 1.5]))}
+    per["both"] = jr.layout_report(tr)["lane_bytes"]
+    check(per["alias"] == per["none"] + 8,
+          f"B3: the alias-form event costs {per['alias'] - per['none']} B")
+    res["b3_mascon512"].update(
+        layout=jr.layout_report(tr), lane_bytes=per,
+        alias_events=int((tr.classv[tr.arrays["out_cols"]] == jr.A).sum()))
+    # B4: the pendulum with v and x
+    sys_p = ht.models.pendulum()
+    xp, vp = (lhs for lhs, _ in sys_p)
+    tp = tape_of(sys_p, [vp, xp], jp.PhaseTape)
+    st = torch.as_tensor(pendulum_lanes(PEND_B, 1).T.copy(), **f64)
+    npp = torch.zeros((0, PEND_B), **f64)
+
+    def phase_plain_jet(tape, state, pars, t=None):
+        buf = jk._seed_plain(tape, state, pars, t)
+        jp.order0(tape, buf)
+        jp.phase_plain(tape, buf, 1)
+        return jk._rows(tape, buf), jk._norms(tape, buf)
+
+    compare("b4_pendulum", jp.jet_phase, phase_plain_jet, tp, (st, npp),
+            "phase", PEND_B)
+    say(17, nvidia_smi=smi, tol=JET_RTOL, **res)
+    return errs, res
+
+
+def hh_poincare(dev, smi):
+    """Phase 18, the Henon-Heiles Poincare batch: ``nt_event(y,
+    direction=positive)`` to t = 200 at tol 1e-15 at 10,240 and 1,024
+    lanes; only B2 launched on the event path, one launch a lockstep step;
+    energy drift; 64 lanes' hits against the port's CPU run; at 1,024 the
+    same run with ``c_output`` and y at every hit; the rates with and
+    without the event (fused B1) in turns; the device idle share on a
+    tenth of the run; the isolation's share of an event step."""
+    out = {}
+    warm = HitArrays()
+    hh_batch(hh_lanes(CHUNK), dev, warm).propagate_until(1.0)
+    hh_batch(hh_lanes(CHUNK), dev).propagate_until(1.0)
+    for B in (HH_B, HH_B_REF):
+        ics = hh_lanes(B)
+        e0 = hh_energy(torch.as_tensor(ics, device=dev))
+        rec = HitArrays()
+        zero_launches()
+        ta, res, wall = timed_call(lambda: hh_batch(ics, dev, rec),
+                                   lambda t: t.propagate_until(HH_T))
+        launches = dict(jk.LAUNCHES)
+        oc, _, _, ns = res
+        check(ta.engine_report()["propagate_engine"] == "events",
+              "HH: not the event driver")
+        check(launches["jet"] == int(ns.max()) and all(
+            n == 0 for k, n in launches.items() if k != "jet"),
+            f"HH B={B}: launches {launches}, {int(ns.max())} lockstep steps")
+        check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+              and bool((ta.time == HH_T).all()), f"HH B={B}: landing")
+        drift = float(((hh_energy(torch.as_tensor(ta.state, device=dev))
+                        - e0).abs() / e0.abs()).max())
+        check(drift <= DRIFT_MAX, f"HH B={B}: energy drift {drift}")
+        ts, sg, ln = rec.arrays()
+        check(bool((sg == 1).all()), "HH: a hit of the wrong direction")
+        runs = {"events": [(res, wall)], "plain": []}
+        for i, key in enumerate(("plain", "events", "plain")):
+            zero_launches()
+            runs[key].append(timed_call(
+                lambda: hh_batch(ics, dev, HitArrays() if key == "events"
+                                 else None),
+                lambda t: t.propagate_until(HH_T))[1:])
+            if i == 0:  # the event-free route: fused B1, B2 to land
+                plain_launches = dict(jk.LAUNCHES)
+                check(plain_launches["prop"] > 0,
+                      f"HH without the event: launches {plain_launches}")
+        rate = {k: lane_rates(v) for k, v in runs.items()}
+        r = dict(B=B, t_end=HH_T, lane_steps=int(ns.sum()),
+                 lockstep_steps=int(ns.max()), crossings=int(ts.size),
+                 crossings_per_lane=ts.size / B, launches=launches,
+                 plain_launches=plain_launches,
+                 energy_drift_max_rel=drift,
+                 events_wall_s=[w for _, w in runs["events"]],
+                 plain_wall_s=[w for _, w in runs["plain"]],
+                 events_steps_per_s=rate["events"],
+                 plain_steps_per_s=rate["plain"],
+                 overhead_x=float(np.median(rate["plain"])
+                                  / np.median(rate["events"])))
+        if B == HH_B:
+            # 64 lanes against the port's CPU run
+            ref = HitArrays()
+            hh_batch(ics[:HH_REF_LANES], "cpu", ref).propagate_until(HH_T)
+            mine = rec.per_lane(HH_REF_LANES)
+            cpu = ref.per_lane(HH_REF_LANES)
+            check(all(a[0].size == b[0].size and np.array_equal(a[1], b[1])
+                      for a, b in zip(mine, cpu)),
+                  "HH: hits differ from the CPU run in count or sign")
+            dt_max = max(float(np.abs(a[0] - b[0]).max(initial=0.0))
+                         for a, b in zip(mine, cpu))
+            check(dt_max <= HH_HIT_ATOL, f"HH: hit times vs CPU {dt_max}")
+            r.update(cpu_ref_lanes=HH_REF_LANES, cpu_ref_hit_dt_max=dt_max)
+            r["isolation"] = isolation_share(
+                lambda: hh_batch(ics, dev, HitArrays()), HH_T / 10)
+            r["profile"] = hh_profile(ics, dev)
+        else:
+            # the same run with c_output: y at every hit time
+            rc = HitArrays()
+            zero_launches()
+            tc_, resc = hh_batch(ics, dev, rc), None
+            resc = tc_.propagate_until(HH_T, c_output=True)
+            check(jk.LAUNCHES["jet"] > 0 and jk.LAUNCHES["prop"] == 0,
+                  f"HH c_output: launches {dict(jk.LAUNCHES)}")
+            co = resc[4]
+            per = rc.per_lane(B)
+            m = max(p[0].size for p in per)
+            q = np.tile(tc_.time, (m, 1))
+            for i, (t_i, _) in enumerate(per):
+                q[:t_i.size, i] = t_i
+            yv = co(q)[:, :, 1]
+            ymax = float(max(np.abs(yv[:p[0].size, i]).max(initial=0.0)
+                             for i, p in enumerate(per)))
+            check(ymax <= HH_COUT_Y, f"HH c_output: |y| at a hit {ymax}")
+            check(rc.arrays()[0].size == ts.size,
+                  "HH c_output: the hits differ from propagate_until's")
+            r.update(c_output_y_at_hits_max=ymax,
+                     c_output_steps=int(resc[3].sum()))
+        out[f"B{B}"] = r
+    say(18, nvidia_smi=smi, **out)
+    return out
+
+
+def isolation_share(make, t_end):
+    """Where an event step's time goes, over a run of ``make()`` to
+    ``t_end``: the jet and step size (``ev.jet_b``: the route's kernel and
+    Jorba's h) and the root finding (``ev.find_roots_b``: exclusion, tree,
+    fallback, refinement) each timed between two device syncs, their
+    shares of the run's wall (with those syncs), and ``find_roots``'s
+    counts (rows, rows the tree took, rows it could not certify,
+    Collins-Akritas iterations)."""
+    ta = make()
+    ev = ta._ev
+    acc = {"jet_b": 0.0, "find_roots_b": 0.0}
+    real = {k: getattr(ev, k) for k in acc}
+    s0 = dict(real["find_roots_b"].stats)
+
+    def timed_part(key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[key](*a)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    for k in acc:
+        setattr(ev, k, timed_part(k))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ta.propagate_until(t_end)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k in acc:
+            setattr(ev, k, real[k])
+    st = {k: v - s0[k] for k, v in real["find_roots_b"].stats.items()}
+    return dict(B=ta.batch_size, t_end=t_end, wall_s=wall,
+                event_steps=st["calls"], jet_s=acc["jet_b"],
+                find_roots_s=acc["find_roots_b"],
+                jet_share=acc["jet_b"] / wall,
+                isolation_share=acc["find_roots_b"] / wall,
+                ms_per_step=1e3 * wall / max(st["calls"], 1),
+                find_roots_stats=st)
+
+
+def hh_profile(ics, dev):
+    """The first tenth of the HH event run, timed three times without and
+    once with ``torch.profiler``: the device's busy and idle shares and
+    B2's share of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    t_end = HH_T / 10
+    walls = [timed_call(lambda: hh_batch(ics, dev, HitArrays()),
+                        lambda t: t.propagate_until(t_end))[2]
+             for _ in range(3)]
+    wall = sorted(walls)[1]
+    tp = hh_batch(ics, dev, HitArrays())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp.propagate_until(t_end)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e6
+    b2 = sum(e.time_range.elapsed_us() for e in dev_ev
+             if "jet_kernel" in e.name) / 1e6
+    return dict(t_end=t_end, wall_s=walls, device_events=len(dev_ev),
+                device_busy_s=busy if dev_ev else None,
+                device_idle_share=1.0 - busy / wall if dev_ev else None,
+                b2_share_of_busy=b2 / busy if dev_ev else None)
+
+
+def event_paths(dev, smi, sys_ss, ics_ss):
+    """Phase 19, terminal events and callbacks at scale: the pendulum at
+    10,240 lanes (B4) with ``t_event(v, callback=continue)`` to t = 20
+    (the resume loop's rounds and rate, the energy drift); mascon-512 at
+    1,024 (B3) with ``nt_event(x - 1.5)`` and the impact ``t_event`` over
+    two orbits (the Jacobi drift, the hits); the outer SS at 10,240 (B2)
+    with a host callback that stops after 10 steps (``cb_stop`` on every
+    lane); ``propagate_grid`` with the HH event to t = 20 over 201 points
+    at 10,240 (B2), held to the event-free grid's rows and to
+    ``propagate_until``'s hits.  Each path's counts set to 0 just before
+    it and read just after."""
+    from heyoka_tpu_torch.taylor import events as tev
+    out = {}
+    kw = dict(tol=TOL, high_accuracy=True)
+    # -- the pendulum's terminal event with a callback that goes on -------
+    ics_p = pendulum_lanes(PEND_B, 0)
+    sys_p = ht.models.pendulum()
+    xp, vp = (lhs for lhs, _ in sys_p)
+    calls = [0]
+
+    def go_on(tb, d, lane):
+        calls[0] += 1
+        return True
+
+    rounds = [0]
+    real = tev.propagate_until_ev
+
+    def counted(*a, **k):
+        rounds[0] += 1
+        return real(*a, **k)
+
+    def make_p():
+        return ht.taylor_adaptive_batch(
+            sys_p, ics_p, device=dev, t_events=[ht.t_event(
+                vp, callback=go_on)], **kw)
+
+    ht.taylor_adaptive_batch(sys_p, ics_p[:CHUNK], device=dev, t_events=[
+        ht.t_event(vp, callback=go_on)], **kw).propagate_until(2.0)
+    calls[0] = 0
+    tev.propagate_until_ev = counted
+    try:
+        zero_launches()
+        ta, res, wall = timed_call(make_p,
+                                   lambda t: t.propagate_until(TE_PEND_T))
+        launches = dict(jk.LAUNCHES)
+    finally:
+        tev.propagate_until_ev = real
+    check(launches["phase"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "phase"),
+        f"pendulum te: launches {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in res[0])
+          and bool((ta.time == TE_PEND_T).all()), "pendulum te: landing")
+    e0 = pendulum_energy(torch.as_tensor(ics_p, device=dev))
+    drift = float(((pendulum_energy(torch.as_tensor(ta.state, device=dev))
+                    - e0).abs() / e0.abs()).max())
+    check(drift <= DRIFT_MAX, f"pendulum te: energy drift {drift}")
+    out["pendulum_te_callback"] = dict(
+        B=PEND_B, t_end=TE_PEND_T, rounds=rounds[0], callbacks=calls[0],
+        callbacks_per_lane=calls[0] / PEND_B, lane_steps=int(res[3].sum()),
+        wall_s=wall, steps_per_s=int(res[3].sum()) / wall,
+        launches=launches, energy_drift_max_rel=drift,
+        isolation=isolation_share(make_p, TE_PEND_T / 4))
+    # -- mascon-512 with the alias-form nt event and the impact -----------
+    kw_m, rng_m = mascon_body(MASCON_N)
+    orbits = mascon_lanes(rng_m, MASCON_B, kw_m["omega"])
+    sys_m = ht.models.mascon(**kw_m)
+    x, y, z = (lhs for lhs, _ in sys_m[:3])
+    rec = HitArrays()
+    zero_launches()
+    tm, res, wall = timed_call(
+        lambda: ht.taylor_adaptive_batch(
+            sys_m, orbits, device=dev, nt_events=[ht.nt_event(x - 1.5, rec)],
+            t_events=[ht.t_event(x * x + y * y + z * z - 1.0)], **kw),
+        lambda t: t.propagate_until(MASCON_T))
+    launches = dict(jk.LAUNCHES)
+    check(launches["jet_rolled"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "jet_rolled"),
+        f"mascon events: launches {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in res[0]),
+          "mascon events: a lane stopped (no orbit reaches the body)")
+    drift = float(((jacobi(torch.as_tensor(tm.state, device=dev), kw_m)
+                    - jacobi(torch.as_tensor(orbits, device=dev), kw_m)).abs()
+                   / jacobi(torch.as_tensor(orbits, device=dev),
+                            kw_m).abs()).max())
+    check(drift <= JACOBI_MAX, f"mascon events: Jacobi drift {drift}")
+    n_hits = rec.arrays()[0].size
+    check(n_hits > 0, "mascon events: no lane crossed x = 1.5")
+    out["mascon512_events"] = dict(
+        B=MASCON_B, t_end=MASCON_T, hits=n_hits, hits_per_lane=n_hits
+        / MASCON_B, lane_steps=int(res[3].sum()), wall_s=wall,
+        steps_per_s=int(res[3].sum()) / wall, launches=launches,
+        jacobi_drift_max_rel=drift, isolation=isolation_share(
+            lambda: ht.taylor_adaptive_batch(
+                sys_m, orbits, device=dev, nt_events=[ht.nt_event(
+                    x - 1.5, HitArrays())], t_events=[ht.t_event(
+                        x * x + y * y + z * z - 1.0)], **kw),
+            MASCON_T / 4))
+    # -- the outer SS with a host callback that stops after 10 steps -------
+    n_cb = [0]
+
+    def stop_at_10(tb):
+        n_cb[0] += 1
+        return n_cb[0] < SS_CB_STEPS
+
+    zero_launches()
+    ts_, res, wall = timed_call(
+        lambda: ht.taylor_adaptive_batch(sys_ss, ics_ss, device=dev, **kw),
+        lambda t: t.propagate_until(T_END, callback=stop_at_10))
+    launches = dict(jk.LAUNCHES)
+    check(all(o == ht.TaylorOutcome.cb_stop for o in res[0])
+          and bool((res[3] == SS_CB_STEPS).all()),
+          "outer SS host callback: not cb_stop after 10 steps")
+    check(launches["jet"] == SS_CB_STEPS and all(
+        n == 0 for k, n in launches.items() if k != "jet"),
+        f"outer SS host callback: launches {launches}")
+    out["outer_ss_host_callback"] = dict(
+        B=B_MAIN, steps=SS_CB_STEPS, wall_s=wall, launches=launches)
+    # -- the HH grid with the event against the event-free grid -----------
+    grid = np.linspace(0.0, HH_GRID_T, HH_GRID_N)
+    ics = hh_lanes(HH_B)
+    rec_g, rec_u = HitArrays(), HitArrays()
+    zero_launches()
+    tg, rg, wall = timed_call(lambda: hh_batch(ics, dev, rec_g),
+                              lambda t: t.propagate_grid(grid))
+    launches = dict(jk.LAUNCHES)
+    check(launches["jet"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "jet"),
+        f"HH grid: launches {launches}")
+    plain = hh_batch(ics, dev).propagate_grid(grid)[4]
+    hh_batch(ics, dev, rec_u).propagate_until(HH_GRID_T)
+    dev_max = float(np.abs(rg[4] - plain).max())
+    check(all(o == ht.TaylorOutcome.time_limit for o in rg[0])
+          and dev_max <= HH_GRID_ATOL, f"HH grid vs event-free {dev_max}")
+    a, b = rec_g.arrays(), rec_u.arrays()
+    same = a[0].size == b[0].size and np.array_equal(a[1], b[1]) \
+        and np.array_equal(a[2], b[2])
+    check(same, "HH grid: hits differ from propagate_until's")
+    out["hh_grid_events"] = dict(
+        B=HH_B, n_grid=HH_GRID_N, t_end=HH_GRID_T, vs_event_free_max_abs=
+        dev_max, hits=int(a[0].size), hit_dt_vs_until_max=float(
+            np.abs(a[0] - b[0]).max(initial=0.0)), wall_s=wall,
+        lane_steps=int(rg[3].sum()), launches=launches)
+    say(19, nvidia_smi=smi, **out)
+    return out
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ the originals by the tests.  Everything runs in f64 on an explicit
 ``device``: a CPU tensor runs the plain torch versions, a CUDA tensor the
 hand-written CUDA kernels of ``csrc/`` (built with ``nvcc`` at first use).
 
-The port covers the batch integrator without events and callbacks
-(``step``, ``propagate_until``/``propagate_for`` with continuous output,
-``propagate_grid``, the dense output of the last step, pickling): tapes
+The port covers the batch integrator with terminal and non-terminal
+events and step callbacks (``step``, ``propagate_until``/
+``propagate_for`` with continuous output, ``propagate_grid``, the dense
+output of the last step, pickling; ``callback.AngleReducer``): tapes
 made of sum, mul, div, sqrt and pow — the outer-Solar-System N-body workload (kernels B1, B2) and
 huge instance-regular tapes such as mascons (kernel B3) — and tapes with
 any other op of the recurrence rule set (trig, hyperbolic, Kepler,
@@ -42,6 +43,8 @@ from .convert import (  # noqa: F401
 from .taylor.batch import TaylorAdaptiveBatch, taylor_adaptive_batch  # noqa: F401
 from .taylor.continuous import ContinuousOutput, ContinuousOutputBatch  # noqa: F401
 from .taylor.outcome import TaylorOutcome  # noqa: F401
+from .taylor.events import EventDirection, nt_event, t_event  # noqa: F401
+from . import callback  # noqa: F401
 from .taylor.jet_kernels import LAUNCHES  # noqa: F401
 from .taylor.jet_phase import PhaseTape, jet_phase, phase  # noqa: F401
 

@@ -23,11 +23,14 @@ enum Op {
 // header of the int32 table `it` of kernels B1, B2, B4 and T2
 // (taylor/jet_kernels.py _HDR, then taylor/jet_phase.py _PHDR's fields,
 // which only B4 and T2 read): sizes, then offsets of the int sub-tables in
-// `it` and of the f64 ones in `dt`
+// `it` and of the f64 ones in `dt`; H_NOUT and H_OUTC, the sv-func
+// columns (the event equations) whose rows B2 writes after the state's,
+// which only B2's epilogue reads (not part of Tape, so that the passes'
+// code does not change)
 enum Hdr {
   H_W, H_NEQ, H_K, H_TIME, H_NG, H_NC, H_NPC, H_NNORM,
   H_RHS, H_NORM, H_CCOLS, H_PCOLS, H_PIDX, H_GOP, H_GSTART, H_GM,
-  H_ARGPTR, H_ARGS, H_D_RHOFAC, H_D_CVALS, H_D_ALPHA,
+  H_ARGPTR, H_ARGS, H_D_RHOFAC, H_D_CVALS, H_D_ALPHA, H_NOUT, H_OUTC,
   H_LVL, H_COP, H_SYNC, H_AUX, H_SYN, H_NSYN, H_NLV
 };
 

@@ -2,7 +2,8 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of heyoka_tpu/taylor/pallas_phase.py:
-//   hy_jet_f64  <- make_dd_jet_kernel (:1604; slim=True, order0="dd")
+//   hy_jet_f64  <- make_dd_jet_kernel (:1604; slim=True, order0="dd";
+//                  the sv_extra rows of the event equations, :1632-1662)
 //   hy_prop_f64 <- make_dd_prop_kernel (:2454)
 // The TPU kernels run in two-f32 arithmetic with an f32 tail and per-lane
 // power-of-two coefficient scaling because the TPU has no f64; the H100
@@ -350,12 +351,23 @@ jet_kernel(const int* __restrict__ it, const double* __restrict__ dt,
       norms[2 * Bs + lane0 + w] = m0;
     }
   }
-  // out (n_eq, K+1, B): the items in the order of the output
+  // out (n_eq + n_out, K+1, B): the state rows, then the sv-func rows
+  // (the event equations, the columns of the table at H_OUTC, read from
+  // the global tables), the items in the order of the output
   const int K1 = T.K + 1;
   for (int i2 = tid; i2 < T.n_eq * K1 * L; i2 += nt) {
     const int ik = i2 / L, l = i2 - ik * L;
     const int i = ik / K1, k = ik - i * K1;
     if (lane0 + l < B) out[(size_t)ik * Bs + lane0 + l] = J.at(k, i, l);
+  }
+  const int n_out = it[H_NOUT];
+  const int* outc = it + it[H_OUTC];
+  double* out_sv = out + (size_t)T.n_eq * K1 * Bs;
+  for (int i2 = tid; i2 < n_out * K1 * L; i2 += nt) {
+    const int jk = i2 / L, l = i2 - jk * L;
+    const int j = jk / K1, k = jk - j * K1;
+    if (lane0 + l < B)
+      out_sv[(size_t)jk * Bs + lane0 + l] = J.at(k, outc[j], l);
   }
 }
 

@@ -2,9 +2,11 @@
 // (sm_90a).
 //
 // Replaces make_dd_jet_kernel_rolled (heyoka_tpu/taylor/pallas_phase.py
-// :1842).  Same contract as hy_jet_f64 (taylor_jet.cu): the order-0 state,
-// parameters and time in; the state columns' coefficients (n_eq, K+1, B)
-// and the per-lane norms of orders K-1, K and 0 out.  What it keeps of the
+// :1842, with its sv_extra rows :1896-1903).  Same contract as hy_jet_f64
+// (taylor_jet.cu): the order-0 state, parameters and time in; the state
+// columns' coefficients, then the sv-func columns' (the event equations),
+// (n_eq + n_out, K+1, B), and the per-lane norms of orders K-1, K and 0
+// out.  What it keeps of the
 // TPU kernel: the coefficients live in the row classes of taylor/rows.py,
 // the orders run in loops and the convolutions have dynamic trip counts.
 // What it drops: the two-f32 arithmetic, the f32 tail and the per-lane
@@ -83,7 +85,8 @@ namespace {
 enum RHdr {
   R_NEQ, R_K, R_WH, R_WC, R_WV, R_NA, R_NS, R_TROW, R_NLEV, R_NC, R_NPC,
   R_NNORM, R_RHS, R_NORM, R_CROWS, R_PROWS, R_PIDX, R_SROWS, R_ALIAS,
-  R_LVL0, R_LVLK, R_SEG, R_REC, R_OFF, R_D_CVALS, R_D_ALPHA
+  R_LVL0, R_LVLK, R_SEG, R_REC, R_OFF, R_D_CVALS, R_D_ALPHA, R_NOUT,
+  R_OUTC
 };
 
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
@@ -153,7 +156,7 @@ struct Bufs {
 };
 
 // order 0 of a location
-__device__ double val0(const Bufs& L, int loc) {
+__device__ __forceinline__ double val0(const Bufs& L, int loc) {
   const int row = loc & kRowMask;
   switch (loc >> kClsShift) {
     case 0: return L.H[row];
@@ -178,13 +181,14 @@ struct Ref {
   }
 };
 
-__device__ Ref alias_ref(const Bufs& L, int root, int s0, int s1) {
+__device__ __forceinline__ Ref alias_ref(const Bufs& L, int root, int s0,
+                                          int s1) {
   return Ref{L.H + root, L.WH, s0 >= 0 ? L.S[s0] : 1.0,
              s1 >= 0 ? L.S[s1] : 1.0};
 }
 
 // a location that is not an alias
-__device__ Ref plain_ref(const Bufs& L, int loc) {
+__device__ __forceinline__ Ref plain_ref(const Bufs& L, int loc) {
   const int row = loc & kRowMask;
   switch (loc >> kClsShift) {
     case 0: return Ref{L.H + row, L.WH, 1.0, 1.0};
@@ -194,7 +198,8 @@ __device__ Ref plain_ref(const Bufs& L, int loc) {
 }
 
 // any location, an alias through the alias table
-__device__ Ref refk(const RTape& T, const Bufs& L, int loc) {
+__device__ __forceinline__ Ref refk(const RTape& T, const Bufs& L,
+                                     int loc) {
   if ((loc >> kClsShift) != kAlias) return plain_ref(L, loc);
   const AliasRec a = T.alias[loc & kRowMask];
   return alias_ref(L, a.root, a.s0, a.s1);
@@ -210,8 +215,11 @@ __device__ Ref opref_w(const RTape& T, const Bufs& L, int per, int o0,
   return alias_ref(L, o1, (o2 & 0xffff) - 1, (o2 >> 16) - 1);
 }
 
-// order j of a location
-__device__ double value(const RTape& T, const Bufs& L, int loc, int j) {
+// order j of a location (the reads are inlined: the rhs rows, the norms
+// and the event rows read through them, and an outlined call costs the
+// passes registers and spills)
+__device__ __forceinline__ double value(const RTape& T, const Bufs& L,
+                                        int loc, int j) {
   return j == 0 ? val0(L, loc) : refk(T, L, loc)(j);
 }
 
@@ -524,10 +532,19 @@ jet_rolled_kernel(const int* __restrict__ it, const double* __restrict__ dt,
         norms[2 * Bs + lane] = m0;
       }
     }
+    // out (n_eq + n_out, K+1, B): the state rows, then the sv-func rows
+    // (the event equations), each read through its location word as the
+    // norms read it (an alias through its root and literals)
     const int K1 = K + 1;
     for (int ik = tid; ik < T.n_eq * K1; ik += NT) {
       const int i = ik / K1, k = ik - i * K1;
       out[(size_t)ik * Bs + lane] = L.H[k * WH + i];
+    }
+    const int n_out = it[R_NOUT];
+    const int* outc = it + it[R_OUTC];
+    for (int jk = tid; jk < n_out * K1; jk += NT) {
+      const int j = jk / K1, k = jk - j * K1;
+      out[(size_t)(T.n_eq * K1 + jk) * Bs + lane] = value(T, L, outc[j], k);
     }
     __syncthreads();  // the next lane reuses the buffers
     if (tr && lane == 0) trace[n_tr++] = clock64();

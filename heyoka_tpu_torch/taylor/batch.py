@@ -2,12 +2,22 @@
 
 The counterpart of ``heyoka_tpu.taylor.batch.TaylorAdaptiveBatch``
 (reference: heyoka ``taylor_adaptive_batch``, ``include/heyoka/
-taylor.hpp:781-1121``) without events, callbacks and variational systems:
-the constructor, ``step``/``step_backward``, ``propagate_until``/
-``propagate_for`` (with continuous output), ``propagate_grid``, the dense
-output of the last step, the per-lane state, parameters and double-length
-time with their setters, ``get_step_res``/``get_propagate_res``,
+taylor.hpp:781-1121``) without variational systems: the constructor with
+its terminal and non-terminal events, ``step``/``step_backward``,
+``propagate_until``/``propagate_for`` (with continuous output and step
+callbacks), ``propagate_grid``, the dense output of the last step, the
+per-lane state, parameters, double-length time and terminal-event
+cooldowns with their setters, ``get_step_res``/``get_propagate_res``,
 ``engine_report``/``assert_engine``, ``warmup`` and pickling.
+
+Events (:mod:`.events`, :mod:`.events_impl`): the event equations are the
+tape's sv-funcs, so the route's jet (B2, B3 or B4) returns their rows
+after the state's and they take part in the step-size norms; every
+propagation of a tape with events runs the per-step drivers over the
+event step (``engine_report()["propagate_engine"] == "events"``), never
+kernel B1.  A step callback also takes ``propagate_until`` off kernel B1:
+an in-graph one runs in the per-step driver, a host one in the
+host-driven driver (``events.propagate_stepwise``).
 
 Every tensor lives on the ``device`` given to the constructor, CUDA unless
 the caller asks for the CPU.  On a CUDA device ``step`` launches kernel B2
@@ -42,12 +52,15 @@ from ..expr.core import Variable, expr
 from ..expr.decompose import Tape, taylor_decompose_sys
 from ..dfloat import dd_add_d, dd_normalize
 from . import stepper as _st
+from ..callback import is_in_graph
+from . import events as _ev
 from .compact import build_plan
 from .compact_flat import (
     check_grid, make_batched_step_flat, make_propagate_grid_flat,
     make_propagate_until_flat,
 )
 from .continuous import ContinuousOutputBatch, make_propagate_until_cout
+from .events_impl import build_event_step_batch
 from .fused import make_propagate_until_fused
 from .jet_kernels import JetTape, jet, layout_report
 from .jet_phase import PhaseTape, jet_phase
@@ -78,23 +91,20 @@ def _normalize_sys(sys_):
     return out
 
 
-def _no_callbacks(callback=None, events=()):
-    if callback is not None or len(events):
-        raise NotImplementedError(
-            "step callbacks and events are not ported yet (ROADMAP A.11)")
-
-
 class TaylorAdaptiveBatch:
     def __init__(self, sys, state, *, device="cuda", time=None, pars=None,
                  tol=None, high_accuracy=False, t_events=(), nt_events=()):
-        _no_callbacks(events=(*t_events, *nt_events))
         self._device = resolve_device(device)
         self._sys = sys = _normalize_sys(sys)
         self._tol = tol = float(np.finfo(np.float64).eps if tol is None
                                 else tol)
         self._order = _st.taylor_order_from_tol(tol)
         self._high_accuracy = high_accuracy = bool(high_accuracy)
-        self._tape: Tape = taylor_decompose_sys(sys)
+        # the event equations are the tape's sv-funcs, terminal ones first
+        self._t_events, self._nt_events = list(t_events), list(nt_events)
+        self._tape: Tape = taylor_decompose_sys(
+            sys, extra_outputs=[ev.expression for ev in
+                                (*self._t_events, *self._nt_events)])
         plan = build_plan(self._tape, self._order)
         # the route: B4 for ops outside JET_OPS, else B3 for huge tapes,
         # else B1/B2; UnsupportedKernelOp for ops without any rule
@@ -128,24 +138,37 @@ class TaylorAdaptiveBatch:
                                device=self._device)
         self._last_res = [(TaylorOutcome.success, 0.0)] * B
         self._last_prop_res = None
+        # the lanes whose last step a terminal event stopped for good (no
+        # callback, or one that returned False): the host-driven driver
+        # ends them
+        self._event_stop = np.zeros(B, bool)
 
         jet_fn = jet_phase if self._phase else \
             jet_rolled if self._rolled else jet
+        self._te_cooldowns = torch.zeros((B, len(self._t_events)),
+                                         dtype=torch.float64,
+                                         device=self._device)
+        self._ev = build_event_step_batch(
+            self._jtape, self._t_events, self._nt_events, tol,
+            high_accuracy=high_accuracy, jet=jet_fn) \
+            if self._t_events or self._nt_events else None
+        kw = dict(high_accuracy=high_accuracy, jet=jet_fn, ev=self._ev)
         self._step_fn = make_batched_step_flat(
             self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
-        self._pg_fn = make_propagate_grid_flat(
-            self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
-        self._cout_fn = make_propagate_until_cout(
-            self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
-        if self._jtape.time_col is None and jet_fn is jet:
+        self._pg_fn = make_propagate_grid_flat(self._jtape, **kw)
+        self._cout_fn = make_propagate_until_cout(self._jtape, **kw)
+        # the per-step driver: events, an in-graph callback, and every
+        # tape kernel B1 cannot take
+        self._flat_pu = make_propagate_until_flat(self._jtape, **kw)
+        if self._ev is not None:
+            self._pu_fn, self._pu_engine = self._flat_pu, "events"
+        elif self._jtape.time_col is None and jet_fn is jet:
             self._pu_fn = make_propagate_until_fused(
                 self._jtape, high_accuracy=high_accuracy,
                 chunk_steps=CHUNK_STEPS)
             self._pu_engine = "fused"
         else:
-            self._pu_fn = make_propagate_until_flat(
-                self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
-            self._pu_engine = "flat"
+            self._pu_fn, self._pu_engine = self._flat_pu, "flat"
 
     # -- introspection ---------------------------------------------------------
 
@@ -156,11 +179,13 @@ class TaylorAdaptiveBatch:
         ``jet_rolled_plain``; for a tape with ops outside B2's rule set
         kernel B4 ``hy_phase_f64`` / ``phase_plain``),
         ``propagate_engine`` (``"fused"``: chunks of
-        kernel B1 plus the exact landing; ``"flat"``: the per-step driver),
-        ``prop`` (``hy_prop_f64`` / ``prop_plain``, None without the
-        fused engine), ``grid_engine`` and ``c_output_engine``, the driver
-        of ``propagate_grid`` and of ``propagate_until(c_output=True)``
-        (``"flat"``, the per-step driver over ``jet``, on every tape), and
+        kernel B1 plus the exact landing; ``"flat"``: the per-step driver;
+        ``"events"``: the per-step driver over the event step, on a tape
+        with events), ``prop`` (``hy_prop_f64`` / ``prop_plain``, None
+        without the fused engine), ``grid_engine`` and
+        ``c_output_engine``, the driver of ``propagate_grid`` and of
+        ``propagate_until(c_output=True)`` (``"flat"``, the per-step
+        driver over ``jet``, or ``"events"`` with events), and
         ``layout``, the block layout of kernels B1/B2 on this tape
         (``jet_kernels.layout_report``) or of kernel B3 on a huge one
         (``jet_rolled.layout_report``; the CPU names the one the card would
@@ -179,8 +204,8 @@ class TaylorAdaptiveBatch:
             propagate_engine=self._pu_engine,
             prop=("hy_prop_f64" if cuda else "prop_plain") if fused
             else None,
-            grid_engine="flat",
-            c_output_engine="flat",
+            grid_engine="events" if self._ev is not None else "flat",
+            c_output_engine="events" if self._ev is not None else "flat",
             layout=None if self._phase else rolled_layout(self._jtape)
             if self._rolled else layout_report(self._jtape),
         )
@@ -285,8 +310,45 @@ class TaylorAdaptiveBatch:
 
     @property
     def tc(self) -> np.ndarray:
-        """Taylor coefficients of the last step, (batch, order+1, dim)."""
+        """Taylor coefficients of the last step, (batch, order+1, dim);
+        after a step with events (batch, order+1, dim + events), the event
+        equations' columns kept, as the JAX class keeps them."""
         return self._tc.cpu().numpy()
+
+    def _tc_with_events(self):
+        """:attr:`tc` on the device, widened with zero event columns to
+        the event step's width (the JAX driver's carry, ``batch.py:
+        1481-1489``)."""
+        n_sv = self.dim + self._jtape.n_out
+        tc = self._tc
+        if tc.shape[2] != n_sv:
+            tc = torch.cat([tc, tc.new_zeros(
+                (self._batch, self._order + 1, n_sv - tc.shape[2]))], 2)
+        return tc
+
+    @property
+    def t_events(self):
+        return list(self._t_events)
+
+    @property
+    def nt_events(self):
+        return list(self._nt_events)
+
+    @property
+    def te_cooldowns(self) -> np.ndarray:
+        """Per-lane terminal-event cooldowns, (batch, n_te) (heyoka
+        ``get_te_cooldowns``)."""
+        return self._te_cooldowns.cpu().numpy()
+
+    def reset_cooldowns(self, lane=None):
+        """Zero the terminal-event cooldowns of every lane, or of ``lane``
+        (heyoka ``reset_cooldowns``)."""
+        cd = self._te_cooldowns.clone()
+        if lane is None:
+            cd.zero_()
+        else:
+            cd[int(lane)] = 0.0
+        self._te_cooldowns = cd
 
     # -- stepping ----------------------------------------------------------------
 
@@ -298,10 +360,16 @@ class TaylorAdaptiveBatch:
 
     def step(self, max_delta_t=None, write_tc: bool = False):
         """One adaptive step in every lane; per-lane ``(outcome, h)`` via
-        :meth:`get_step_res`.  The coefficients of the step are always kept
-        (:attr:`tc`), as in the JAX package: ``write_tc`` is accepted and
-        changes nothing."""
+        :meth:`get_step_res` (the outcome of a step that a terminal event
+        stopped is the event's index).  With events, each lane then calls
+        its non-terminal callbacks ``cb(tb, t, d_sgn, lane)`` in time
+        order and the callback of the terminal event that stopped it,
+        ``cb(tb, d_sgn, lane)`` (``batch.py:855-904``).  The coefficients
+        of the step are always kept (:attr:`tc`), as in the JAX package:
+        ``write_tc`` is accepted and changes nothing."""
         mdt = self._lanes(_pymath.inf if max_delta_t is None else max_delta_t)
+        if self._ev is not None:
+            return self._step_events(mdt)
         new_state, h, tc = self._step_fn(self._state, self._pars, self._t_hi,
                                          mdt)
         self._state, self._last_h, self._tc = new_state.contiguous(), h, tc
@@ -315,6 +383,40 @@ class TaylorAdaptiveBatch:
              TaylorOutcome.success, hi)
             for f, c, hi in zip(finite, clamped, h.tolist())
         ]
+
+    def _step_events(self, mdt):
+        res = self._ev(self._state, self._pars, self._t_hi, self._t_lo, mdt,
+                       self._te_cooldowns)
+        self._state = res["state"].contiguous()
+        self._t_hi, self._t_lo = res["t_hi"], res["t_lo"]
+        self._last_h, self._tc = res["last_h"], res["tc"]
+        self._te_cooldowns = res["cooldowns"]
+        h = res["last_h"].tolist()
+        self._last_res = [(_ev.outcome_of(o), hi) for o, hi in
+                          zip(res["outcome"].tolist(), h)]
+        B = self._batch
+        self._event_stop = np.zeros(B, bool)
+        mask = res["nt_mask"].cpu().numpy()
+        te_idx = res["te_idx"].tolist()
+        if not mask.any() and max(te_idx, default=-1) < 0:
+            return
+        times, idx, sgn = (res[k].cpu().numpy()
+                           for k in ("nt_times", "nt_idx", "nt_sgn"))
+        te_sgn = res["te_sgn"].tolist()
+        t_hi = self._t_hi.tolist()
+        for i in range(B):
+            if self._nt_events and mask[i].any():
+                m = mask[i]
+                order = np.argsort(np.abs(times[i][m] - (t_hi[i] - h[i])),
+                                   kind="stable")
+                for k in order:
+                    cb = self._nt_events[int(idx[i][m][k])].callback
+                    if cb is not None:
+                        cb(self, float(times[i][m][k]), int(sgn[i][m][k]), i)
+            if te_idx[i] >= 0:
+                cb = self._t_events[te_idx[i]].callback
+                self._event_stop[i] = cb is None or \
+                    cb(self, te_sgn[i], i) is False
 
     def step_backward(self):
         self.step(max_delta_t=-_pymath.inf)
@@ -340,8 +442,8 @@ class TaylorAdaptiveBatch:
         if not rel_time:
             # the step's start as the JAX package takes it: time - last_h
             rel = rel - ((self._t_hi + self._t_lo) - self._last_h)
-        self._d_output = _st.horner(lambda i: self._tc[:, i], rel,
-                                    self._order).cpu().numpy()
+        self._d_output = _st.horner(lambda i: self._tc[:, i, :self.dim],
+                                    rel, self._order).cpu().numpy()
         return self._d_output
 
     @property
@@ -363,13 +465,33 @@ class TaylorAdaptiveBatch:
         self._state = res["state"].contiguous()
         self._t_hi, self._t_lo = res["t_hi"], res["t_lo"]
         self._last_h, self._tc = res["last_h"], res["tc"]
-        oc = [TaylorOutcome(o) for o in res["outcome"].tolist()]
+        if "cooldowns" in res:
+            self._te_cooldowns = res["cooldowns"]
+            self._last_te_sgn = res["te_sgn"]
+        oc = [_ev.outcome_of(o) for o in res["outcome"].tolist()]
         self._last_res = list(zip(oc, res["last_h"].tolist()))
         mn, mx, ns = (res[k].cpu().numpy() for k in ("min_h", "max_h",
                                                      "nsteps"))
-        self._last_prop_res = list(zip(oc, mn.tolist(), mx.tolist(),
-                                       ns.tolist()))
+        return self._prop_res(oc, mn, mx, ns)
+
+    def _prop_res(self, oc, mn, mx, ns):
+        """Keep ``(outcomes, min_h, max_h, nsteps)`` for
+        :meth:`get_propagate_res` and return them."""
+        self._last_prop_res = list(zip(oc, np.asarray(mn).tolist(),
+                                       np.asarray(mx).tolist(),
+                                       np.asarray(ns).tolist()))
         return oc, mn, mx, ns
+
+    def _te_callbacks(self) -> bool:
+        return any(ev.callback is not None for ev in self._t_events)
+
+    def _ev_kw(self, hits):
+        """The event drivers' carry: cooldowns, last step and
+        coefficients, the hit log (empty without events)."""
+        if self._ev is None:
+            return {}
+        return dict(cooldowns=self._te_cooldowns, last_h=self._last_h,
+                    tc=self._tc_with_events(), hits=hits)
 
     def propagate_until(self, t, *, max_delta_t=None, max_steps=0,
                         c_output=False, callback=None):
@@ -377,18 +499,62 @@ class TaylorAdaptiveBatch:
         ``(outcomes, min_h, max_h, nsteps)`` per lane, and with
         ``c_output`` a :class:`.continuous.ContinuousOutputBatch` last,
         whose records stay on the device (the per-step driver over the
-        route's jet, on every tape)."""
-        _no_callbacks(callback)
-        target = self._lanes(t)
-        mdt = self._lanes(_pymath.inf if max_delta_t is None else max_delta_t)
+        route's jet, on every tape).
+
+        With events a lane stops at a terminal event without a callback
+        (its outcome the event's index); the non-terminal callbacks run
+        after the propagation, lane by lane in time order
+        (:func:`.events.propagate_until_ev`); terminal events with
+        callbacks go through :func:`.events.propagate_until_te_cb`.
+        ``callback``: an in-graph step callback (:mod:`..callback`) runs
+        after every step of the per-step driver and stops the lanes whose
+        ``keep`` is False with ``cb_stop``; a host callback ``cb(tb) ->
+        bool`` (or an in-graph one with events) runs after every lockstep
+        step of :func:`.events.propagate_stepwise`, and False stops every
+        lane still running."""
+        t_np = np.array(np.broadcast_to(np.asarray(t, np.float64),
+                                        (self._batch,)))
+        mdt_np = np.array(np.broadcast_to(np.asarray(
+            _pymath.inf if max_delta_t is None else max_delta_t,
+            np.float64), (self._batch,)))
+        max_steps = int(max_steps)
+        stepwise = callback is not None and (
+            self._ev is not None or not is_in_graph(callback))
+        if c_output and (stepwise or self._te_callbacks()):
+            oc, mn, mx, ns, rec = _ev.propagate_stepwise(
+                self, t_np, mdt_np, max_steps, callback, record=True)
+            return (*self._prop_res(oc, mn, mx, ns), self._cout(rec))
+        if stepwise:
+            return self._prop_res(*_ev.propagate_stepwise(
+                self, t_np, mdt_np, max_steps, callback))
+        if self._ev is not None and not c_output:
+            if self._te_callbacks():
+                return self._prop_res(*_ev.propagate_until_te_cb(
+                    self, t_np, mdt_np, max_steps))
+            return _ev.propagate_until_ev(self, t_np, np.zeros_like(t_np),
+                                          mdt_np, max_steps)
+        target, mdt = self._lanes(t_np), self._lanes(mdt_np)
         args = (self._state, self._pars, self._t_hi, self._t_lo, target,
-                torch.zeros_like(target), mdt, int(max_steps))
-        if not c_output:
-            return self._finish(self._pu_fn(*args))
-        res = self._cout_fn(*args)
-        return (*self._finish(res), ContinuousOutputBatch(
-            res["times_hi"], res["times_lo"], res["tcs"], res["n_rec"],
-            self._order, self.dim, res["fwd"], device=self._device))
+                torch.zeros_like(target), mdt, max_steps)
+        hits = _ev.HitLog() if self._nt_events else None
+        fwd = t_np >= self.time
+        if c_output:
+            res = self._cout_fn(*args, **self._ev_kw(hits))
+            out = (*self._finish(res), self._cout(res))
+        elif callback is not None:
+            if hasattr(callback, "pre_hook"):
+                callback.pre_hook(self)
+            out = self._finish(self._flat_pu(*args, hook=callback))
+        else:
+            out = self._finish(self._pu_fn(*args))
+        if hits is not None:
+            _ev.dispatch_nt(self, hits, fwd)
+        return out
+
+    def _cout(self, rec) -> ContinuousOutputBatch:
+        return ContinuousOutputBatch(
+            rec["times_hi"], rec["times_lo"], rec["tcs"], rec["n_rec"],
+            self._order, self.dim, rec["fwd"], device=self._device)
 
     def propagate_for(self, delta_t, **kw):
         target = self.time + np.broadcast_to(
@@ -399,15 +565,32 @@ class TaylorAdaptiveBatch:
                        callback=None):
         """Propagate every lane over the shared, monotonic time ``grid``;
         returns ``(outcomes, min_h, max_h, nsteps, out (batch, len(grid),
-        dim))``, the rows a lane did not reach zero.  The per-step driver
-        over the route's jet on every tape
-        (``compact_flat.make_propagate_grid_flat``)."""
-        _no_callbacks(callback)
-        grid = torch.as_tensor(check_grid(grid), device=self._device)
-        mdt = self._lanes(_pymath.inf if max_delta_t is None else max_delta_t)
+        dim))``, the rows a lane did not reach zero, or NaN with events or
+        a callback, as the JAX class fills them.  The per-step driver over
+        the route's jet on every tape, over the event step with events
+        (``compact_flat.make_propagate_grid_flat``; the non-terminal
+        callbacks run after it, lane by lane in time order); with a step
+        callback or terminal-event callbacks the host-driven
+        :func:`.events.propagate_stepwise`."""
+        grid_np = check_grid(grid)
+        mdt_np = np.array(np.broadcast_to(np.asarray(
+            _pymath.inf if max_delta_t is None else max_delta_t,
+            np.float64), (self._batch,)))
+        if callback is not None or self._te_callbacks():
+            oc, mn, mx, ns, out = _ev.propagate_stepwise(
+                self, None, mdt_np, int(max_steps), callback, grid=grid_np)
+            return (*self._prop_res(oc, mn, mx, ns), out)
+        grid = torch.as_tensor(grid_np, device=self._device)
+        hits = _ev.HitLog() if self._nt_events else None
+        fwd = np.full(self._batch, grid_np[-1]) >= self.time
         res = self._pg_fn(self._state, self._pars, self._t_hi, self._t_lo,
-                          grid, mdt, int(max_steps))
-        return (*self._finish(res), res["out"].cpu().numpy())
+                          grid, self._lanes(mdt_np), int(max_steps),
+                          fill=0.0 if self._ev is None else float("nan"),
+                          **self._ev_kw(hits))
+        out = (*self._finish(res), res["out"].cpu().numpy())
+        if hits is not None:
+            _ev.dispatch_nt(self, hits, fwd)
+        return out
 
     def warmup(self, drivers=("step", "propagate_until"), grid_size=8):
         """Build the kernels (``nvcc``, on a CUDA device) and run each of
@@ -425,10 +608,14 @@ class TaylorAdaptiveBatch:
         zero = torch.zeros_like(self._t_hi)
         args = (self._state, self._pars, self._t_hi)
         if "step" in drivers:
-            self._step_fn(*args, zero)
+            if self._ev is not None:
+                self._ev(*args, self._t_lo, zero, self._te_cooldowns)
+            else:
+                self._step_fn(*args, zero)
         if "propagate_until" in drivers:
-            self._pu_fn(*args, self._t_lo, self._t_hi, self._t_lo, zero, 1)
-        if "propagate_grid" in drivers:
+            self._pu_fn(*args, self._t_lo, self._t_hi, self._t_lo, zero, 1,
+                        **self._ev_kw(None))
+        if "propagate_grid" in drivers and self._ev is None:
             self._pg_fn(*args, self._t_lo,
                         self._t_hi[:1].expand(int(grid_size)).contiguous(),
                         zero, 1)
@@ -439,26 +626,34 @@ class TaylorAdaptiveBatch:
     # -- pickling ------------------------------------------------------------------
 
     def __getstate__(self):
-        """The system, tolerance, ``high_accuracy``, the device's name and
-        numpy copies of the lanes (state, parameters, time, last step and
-        its coefficients)."""
+        """The system, tolerance, ``high_accuracy``, the device's name, the
+        events (their callbacks pickled with them, or the pickling fails
+        as the JAX class's does) and numpy copies of the lanes (state,
+        parameters, time, last step and its coefficients, cooldowns)."""
         return {
             "sys": self._sys, "tol": self._tol,
             "high_accuracy": self._high_accuracy,
             "device": str(self._device),
+            "t_events": self._t_events, "nt_events": self._nt_events,
             "state": self.state, "pars": self.pars,
             "t_hi": self._t_hi.cpu().numpy(), "t_lo": self._t_lo.cpu().numpy(),
             "last_h": self.last_h, "tc": self.tc,
+            "cooldowns": self.te_cooldowns,
         }
 
     def __setstate__(self, st):
         """Rebuild on the pickled device (raises where it is absent)."""
         self.__init__(st["sys"], st["state"], pars=st["pars"], tol=st["tol"],
-                      high_accuracy=st["high_accuracy"], device=st["device"])
+                      high_accuracy=st["high_accuracy"], device=st["device"],
+                      t_events=st.get("t_events", ()),
+                      nt_events=st.get("nt_events", ()))
         dev = self._device
         self._t_hi, self._t_lo, self._last_h, self._tc = (
             torch.as_tensor(np.array(st[k], np.float64), device=dev)
             for k in ("t_hi", "t_lo", "last_h", "tc"))
+        if "cooldowns" in st:
+            self._te_cooldowns = torch.as_tensor(
+                np.array(st["cooldowns"], np.float64), device=dev)
 
 
 def taylor_adaptive_batch(sys, state, **kw) -> TaylorAdaptiveBatch:

@@ -29,26 +29,29 @@ from .stepper import horner
 
 
 def make_propagate_until_cout(tape: JetTape, *, high_accuracy: bool = True,
-                              jet=jet):
-    """The per-step propagate-until driver over ``jet`` that also records
-    every step: ``pu(state, pars, t_hi, t_lo, target_hi, target_lo,
-    max_delta_t, max_steps) -> dict``, the fields of
-    ``compact_flat.make_propagate_until_flat``'s result and the records in
+                              jet=jet, ev=None):
+    """The per-step propagate-until driver over ``jet``, or over the event
+    step ``ev``, that also records every step: ``pu(state, pars, t_hi,
+    t_lo, target_hi, target_lo, max_delta_t, max_steps, **kw) -> dict``,
+    the fields of ``compact_flat.make_propagate_until_flat``'s result (its
+    keyword arguments ``kw`` passed on) and the records in
     :class:`ContinuousOutputBatch`'s layout: ``times_hi``, ``times_lo``
     (B, cap+1), ``tcs`` (B, cap, K+1, n), ``n_rec`` (B,) and ``fwd`` (B,).
 
     A lane's records are its accepted steps: every step but a non-finite
     last one (the JAX recorder's rule); they are the first ``n_rec`` rows
-    of its ``tcs``, since a lane that stops stays stopped."""
+    of its ``tcs``, since a lane that stops stays stopped.  With events
+    the last record of a lane that a terminal event stopped is its
+    truncated step, and the records keep the state columns only."""
     pu = make_propagate_until_flat(tape, high_accuracy=high_accuracy,
-                                   jet=jet)
+                                   jet=jet, ev=ev)
 
     def pu_cout(state, pars, t_hi, t_lo, target_hi, target_lo, max_delta_t,
-                max_steps):
+                max_steps, **kw):
         fwd = target_hi + target_lo >= t_hi + t_lo
         rec = []
         res = pu(state, pars, t_hi, t_lo, target_hi, target_lo, max_delta_t,
-                 max_steps, record=rec)
+                 max_steps, record=rec, **kw)
         n_rec = res["nsteps"] - (
             res["outcome"] == int(TaylorOutcome.err_nf_state)).to(torch.int64)
         res.update(_pad_records(rec, n_rec, fwd, res["t_hi"], res["t_lo"],
@@ -67,7 +70,7 @@ def _pad_records(rec, n_rec, fwd, t_hi, t_lo, order, n_eq):
     cap = max(1, int(n_rec.max()) if B else 1)
     del rec[cap:]
     if rec:
-        tcs = torch.stack([r[0] for r in rec], 1)
+        tcs = torch.stack([r[0][..., :n_eq] for r in rec], 1)
         th = torch.stack([r[1] for r in rec], 1)
         tl = torch.stack([r[2] for r in rec], 1)
         rec.clear()  # the stacks hold the only copy from here on

@@ -6,9 +6,11 @@ They replace the Pallas kernels of ``heyoka_tpu/taylor/pallas_phase.py``:
 - ``jet`` / ``jet_plain`` <- ``make_dd_jet_kernel`` (:1604) with
   ``slim=True, order0="dd"``: from the order-0 state (and the parameter
   and time values) compute order 0 of every tape column, then orders
-  1..K; return the state columns' coefficients ``(n_eq, K+1, B)`` and the
-  per-lane infinity norms ``(3, B)`` of orders ``[K-1, K, 0]`` over the
-  state (and sv-func) columns;
+  1..K; return the state columns' coefficients, then those of the tape's
+  sv-func columns (``out_cols``: the event equations, in event order; the
+  JAX kernel's ``sv_extra`` rows, :1632-1662), ``(n_eq + n_out, K+1, B)``,
+  and the per-lane infinity norms ``(3, B)`` of orders ``[K-1, K, 0]``
+  over the state and sv-func columns;
 - ``prop`` / ``prop_plain`` <- ``make_dd_prop_kernel`` (:2454): up to
   ``n_steps`` whole adaptive steps per lane, with the same lane protocol
   (freeze on near-target, on a non-finite step — reverted — and on the
@@ -56,8 +58,9 @@ LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0, "phase": 0,
 #: fields after these (``jet_phase._PHDR``)
 _HDR = ("W", "n_eq", "K", "time_col", "n_groups", "n_const", "n_pcol",
         "n_norm", "rhs", "norm", "ccols", "pcols", "pidx", "gop", "gstart",
-        "gm", "argptr", "args", "d_rhofac", "d_cvals", "d_alpha")
-_HDR_LEN = 28
+        "gm", "argptr", "args", "d_rhofac", "d_cvals", "d_alpha", "n_out",
+        "outc")
+_HDR_LEN = 30
 
 _F64 = torch.float64
 
@@ -89,6 +92,7 @@ class JetTape:
 
         self.rhs = idx(arrays["rhs_cols"])
         self.norm_cols = idx(norm)
+        self.n_out = int(arrays["out_cols"].size)
         self.const_cols = idx(arrays["const_cols"])
         self.const_vals = f64(arrays["const_vals"])
         self.par_cols = idx(arrays["par_cols"])
@@ -115,13 +119,13 @@ class JetTape:
             "rhs": a["rhs_cols"], "norm": norm, "ccols": a["const_cols"],
             "pcols": a["par_cols"], "pidx": a["par_idx"], "gop": a["g_op"],
             "gstart": a["g_start"], "gm": a["g_m"], "argptr": a["arg_ptr"],
-            "args": a["args"], **extra_parts,
+            "args": a["args"], "outc": a["out_cols"], **extra_parts,
         }
         hdr = dict(W=self.width, n_eq=self.n_eq, K=self.order,
                    time_col=-1 if self.time_col is None else self.time_col,
                    n_groups=a["g_op"].size, n_const=a["const_cols"].size,
                    n_pcol=a["par_cols"].size, n_norm=norm.size,
-                   **extra_sizes)
+                   n_out=a["out_cols"].size, **extra_sizes)
         body, off = [], _HDR_LEN
         for key, arr in parts.items():
             hdr[key] = off
@@ -133,6 +137,7 @@ class JetTape:
         hdr["d_cvals"] = 1
         hdr["d_alpha"] = 1 + a["const_vals"].size
         keys = _HDR + tuple(extra_parts) + tuple(extra_sizes)
+        assert len(set(keys)) == len(keys)
         assert len(keys) <= _HDR_LEN
         head = np.zeros(_HDR_LEN, np.int64)
         head[:len(keys)] = [hdr[k] for k in keys]
@@ -288,12 +293,21 @@ def _norms(tape: JetTape, tc):
                         for o in (K - 1, K, 0)])
 
 
+def _rows(tape: JetTape, tc):
+    """The jet's rows of the dense buffer ``tc (K+1, W, B)``: the state
+    columns, then the sv-func columns, ``(n_eq + n_out, K+1, B)`` (the
+    norm columns, in their order)."""
+    rows = tc[:, :tape.n_eq] if not tape.n_out else \
+        tc.index_select(1, tape.norm_cols)
+    return rows.permute(1, 0, 2).contiguous()
+
+
 def jet_plain(tape: JetTape, state, pars, t=None):
     """Plain torch twin of kernel B2 (see the module docstring)."""
     _check_rules(tape)
     tc = _seed_plain(tape, state, pars, t)
     _jet_fill(tape, tc)
-    return tc[:, :tape.n_eq].permute(1, 0, 2).contiguous(), _norms(tape, tc)
+    return _rows(tape, tc), _norms(tape, tc)
 
 
 def prop_plain(tape: JetTape, state, pars, aux, auxi, n_steps: int,
@@ -501,7 +515,8 @@ def _launch_cfg(tape: JetTape, B: int, dev, lanes=None, threads=None):
 def jet(tape: JetTape, state, pars, t=None):
     """Taylor jet of ``state (n_eq, B)`` with parameters ``pars (n_pars,
     B)`` and, for a tape with a time column, times ``t (B,)`` -> ``(tc
-    (n_eq, K+1, B), norms (3, B))``.  A CPU tensor runs :func:`jet_plain`;
+    (n_eq + n_out, K+1, B), norms (3, B))``: the state rows, then the
+    tape's sv-func rows (``out_cols``, the event equations).  A CPU tensor runs :func:`jet_plain`;
     a CUDA tensor launches kernel B2 (``hy_jet_f64``) with the block
     layout of :func:`block_layout`."""
     _check_rules(tape)
@@ -522,7 +537,7 @@ def _jet_cuda(tape: JetTape, state, pars, t=None, lanes=None, threads=None,
     _check("pars", pars, (tape.n_pars, B), _F64, dev)
     if tape.time_col is not None:
         _check("t", t, (B,), _F64, dev)
-    out = torch.empty((n_eq, K + 1, B), dtype=_F64, device=dev)
+    out = torch.empty((n_eq + tape.n_out, K + 1, B), dtype=_F64, device=dev)
     norms = torch.empty((3, B), dtype=_F64, device=dev)
     if B == 0:
         return out, norms

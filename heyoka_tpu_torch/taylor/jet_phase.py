@@ -46,7 +46,7 @@ from ..expr.numeric import evaluate
 from .jet_kernels import (
     BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, SMEM_MAX, JetTape, _F64,
     _HDR, _HDR_LEN, _check, _device_of, _eval0, _eval_k, _norms, _ptr,
-    _seed_plain, table_bytes,
+    _rows, _seed_plain, table_bytes,
 )
 
 #: header of the phase kernels' int32 table (csrc/taylor_common.cuh ``enum
@@ -572,11 +572,14 @@ def layout_report(tape: PhaseTape, B: int, itemsize: int = 8) -> dict:
 
 
 def jet_phase(tape: PhaseTape, state, pars, t=None):
-    """Taylor jet with the contract of ``jet_kernels.jet``: ``(tc (n_eq,
-    K+1, B), norms (3, B))`` from ``state (n_eq, B)``, ``pars (n_pars,
-    B)`` and ``t (B,)``.  Seeds the buffer, runs :func:`order0` and then
-    :func:`phase` from ``lo = 1``, which launches kernel B4 on a CUDA
-    tensor."""
+    """Taylor jet with the contract of ``jet_kernels.jet``: ``(tc (n_eq +
+    n_out, K+1, B), norms (3, B))`` from ``state (n_eq, B)``, ``pars
+    (n_pars, B)`` and ``t (B,)``.  Seeds the buffer, runs :func:`order0`
+    and then :func:`phase` from ``lo = 1``, which launches kernel B4 on a
+    CUDA tensor.  The jet is in place in the buffer, every op column
+    written back by the kernel, so the sv-func rows (the event equations,
+    the JAX kernel's ``sv_extra``) are gathered from it after the state
+    rows."""
     dev = _device_of(state, tape)
     B = state.shape[1]
     _check("state", state, (tape.n_eq, B), _F64, dev)
@@ -584,4 +587,4 @@ def jet_phase(tape: PhaseTape, state, pars, t=None):
     tc = _seed_plain(tape, state, pars, t)
     order0(tape, tc)
     phase(tape, tc, 1)
-    return tc[:, :tape.n_eq].permute(1, 0, 2).contiguous(), _norms(tape, tc)
+    return _rows(tape, tc), _norms(tape, tc)

@@ -2,9 +2,10 @@
 layout, its wrapper and its plain torch twin.
 
 It replaces ``make_dd_jet_kernel_rolled`` (``heyoka_tpu/taylor/
-pallas_phase.py:1842``) and has the contract of ``jet_kernels.jet``:
-``(state (n_eq, B), pars (n_pars, B), t (B,))`` in, ``(tc (n_eq, K+1, B),
-norms (3, B))`` out.  What differs is where the coefficients live: in the
+pallas_phase.py:1842``, with its ``sv_extra`` rows :1896-1903) and has
+the contract of ``jet_kernels.jet``: ``(state (n_eq, B), pars (n_pars,
+B), t (B,))`` in, ``(tc (n_eq + n_out, K+1, B), norms (3, B))`` out, the
+state rows and then the sv-func rows (the event equations).  What differs is where the coefficients live: in the
 row classes of :mod:`.rows`, with the literal aliases taken out of H.
 One lane's coefficients are
 
@@ -22,6 +23,11 @@ block's shared memory (:func:`block_layout`) beside S, the literals the
 alias chains multiply by (513 doubles), a zero (a literal above order 0)
 and a staging row of a double a thread for the wide sums; V stays in
 global memory.
+
+An sv-func column is H (``rows._row_classes``) but may still be an
+alias (an event ``x - 1.5`` is ``x + (-1.5)``): its rows are read through
+its root and literals, as every alias operand is, so the event rows cost
+no bytes a lane.
 
 Both the twin and the kernel read every operand through the class maps
 and the alias table, so the twin's agreement with the dense jet is what
@@ -55,7 +61,7 @@ H, C, V, A = 0, 1, 2, 3
 _RHDR = ("n_eq", "K", "WH", "WC", "WV", "NA", "NS", "time_row",
          "n_levels", "n_const", "n_pcol", "n_norm", "rhs", "norm", "crows",
          "prows", "pidx", "srows", "alias", "lvl0", "lvlk", "seg", "rec",
-         "off", "d_cvals", "d_alpha")
+         "off", "d_cvals", "d_alpha", "n_out", "outc")
 _RHDR_LEN = 32
 #: ints of one segment of the tables: op, items, first record, arity
 #: (``SEG_VAR``: records through ``off``, a thread an item; ``SEG_WIDE``:
@@ -262,6 +268,7 @@ class RolledTape(JetTape):
 
         self.rhs_set = cset(arrays["rhs_cols"])
         self.norm_set = cset(self.norm_cols.cpu().numpy())
+        self.out_set = cset(arrays["out_cols"]) if self.n_out else None
         # per group: order 0 over all its columns; orders k >= 1 over those
         # that are not aliases (None where none is left)
         self.rgroups = []
@@ -370,14 +377,15 @@ class RolledTape(JetTape):
             "pidx": a["par_idx"], "srows": self.srows,
             "alias": alias.ravel(),
             "lvl0": lvls["lvl0"], "lvlk": lvls["lvlk"], "seg": seg,
-            "rec": rec, "off": off,
+            "rec": rec, "off": off, "outc": loc[a["out_cols"]],
         }
         WH, WC, WV, NA, NS = self.sizes
         hdr = dict(n_eq=n_eq, K=self.order, WH=WH, WC=WC, WV=WV, NA=NA, NS=NS,
                    time_row=-1 if self.time_col is None
                    else int(self.rowmap[self.time_col]),
                    n_levels=len(plan.levels), n_const=a["const_cols"].size,
-                   n_pcol=a["par_cols"].size, n_norm=nrm.size)
+                   n_pcol=a["par_cols"].size, n_norm=nrm.size,
+                   n_out=a["out_cols"].size)
         body, off_ = [], _RHDR_LEN
         for key, arr in parts.items():
             if key == "alias":  # int4 records: 16-byte aligned
@@ -449,7 +457,12 @@ def jet_rolled_plain(tape: RolledTape, state, pars, t=None):
                                            hist_of(own, ops), len(ops)))
     norms = torch.stack([tape.norm_set.hist(bufs, o, o + 1)[0].abs().amax(0)
                          for o in (K - 1, K, 0)])
-    return Hb[:, :n_eq].permute(1, 0, 2).contiguous(), norms
+    rows = Hb[:, :n_eq]
+    if tape.out_set is not None:
+        # the sv-func rows, read as every operand is: an alias through its
+        # root and literals
+        rows = torch.cat([rows, tape.out_set.hist(bufs, 0, K + 1)], 1)
+    return rows.permute(1, 0, 2).contiguous(), norms
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +532,7 @@ def _jet_rolled_cuda(tape: RolledTape, state, pars, t=None, threads=None,
     _check("pars", pars, (tape.n_pars, B), _F64, dev)
     if tape.time_col is not None:
         _check("t", t, (B,), _F64, dev)
-    out = torch.empty((n_eq, K + 1, B), dtype=_F64, device=dev)
+    out = torch.empty((n_eq + tape.n_out, K + 1, B), dtype=_F64, device=dev)
     norms = torch.empty((3, B), dtype=_F64, device=dev)
     if B == 0:
         return out, norms

@@ -408,7 +408,8 @@ def _interpret(tape, state, pars, t):
     cvals, alpha = dt[h["d_cvals"]:], dt[h["d_alpha"]:]
     state, pars, t = (x.numpy() for x in (state, pars, t))
     B = state.shape[1]
-    out = np.empty((n_eq, K + 1, B))
+    outc = sub("outc", h["n_out"])
+    out = np.empty((n_eq + outc.size, K + 1, B))
     norms = np.empty((3, B))
     for lane in range(B):
         H = np.full((K + 1, WH), np.nan)
@@ -541,8 +542,37 @@ def _interpret(tape, state, pars, t):
         nrm = sub("norm", h["n_norm"])
         for o, j in enumerate((K - 1, K, 0)):
             norms[o, lane] = max(abs(value(loc, j)) for loc in nrm)
-        out[:, :, lane] = H[:, :n_eq].T
+        out[:n_eq, :, lane] = H[:, :n_eq].T
+        # the sv-func rows (event equations), each through its location
+        # word as the norms read it: an alias through its root
+        for j, loc in enumerate(outc):
+            out[n_eq + j, :, lane] = [value(loc, k) for k in range(K + 1)]
     return torch.as_tensor(out), torch.as_tensor(norms)
+
+
+def test_event_rows_walk_to_the_twin(monkeypatch):
+    # with event equations (an alias-form x - 1.5, an alias of an alias
+    # 3 * (x - 1.5), an impact sum and a state column) the kernel's walk
+    # gives the twin's rows bit for bit, the aliases read through their
+    # root; the alias-form events keep order 0 only (8 bytes a lane each)
+    sys_ = SYSTEMS["mascon12"]()
+    x, y, z = (lhs for lhs, _ in sys_[:3])
+    evs = [x - 1.5, 3.0 * (x - 1.5), x * x + y * y + z * z - 1.0, y]
+    arrays = ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(sys_, extra_outputs=evs), 8))
+    tape = jr.RolledTape(arrays, "cpu")
+    oc = arrays["out_cols"].astype(np.int64)
+    assert (tape.classv[oc[:2]] == jr.A).all() and oc[3] == 1
+    bare = _tape("mascon12", 8)
+    assert tape.sizes[0] > bare.sizes[0]  # the impact's columns
+    args = _args("mascon12", 2, seed=8)
+    tc_i, n_i = _interpret(tape, *args)
+    monkeypatch.setattr(jr, "_eval_k", _eval_k_in_kernel_order)
+    tc_p, n_p = jr.jet_rolled_plain(tape, *args)
+    assert tc_p.shape[0] == tape.n_eq + 4
+    assert torch.equal(tc_i, tc_p) and torch.equal(n_i, n_p)
+    np.testing.assert_array_equal(tc_p[tape.n_eq, 1:], tc_p[0, 1:])
+    np.testing.assert_array_equal(tc_p[tape.n_eq + 3], tc_p[1])
 
 
 @pytest.mark.parametrize("name", ["mascon12", "handbuilt_mixed", "nbody3",

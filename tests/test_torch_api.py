@@ -212,18 +212,20 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_out_of_scope_members_raise():
-    # callbacks and events (ROADMAP A.11) and the variational members
-    # (A.20) raise where the JAX signature has them
+    # the variational members (ROADMAP A.20) raise where the JAX signature
+    # has them; callbacks and events (A.11) are ported: a host callback
+    # that returns False stops every lane after one step, as in JAX, and
+    # an event must be one
     p = _port("b4", None)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        p.propagate_until(1.0, callback=lambda ta: True)
-    with pytest.raises(NotImplementedError):
-        p.propagate_for(1.0, callback=lambda ta: True)
-    assert (p.time == 0.0).all()
+    j = _jax("b4")
+    rp = p.propagate_for(1.0, callback=lambda ta: False)
+    rj = j.propagate_for(1.0, callback=lambda ta: False)
+    assert rp[0] == rj[0] == [ht.TaylorOutcome.cb_stop] * B
+    assert (rp[3] == 1).all() and (rj[3] == 1).all()
     sys_, st = route_case(ht, "b4", B, SEED)
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(AttributeError):
         ht.taylor_adaptive_batch(sys_, st, device="cpu", t_events=[object()])
-    assert p.is_variational is _jax("b4").is_variational is False
+    assert p.is_variational is j.is_variational is False
     for name in ("get_vargs", "get_vorder", "get_tstate"):
         with pytest.raises(NotImplementedError, match="A.20"):
             getattr(p, name)()

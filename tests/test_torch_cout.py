@@ -223,5 +223,11 @@ def test_c_output_padding_layout():
     assert (s["times_hi"][1, n1 + 1:] == -np.inf).all()
     assert (s["times_lo"][1, n1 + 1:] == 0.0).all()
     assert s["fwd"].tolist() == [True, False]
-    with pytest.raises(NotImplementedError):
-        p.propagate_until(2.0, c_output=True, callback=lambda ta: True)
+    # with a host callback (the host-driven driver) the same layout: one
+    # step recorded, the final time after it
+    oc, _, _, ns, co = p.propagate_until(2.0, c_output=True,
+                                         callback=lambda ta: False)
+    s = co.__getstate__()
+    assert oc == [ht.TaylorOutcome.cb_stop] * 2 and (ns == 1).all()
+    assert s["tcs"].shape[1] == 1 and (co.n_steps == 1).all()
+    np.testing.assert_array_equal(s["times_hi"][:, 1], p.dtime[0])

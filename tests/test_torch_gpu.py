@@ -746,3 +746,94 @@ def test_pickle_on_cuda(cuda, monkeypatch, route):
     t = np.full(g.batch_size, 1.5)
     np.testing.assert_array_equal(co(t), rg[4](t))
     np.testing.assert_array_equal(rq[4](t), rg[4](t))
+
+
+# -- events: the jets' sv-func rows and the event paths on the card ------------
+
+def _ev_tape(sys_, evs, order, cuda, cls):
+    plan = build_plan(taylor_decompose_sys(sys_, extra_outputs=evs), order)
+    return cls(ht.plan_to_arrays(plan), cuda)
+
+
+def _plain_rows(jet_fn):
+    return {jk.jet: jk.jet_plain, jr.jet_rolled: jr.jet_rolled_plain}[jet_fn]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nbody3", "mascon12_b2", "mascon12_b3",
+                                  "pendulum"])
+def test_event_rows_match_plain(cuda, name):
+    # the sv-func rows (the event equations, after the state rows) of
+    # kernels B2, B3 (an alias-form event x - 1.5, read through its root)
+    # and B4 against their plain versions, 1e-13 relative per order; the
+    # state rows equal those of the tape without events bit for bit
+    B, K = 200, 15
+    if name == "pendulum":
+        sys_ = ht.models.pendulum()
+        x, v = ht.make_vars("x", "v")
+        evs = [v, x * x - 0.01]
+        st, pars, t = pendulum_lanes(B, 3), np.zeros((B, 0)), np.zeros(B)
+    else:
+        key = name.split("_")[0]
+        sys_ = SYSTEMS[key]()
+        names = [lhs.name for lhs, _ in sys_]
+        x, y, z = (ht.make_vars(n) for n in names[:3])
+        evs = [x - 1.5, x * x + y * y + z * z - 1.0, y]
+        st, pars, t = _inputs(key, B, 4)
+    cls, jet_fn = {"nbody3": (jk.JetTape, jk.jet),
+                   "mascon12_b2": (jk.JetTape, jk.jet),
+                   "mascon12_b3": (jr.RolledTape, jr.jet_rolled),
+                   "pendulum": (jp.PhaseTape, jp.jet_phase)}[name]
+    tape = _ev_tape(sys_, evs, K, cuda, cls)
+    bare = _ev_tape(sys_, [], K, cuda, cls)
+    args = (_dev(st.T, cuda), _dev(pars.T, cuda), _dev(t, cuda))
+    tc, norms = jet_fn(tape, *args)
+    tc0, _ = jet_fn(bare, *args)
+    assert tc.shape == (tape.n_eq + len(evs), K + 1, B)
+    assert torch.equal(tc[:tape.n_eq], tc0)
+    if jet_fn is jp.jet_phase:
+        buf = jk._seed_plain(tape, *args)
+        jp.order0(tape, buf)
+        jp.phase_plain(tape, buf, 1)
+        tc_p, norms_p = jk._rows(tape, buf), jk._norms(tape, buf)
+    else:
+        tc_p, norms_p = _plain_rows(jet_fn)(tape, *args)
+    assert float(_per_order_rel(tc, tc_p).max()) <= 1e-13
+    nrel = (norms - norms_p).abs().amax(1) / norms_p.amax(1)
+    assert float(nrel.max()) <= 1e-13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ROUTES)
+def test_events_on_cuda_match_cpu(cuda, monkeypatch, route):
+    # a terminal and a non-terminal event on each route: the same stops,
+    # hits and states as the CPU run, the route's kernel only, never B1
+    if route == "b3":
+        monkeypatch.setattr(tbatch, "ROLLED_MIN_WIDTH", ROLLED_TEST_WIDTH)
+    runs = []
+    for dev in ("cpu", cuda):
+        sys_, st = route_case(ht, route, 6, 2)
+        names = [lhs.name for lhs, _ in sys_]
+        a, b = (ht.make_vars(n) for n in names[:2])
+        hits = []
+        ta = ht.taylor_adaptive_batch(
+            sys_, st, tol=1e-12, high_accuracy=True, device=dev,
+            t_events=[ht.t_event(b - 0.05 * a, callback=lambda tb, d, l:
+                                 len(hits) % 3 != 2)],
+            nt_events=[ht.nt_event(a - 0.1, lambda tb, t, d, l:
+                                   hits.append((l, t, d)))])
+        n0 = dict(jk.LAUNCHES)
+        res = ta.propagate_until(4.0)
+        grid = ta.propagate_grid(np.linspace(4.0, 6.0, 9))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert _only(route, n0)
+        runs.append((ta, res, grid, sorted(hits)))
+    (c, rc, gc, hc), (g, rg, gg, hg) = runs
+    assert rg[0] == rc[0] and gg[0] == gc[0]
+    assert [(l, d) for l, _, d in hg] == [(l, d) for l, _, d in hc]
+    np.testing.assert_allclose([t for _, t, _ in hg], [t for _, t, _ in hc],
+                               rtol=0, atol=1e-11)
+    _close(g.state, c.state)
+    _close(np.nan_to_num(gg[4]), np.nan_to_num(gc[4]))
+    assert g.engine_report()["propagate_engine"] == "events"

@@ -157,8 +157,16 @@ def test_grid_must_be_monotonic(bad):
 
 
 def test_grid_callback_is_not_ported():
+    # the grid's step callbacks are ported (ROADMAP A.11): a host
+    # callback runs after each lockstep step of the host-driven driver,
+    # False stops the lanes with cb_stop and the rows they did not reach
+    # are NaN, as in the JAX class; the device driver stays "flat"
     sys_, st = route_case(ht, "b4", 2, SEED)
     p = ht.taylor_adaptive_batch(sys_, st, device="cpu")
-    with pytest.raises(NotImplementedError):
-        p.propagate_grid([0.0, 1.0], callback=lambda ta: True)
+    calls = []
+    oc, _, _, ns, out = p.propagate_grid(
+        [0.0, 1.0, 100.0], callback=lambda ta: calls.append(1) or False)
+    assert oc == [ht.TaylorOutcome.cb_stop] * 2 and (ns == 1).all()
+    assert len(calls) == 1 and np.isnan(out[:, 2]).all()
+    np.testing.assert_array_equal(out[:, 0], st)
     assert p.engine_report()["grid_engine"] == "flat"
