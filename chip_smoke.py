@@ -146,15 +146,47 @@ if anything is missing or any check fails.  Phases, one line each:
     (B2) with a host callback that stops after 10 steps (``cb_stop`` on
     every lane); ``propagate_grid`` with the HH event to t = 20 over 201
     points (rows within 1e-12 of the event-free grid's, hits equal to
-    ``propagate_until``'s).
+    ``propagate_until``'s);
+20. the scalar integrator on the card: kernels B1-B4 at 1 and 3 lanes
+    against their plain versions (B4 at every block shape, its buffer
+    between guards that must stay untouched); ``taylor_adaptive`` on lane
+    0 of phase 5 (B1 and B2 only, ``time_limit`` on t = 100, drift at most
+    1e-12, equal to phase 5's lane to 1e-13 and whether bit for bit), on
+    the pendulum (B4 only) and on mascon-512 (B3 only: one ``step()`` and
+    a tenth of phase 8's horizon), each held to a 3-lane batch's lane 0
+    on the card and to the CPU run; ``step()`` latency at one lane (the
+    quartiles of 200 steps after 20) on the three routes, each route's
+    kernel time at one lane and the device's busy share of 50 more steps
+    under ``torch.profiler``; each scalar's
+    steps/s; the pendulum with ``t_event(v, callback=...)`` going on twice
+    and ``nt_event(x, cb(ta, t, d_sgn))`` held to the CPU run; the
+    per-lane ``AngleReducer`` on circulating pendulums, scalar and at
+    1,024 lanes, and what its ``torch.func.vmap`` costs the per-step
+    driver there (the reducer against no callback in turns, and one
+    ``callback.apply`` call beside the same reduction written for the
+    batch);
+21. ensembles at full width: ``ensemble_propagate_until/for`` of the
+    outer-SS template over phase 5's 10,240 lanes (B1 and B2; phase 5's
+    states), ``ensemble_propagate_grid`` of the pendulum over phase 15's
+    grid (B4; phase 15's rows), the HH ``nt_event`` ensemble to t = 200
+    (B2; phase 18's hits) and to t = 50 with ``_for``, the per-instance
+    fallbacks (a grid with events, terminal callbacks) on 8 pendulum
+    instances, each equal to its own scalar run,
+    ``ensemble_propagate_until_batch`` with a 1,024-lane template and
+    n_iter = 10, and ``mesh=["cuda:0"]`` equal to the plain call; the
+    ensemble table (until/for/grid x plain/events and the terminal
+    callbacks): each ensemble beside the raw batch on the same lanes in
+    turns (the raw batch built before its timer starts, its constructor
+    timed apart), their ratio, its first call against a later one.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
 plain version's, its bound from ``tools.roofline`` and, where one torch
 call computes the same function, that call's time; for B1-B4 also
-``path_launches``, the launches on phases 15-16's and 17-19's paths, and
-for B2-B4 ``event_rows_ms``, phase 17's times with event rows); the last
-line is ``{"ok": true, "device": {...}}``.
+``path_launches``, the launches on phases 15-16's, 17-19's and 20-21's
+paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
+rows); the last line is ``{"ok": true, "device": {...}}``.  Each phase's
+line carries ``t_s``, the seconds since the script started.
 """
 
 import json
@@ -268,8 +300,12 @@ def ptxas_name(line):
     return fn
 
 
+T_START = time.perf_counter()
+
+
 def say(phase, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T_START,
+                      **kv}), flush=True)
 
 
 def check(cond, what):
@@ -379,7 +415,7 @@ def main():
     n_eq = tape.n_eq
     no_pars = torch.zeros((0, B_CHECK), dtype=torch.float64, device=dev)
 
-    # -- 3. B2 against jet_plain ------------------------------------------------
+    # -- 3. B2 against jet_plain ----------------------------------------------
     st = torch.as_tensor(lanes(IC, B_CHECK, 1).T.copy(), device=dev)
     tc_k, nrm_k = jk.jet(tape, st, no_pars)
     torch.cuda.synchronize()
@@ -395,7 +431,7 @@ def main():
         max_rel_per_order=float(rel.max()), max_abs_err=jet_err,
         tol=JET_RTOL)
 
-    # -- 4. B1 against prop_plain -----------------------------------------------
+    # -- 4. B1 against prop_plain ---------------------------------------------
     f64 = dict(dtype=torch.float64, device=dev)
     aux = torch.stack([torch.full((B_CHECK,), float("inf"), **f64),
                        torch.ones(B_CHECK, **f64),
@@ -416,7 +452,7 @@ def main():
     say(4, B=B_CHECK, steps=CHUNK, layout=layout, state_max_rel=prop_rel,
         max_abs_err=prop_err, time_max_rel=acc_rel, tol=PROP_RTOL)
 
-    # -- 5. the slice -------------------------------------------------------------
+    # -- 5. the slice ---------------------------------------------------------
     ics = lanes(IC, B_MAIN, 0)
     kw = dict(tol=TOL, high_accuracy=True)
     warm = ht.taylor_adaptive_batch(sys_, ics[:CHUNK], device=dev, **kw)
@@ -458,7 +494,7 @@ def main():
         rolled_route=rolled)
     ss_until = dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall)
 
-    # -- 6. kernel vs plain at 10,240 lanes -----------------------------------------
+    # -- 6. kernel vs plain at 10,240 lanes -----------------------------------
     stm = torch.as_tensor(lanes(IC, B_MAIN, 2).T.copy(), device=dev)
     np_m = torch.zeros((0, B_MAIN), **f64)
     aux_m = torch.stack([torch.full((B_MAIN,), float("inf"), **f64),
@@ -540,7 +576,7 @@ def main():
     # the event paths (phases 17-19): each kernel's launches on them, its
     # event rows' error and time
     ev_errs, ev_rows = event_rows(dev, smi, order)
-    hh = hh_poincare(dev, smi)
+    hh, hh_hits = hh_poincare(dev, smi)
     evp = event_paths(dev, smi, sys_, ics)
     times["jet"]["path_launches"].update(
         hh_events=hh[f"B{HH_B}"]["launches"]["jet"],
@@ -563,6 +599,23 @@ def main():
     jet_err = max(jet_err, ev_errs["jet"])
     rolled = (rolled[0], max(rolled[1], ev_errs["jet_rolled"]), rolled[2])
     phased = (phased[0], max(phased[1], ev_errs["phase"]), phased[2])
+    # the scalar integrator's and the ensembles' paths (phases 20-21): each
+    # kernel's launches on each path, counted alone; the kernels at 1 and
+    # 3 lanes against their plain versions
+    sc_paths, few_errs = scalar_paths(dev, smi, sys_, ics, st_end, tape,
+                                      order)
+    ens_paths = ensemble_paths(dev, smi, sys_, ics, st_end,
+                               grids["pendulum"]["rows"], hh_hits)
+    for key, row in (("jet", times["jet"]), ("prop", times["prop"]),
+                     ("jet_rolled", rolled[2]), ("phase", phased[2])):
+        row.setdefault("path_launches", {}).update(
+            {f"scalar_{p}": n[key] for p, n in sc_paths.items() if n[key]})
+        row["path_launches"].update(
+            {f"ensemble_{p}": n[key] for p, n in ens_paths.items() if n[key]})
+    jet_err = max(jet_err, few_errs["jet"])
+    prop_err = max(prop_err, few_errs["prop"])
+    rolled = (rolled[0], max(rolled[1], few_errs["jet_rolled"]), rolled[2])
+    phased = (phased[0], max(phased[1], few_errs["phase"]), phased[2])
 
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
@@ -744,7 +797,7 @@ def huge_tapes(dev, order, smi):
         return (torch.as_tensor(st.T.copy(), device=dev),
                 torch.zeros((0, B), **f64), torch.zeros(B, **f64))
 
-    # -- 7. B3 against jet_rolled_plain and B2 ------------------------------------
+    # -- 7. B3 against jet_rolled_plain and B2 --------------------------------
     args = jet_args(ics[:B_CHECK])
     tc_k, nrm_k = jr.jet_rolled(rtape, *args)
     torch.cuda.synchronize()
@@ -785,7 +838,7 @@ def huge_tapes(dev, order, smi):
                             and torch.equal(nrm_k, nrm_p)),
         equal_to_b2=bool(torch.equal(tc_k, tc_2)), tol=JET_RTOL)
 
-    # -- 8. the slice: mascon-512 at 1,024 lanes ----------------------------------
+    # -- 8. the slice: mascon-512 at 1,024 lanes ------------------------------
     sys_ = ht.models.mascon(**kw)
     ta = ht.taylor_adaptive_batch(sys_, orbits, device=dev, tol=TOL,
                                   high_accuracy=True)
@@ -835,7 +888,7 @@ def huge_tapes(dev, order, smi):
         engine=eng, fused_route=fused, mid_width=mid_width(dev))
     until = dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall)
 
-    # -- 9. times: B3, its twin and B2 at 1,024 lanes -----------------------------
+    # -- 9. times: B3, its twin and B2 at 1,024 lanes -------------------------
     args = jet_args(ics)
     runs = {"b3": lambda: jr.jet_rolled(rtape, *args),
             "plain": lambda: jr.jet_rolled_plain(rtape, *args),
@@ -940,7 +993,7 @@ def phase_tapes(dev, order, smi):
     def rel(a, b):  # (K+1, W, B) buffers, per order
         return per_order_rel(a.permute(1, 0, 2), b.permute(1, 0, 2))
 
-    # -- 10. B4 against phase_plain on every tape -------------------------------
+    # -- 10. B4 against phase_plain on every tape -----------------------------
     cases = phase_cases(ht)
     tapes, ops, res, phase_err = {}, set(), {}, 0.0
     for i, (name, (sys_, st0, pars)) in enumerate(cases.items()):
@@ -987,7 +1040,7 @@ def phase_tapes(dev, order, smi):
             max(v["lo1"], v["lo9"]) for v in res.values()),
         max_abs_err=phase_err, tapes=res)
 
-    # -- 11. the slice: the pendulum at 10,240 lanes ------------------------------
+    # -- 11. the slice: the pendulum at 10,240 lanes --------------------------
     sys_ = ht.models.pendulum()
     ics = pendulum_lanes(PEND_B, 0)
     kw = dict(tol=TOL, high_accuracy=True)
@@ -1057,7 +1110,7 @@ def phase_tapes(dev, order, smi):
         b4_share_of_busy=b4 / busy if dev_ev else None)
     until = dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall)
 
-    # -- 12. times: B4 against phase_plain, per block shape ---------------------
+    # -- 12. times: B4 against phase_plain, per block shape -------------------
     widest = max((n for n in cases if not n.startswith("op_")
                   and n != "pendulum"), key=lambda n: tapes[n].width)
     ss_plan = proto_phase.outer_ss_plan(order)
@@ -1287,7 +1340,7 @@ def grid_paths(dev, smi, sys_ss, ics_ss, st_fused, until):
     check(drift <= DRIFT_MAX, f"pendulum grid: energy drift {drift}")
     res["pendulum"] = dict(r, energy_drift_max_rel=drift,
                            slice_phase_11=until["pendulum"])
-    out["pendulum"] = dict(ta=ta, launches=r["launches"])
+    out["pendulum"] = dict(ta=ta, rows=rows, launches=r["launches"])
     say(15, nvidia_smi=smi, tol=GRID_RTOL, **res)
     return out
 
@@ -1481,7 +1534,7 @@ def proto_tool(dev, smi):
         "layout", "lanes", "threads", "smem")})
 
 
-# -- events (phases 17-19) ------------------------------------------------------
+# -- events (phases 17-19) ----------------------------------------------------
 
 HH_B = 10_240
 HH_B_REF = 1_024  # the reference benchmark's width (hh_event_bench.py:53)
@@ -1645,7 +1698,8 @@ def hh_poincare(dev, smi):
     energy drift; 64 lanes' hits against the port's CPU run; at 1,024 the
     same run with ``c_output`` and y at every hit; the rates with and
     without the event (fused B1) in turns; the device idle share on a
-    tenth of the run; the isolation's share of an event step."""
+    tenth of the run; the isolation's share of an event step.  Returns the
+    summary and the 10,240-lane run's hits (``HitArrays.arrays``)."""
     out = {}
     warm = HitArrays()
     hh_batch(hh_lanes(CHUNK), dev, warm).propagate_until(1.0)
@@ -1707,6 +1761,7 @@ def hh_poincare(dev, smi):
                          for a, b in zip(mine, cpu))
             check(dt_max <= HH_HIT_ATOL, f"HH: hit times vs CPU {dt_max}")
             r.update(cpu_ref_lanes=HH_REF_LANES, cpu_ref_hit_dt_max=dt_max)
+            hits = rec.arrays()
             r["isolation"] = isolation_share(
                 lambda: hh_batch(ics, dev, HitArrays()), HH_T / 10)
             r["profile"] = hh_profile(ics, dev)
@@ -1734,7 +1789,7 @@ def hh_poincare(dev, smi):
                      c_output_steps=int(resc[3].sum()))
         out[f"B{B}"] = r
     say(18, nvidia_smi=smi, **out)
-    return out
+    return out, hits
 
 
 def isolation_share(make, t_end):
@@ -1953,6 +2008,625 @@ def event_paths(dev, smi, sys_ss, ics_ss):
         lane_steps=int(rg[3].sum()), launches=launches)
     say(19, nvidia_smi=smi, **out)
     return out
+
+
+
+# -- the scalar integrator and the ensembles (phases 20-21) -------------------
+
+FEW_LANES = (1, 3)
+SCALAR_RTOL = 1e-13  # the scalar against its batch lane on the card
+SCALAR_STEPS = 200  # step() latency: steps timed after SCALAR_WARM
+SCALAR_WARM = 20
+SCALAR_MASCON_T = MASCON_T / 10
+SCALAR_EV_T = 10.0
+AR_B = 1024  # the per-lane angle reducer's batch
+AR_T = 10.0
+ENS_GRID_T = 4.0  # the grid with events: the per-instance fallback
+ENS_FALLBACK_N = 8
+ENS_BATCH = 1024  # ensemble_propagate_until_batch: 10 x 1,024 lanes
+ENS_FOR_HH_T = HH_T / 4
+ENS_MESH = ["cuda:0"]  # a mesh of one device, named apart from "cuda"
+
+
+def quartiles(xs):
+    q1, med, q3 = np.percentile(np.asarray(xs, float), [25, 50, 75])
+    return dict(q1=float(q1), median=float(med), q3=float(q3))
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b| (numpy or tensors), and whether a == b."""
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else
+            np.asarray(x) for x in (a, b))
+    return float(np.abs(a - b).max() / np.abs(b).max()), \
+        bool(np.array_equal(a, b))
+
+
+def guarded(t, guard=4096, fill=12345.0):
+    """``t`` copied into the middle of a buffer of ``fill``: (the copy,
+    the whole buffer); a kernel that writes past either end of its buffer
+    changes a guard."""
+    flat = torch.full((t.numel() + 2 * guard,), fill, dtype=t.dtype,
+                      device=t.device)
+    flat[guard:guard + t.numel()] = t.reshape(-1)
+    return flat[guard:guard + t.numel()].view(t.shape), flat
+
+
+def few_lane_kernels(dev, tape_ss, order):
+    """B1-B4 at 1 and 3 lanes (the scalar integrator's and a small
+    ensemble's widths) against their plain versions: B2 and B1 on the
+    outer-SS tape, B3 on mascon-512 (its global layout's scratch sized for
+    an SM's lanes), B4 on the pendulum at every block shape, with guards
+    on both sides of its buffer.  Returns each kernel's largest abs error
+    and the details."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    kw_m, rng_m = mascon_body(MASCON_N)
+    rtape, _ = mascon_tapes(kw_m, order, dev)
+    orbits = mascon_lanes(rng_m, 8, kw_m["omega"])
+    sys_p = ht.models.pendulum()
+    ptape = jp.PhaseTape(ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(sys_p), order)), dev)
+    errs = dict(jet=0.0, prop=0.0, jet_rolled=0.0, phase=0.0)
+    out = {}
+    one_ms = {}
+    for B in FEW_LANES:
+        st = torch.as_tensor(lanes(IC, B, 5).T.copy(), **f64)
+        np0 = torch.zeros((0, B), **f64)
+        tc_k, nrm_k = jk.jet(tape_ss, st, np0)
+        tc_p, nrm_p = jk.jet_plain(tape_ss, st, np0)
+        r2 = float(per_order_rel(tc_k, tc_p).max())
+        check(r2 <= JET_RTOL and bool(torch.allclose(
+            nrm_k, nrm_p, rtol=JET_RTOL, atol=0)), f"B2 at B={B}: {r2}")
+        errs["jet"] = max(errs["jet"], float((tc_k - tc_p).abs().max()))
+        aux = torch.stack([torch.full((B,), float("inf"), **f64),
+                           torch.ones(B, **f64), torch.full((B,), FAR, **f64),
+                           torch.zeros(B, **f64), torch.ones(B, **f64)])
+        auxi = torch.full((1, B), 2**31 - 1, dtype=torch.int32, device=dev)
+        sk, _, oik = jk.prop(tape_ss, st, np0, aux, auxi, CHUNK, True)
+        sp, _, oip = jk.prop_plain(tape_ss, st, np0, aux, auxi, CHUNK, True)
+        r1 = float(((sk - sp).abs().amax(1) / sp.abs().amax(1)).max())
+        check(torch.equal(oik, oip) and r1 <= PROP_RTOL,
+              f"B1 at B={B}: {r1}")
+        errs["prop"] = max(errs["prop"], float((sk - sp).abs().max()))
+        args = (torch.as_tensor(orbits[:B].T.copy(), **f64),
+                torch.zeros((0, B), **f64), torch.zeros(B, **f64))
+        tc_k, nrm_k = jr.jet_rolled(rtape, *args)
+        tc_p, nrm_p = jr.jet_rolled_plain(rtape, *args)
+        r3 = float(per_order_rel(tc_k, tc_p).max())
+        check(r3 <= JET_RTOL, f"B3 at B={B}: {r3}")
+        errs["jet_rolled"] = max(errs["jet_rolled"],
+                                 float((tc_k - tc_p).abs().max()))
+        tc0 = seeded_buffer(ptape, pendulum_lanes(B, 3), np.zeros((B, 0)),
+                            np.zeros(B), dev)
+        tc_p = jp.phase_plain(ptape, tc0.clone(), 1)
+        r4 = 0.0
+        for lay, L, nt in [(None, None, None)] + jp.sweep_shapes(ptape, 8):
+            buf, flat = guarded(tc0)
+            jp._phase_cuda(ptape, buf, 1, L, nt, lay)
+            torch.cuda.synchronize()
+            check(bool((flat[:4096] == 12345.0).all()
+                       and (flat[-4096:] == 12345.0).all()),
+                  f"B4 at B={B} ({lay}, {L} x {nt}) wrote past its buffer")
+            r = float(per_order_rel(buf.permute(1, 0, 2),
+                                    tc_p.permute(1, 0, 2)).max())
+            check(r <= JET_RTOL, f"B4 at B={B} ({lay}, {L} x {nt}): {r}")
+            r4 = max(r4, r)
+            errs["phase"] = max(errs["phase"], float((buf - tc_p).abs().max()))
+        if B == 1:
+            # each kernel's time at one lane (B1: one 64-step chunk; B4
+            # replayed from a CUDA graph, the others back to back)
+            buf = tc0.clone()
+            one_ms = dict(
+                b2_jet=cuda_ms(lambda: jk.jet(tape_ss, st, np0), 20),
+                b1_chunk=cuda_ms(lambda: jk.prop(tape_ss, st, np0, aux, auxi,
+                                                 CHUNK, True), 5),
+                b3_jet=cuda_ms(lambda: jr.jet_rolled(rtape, *args), 20),
+                b4_phase_graph=graph_ms(lambda: jp.phase(ptape, buf, 1), 20))
+        out[f"B{B}"] = dict(b2_max_rel_per_order=r2, b1_state_max_rel=r1,
+                            b3_max_rel_per_order=r3,
+                            b4_max_rel_per_order_every_shape=r4,
+                            b4_layout=jp.layout_report(ptape, B),
+                            b3_layout=jr.layout_report(rtape))
+    out["one_lane_kernel_ms"] = one_ms
+    return errs, out
+
+
+def step_busy(ta, median_ms, n=50):
+    """``n`` more ``step()`` calls under ``torch.profiler``: the device's
+    busy time, its kernels a step, and its idle share against ``n`` steps
+    at the unprofiled median ``median_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ta.step()
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    return dict(steps=n, device_kernels_per_step=len(dev_ev) / n,
+                device_busy_ms_per_step=busy / n if dev_ev else None,
+                device_idle_share=1.0 - busy / (n * median_ms)
+                if dev_ev else None)
+
+
+def step_latency(ta):
+    """Wall ms of each of ``SCALAR_STEPS`` ``step()`` calls after
+    ``SCALAR_WARM`` (each call ends in its outcome's host copy)."""
+    for _ in range(SCALAR_WARM):
+        ta.step()
+    ms = []
+    for _ in range(SCALAR_STEPS):
+        t0 = time.perf_counter()
+        ta.step()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(quartiles(ms), steps=SCALAR_STEPS)
+
+
+def scalar_run(name, make, t_end, kernels, inv=None):
+    """``make(dev)``'s ``propagate_until(t_end)`` on the card, the counts
+    set to 0 just before it and read just after: only ``kernels``
+    launched (each at least once), ``time_limit``, the landing exact, the
+    invariant ``inv`` (of (1, n) states) kept to ``DRIFT_MAX``.  Returns
+    the integrator and the summary."""
+    ta = make()
+    st0 = torch.as_tensor(ta.state[None], device=ta.device)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    oc, min_h, max_h, ns = ta.propagate_until(t_end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(all(launches[k] > 0 for k in kernels) and all(
+        n == 0 for k, n in launches.items() if k not in kernels),
+        f"scalar {name}: launches {launches}")
+    check(oc == ht.TaylorOutcome.time_limit and ta.time == t_end,
+          f"scalar {name}: {oc} at {ta.time}")
+    r = dict(t_end=t_end, nsteps=ns, wall_s=wall, steps_per_s=ns / wall,
+             launches=launches, engine=ta.engine_report()["propagate_engine"])
+    if inv is not None:
+        st = torch.as_tensor(ta.state[None], device=ta.device)
+        r["drift_max_rel"] = float(((inv(st) - inv(st0)).abs()
+                                    / inv(st0).abs()).max())
+        check(r["drift_max_rel"] <= DRIFT_MAX,
+              f"scalar {name}: drift {r['drift_max_rel']}")
+    return ta, r
+
+
+def scalar_paths(dev, smi, sys_ss, ics_ss, st_fused, tape_ss, order):
+    """Phase 20, the scalar integrator on the card: B1-B4 at 1 and 3 lanes
+    against their plain versions; ``taylor_adaptive`` on the outer SS
+    (lane 0 of phase 5: B1 and B2, held to phase 5's lane), the pendulum
+    (B4) and mascon-512 (B3; one ``step()`` and a short propagation), each
+    against a 3-lane batch's lane 0 on the card and the CPU run; the
+    ``step()`` latency on each route; the pendulum with a terminal event
+    whose callback goes on twice and a non-terminal one, held to the CPU;
+    the per-lane ``AngleReducer`` on a circulating pendulum, scalar and at
+    1,024 lanes, and its vmap's cost (:func:`vmap_cost`).  Returns the launches of each path and the kernels'
+    errors at few lanes."""
+    kw = dict(tol=TOL, high_accuracy=True)
+    errs, few = few_lane_kernels(dev, tape_ss, order)
+    res = {"few_lanes": few}
+    paths = {}
+    # -- the outer SS: kernels B1 and B2 ---------------------------------
+    ht.taylor_adaptive(sys_ss, ics_ss[1], device=dev, **kw).propagate_until(
+        1.0)
+    ta, r = scalar_run("outer SS", lambda: ht.taylor_adaptive(
+        sys_ss, ics_ss[0], device=dev, **kw), T_END, ("jet", "prop"))
+    e = energy(torch.as_tensor(np.stack([ics_ss[0], ta.state]), device=dev),
+               MASSES, GCONST)
+    r["drift_max_rel"] = float(((e[1] - e[0]) / e[0]).abs())
+    check(r["drift_max_rel"] <= DRIFT_MAX, f"scalar outer SS: drift {r}")
+    r["vs_phase5_lane0_max_rel"], r["vs_phase5_lane0_same_bits"] = rel_err(
+        ta.state, st_fused[0])
+    check(r["vs_phase5_lane0_max_rel"] <= SCALAR_RTOL,
+          f"scalar outer SS vs phase 5's lane 0: {r}")
+    paths["outer_ss"] = r["launches"]
+    res["outer_ss"] = r
+    # -- the pendulum: kernel B4 ------------------------------------------
+    sys_p = ht.models.pendulum()
+    ics_p = pendulum_lanes(PEND_B, 0)[:3]
+    ta, r = scalar_run("pendulum", lambda: ht.taylor_adaptive(
+        sys_p, ics_p[0], device=dev, **kw), PEND_T, ("phase",),
+        pendulum_energy)
+    paths["pendulum"] = r["launches"]
+    three = ht.taylor_adaptive_batch(sys_p, ics_p, device=dev, **kw)
+    three.propagate_until(PEND_T)
+    cpu = ht.taylor_adaptive(sys_p, ics_p[0], device="cpu", **kw)
+    cpu.propagate_until(PEND_T)
+    r["vs_batch3_lane0_max_rel"], r["vs_batch3_lane0_same_bits"] = rel_err(
+        ta.state, three.state[0])
+    r["cpu_ref_max_rel"] = rel_err(ta.state, cpu.state)[0]
+    check(r["vs_batch3_lane0_max_rel"] <= SCALAR_RTOL
+          and r["cpu_ref_max_rel"] <= REF_RTOL, f"scalar pendulum: {r}")
+    res["pendulum"] = r
+    # -- mascon-512: kernel B3 --------------------------------------------
+    kw_m, rng_m = mascon_body(MASCON_N)
+    sys_m = ht.models.mascon(**kw_m)
+    orbits = mascon_lanes(rng_m, 3, kw_m["omega"])
+    tm = ht.taylor_adaptive(sys_m, orbits[0], device=dev, **kw)
+    zero_launches()
+    oc, h = tm.step()
+    torch.cuda.synchronize()
+    step_launches = dict(jk.LAUNCHES)
+    check(oc == ht.TaylorOutcome.success and step_launches["jet_rolled"] == 1
+          and sum(step_launches.values()) == 1,
+          f"scalar mascon-512 step: {oc}, {step_launches}")
+
+    def jac(st):
+        return jacobi(st, kw_m)
+
+    tm, r = scalar_run("mascon-512", lambda: ht.taylor_adaptive(
+        sys_m, orbits[0], device=dev, **kw), SCALAR_MASCON_T,
+        ("jet_rolled",), jac)
+    three = ht.taylor_adaptive_batch(sys_m, orbits, device=dev, **kw)
+    three.propagate_until(SCALAR_MASCON_T)
+    cpu = ht.taylor_adaptive(sys_m, orbits[0], device="cpu", **kw)
+    cpu.propagate_until(SCALAR_MASCON_T)
+    r["vs_batch3_lane0_max_rel"], r["vs_batch3_lane0_same_bits"] = rel_err(
+        tm.state, three.state[0])
+    r["cpu_ref_max_rel"] = rel_err(tm.state, cpu.state)[0]
+    check(r["vs_batch3_lane0_max_rel"] <= SCALAR_RTOL
+          and r["cpu_ref_max_rel"] <= REF_RTOL, f"scalar mascon-512: {r}")
+    r["step"] = dict(outcome=str(oc), h=h, launches=step_launches)
+    paths["mascon512"] = dict(step_launches, **{
+        k: v + step_launches[k] for k, v in r["launches"].items()})
+    res["mascon512"] = r
+    # -- step() latency at one lane ----------------------------------------
+    lat = {}
+    for name, make, kern in (
+            ("outer_ss_b2", lambda: ht.taylor_adaptive(
+                sys_ss, ics_ss[0], device=dev, **kw), "jet"),
+            ("pendulum_b4", lambda: ht.taylor_adaptive(
+                sys_p, ics_p[0], device=dev, **kw), "phase"),
+            ("mascon512_b3", lambda: ht.taylor_adaptive(
+                sys_m, orbits[0], device=dev, **kw), "jet_rolled")):
+        zero_launches()
+        ta = make()
+        lat[name] = step_latency(ta)
+        check(jk.LAUNCHES[kern] == SCALAR_STEPS + SCALAR_WARM,
+              f"step latency {name}: launches {dict(jk.LAUNCHES)}")
+        lat[name]["launches"] = dict(jk.LAUNCHES)
+        paths[f"step_{name}"] = lat[name]["launches"]
+        lat[name]["profile"] = step_busy(ta, lat[name]["median"])
+    res["step_latency_ms"] = lat
+    # -- the pendulum with events ------------------------------------------
+    xp, vp = (lhs for lhs, _ in sys_p)
+
+    def with_events(device):
+        hits, stops = [], []
+
+        def on_te(ta_, d_sgn):
+            stops.append((ta_.time, d_sgn))
+            return len(stops) < 3
+
+        ta_ = ht.taylor_adaptive(
+            sys_p, ics_p[1], device=device, **kw,
+            t_events=[ht.t_event(vp, callback=on_te)],
+            nt_events=[ht.nt_event(xp, lambda ta_, t, d: hits.append(
+                (t, d)))])
+        return ta_, hits, stops
+
+    tg, hg, sg = with_events(dev)
+    zero_launches()
+    rg = tg.propagate_until(SCALAR_EV_T)
+    torch.cuda.synchronize()
+    ev_launches = dict(jk.LAUNCHES)
+    tc_, hc, sc = with_events("cpu")
+    rc = tc_.propagate_until(SCALAR_EV_T)
+    check(ev_launches["phase"] > 0 and sum(ev_launches.values())
+          == ev_launches["phase"], f"scalar events: launches {ev_launches}")
+    same = (len(hg) == len(hc) and [d for _, d in hg] == [d for _, d in hc]
+            and [d for _, d in sg] == [d for _, d in sc] and rg[0] == rc[0])
+    dt = max([abs(a[0] - b[0]) for a, b in zip(hg + sg, hc + sc)],
+             default=0.0)
+    check(same and len(sg) == 3 and dt <= HH_HIT_ATOL,
+          f"scalar events vs the CPU run: {len(hg)}/{len(hc)} hits, "
+          f"{len(sg)} stops, dt {dt}")
+    res["pendulum_events"] = dict(outcome=int(rg[0]), nsteps=rg[3],
+                                  hits=len(hg), stops=len(sg),
+                                  hit_dt_vs_cpu_max=dt,
+                                  launches=ev_launches)
+    paths["pendulum_events"] = ev_launches
+    # -- the per-lane angle reducer on circulating pendulums -----------------
+    rng = np.random.default_rng(4)
+    circ = np.stack([np.zeros(AR_B), rng.uniform(6.5, 8.0, AR_B)], 1)
+    zero_launches()
+    tb = ht.taylor_adaptive_batch(sys_p, circ, device=dev, **kw)
+    rb = tb.propagate_until(AR_T, callback=ht.AngleReducer(["x"]))
+    ts_ = ht.taylor_adaptive(sys_p, circ[0], device=dev, **kw)
+    rs = ts_.propagate_until(AR_T, callback=ht.AngleReducer(["x"]))
+    torch.cuda.synchronize()
+    ar_launches = dict(jk.LAUNCHES)
+    xs = tb.state[:, 0]
+    e = pendulum_energy(torch.as_tensor(np.concatenate([circ, tb.state]),
+                                        device=dev))
+    drift = float(((e[AR_B:] - e[:AR_B]).abs() / e[:AR_B].abs()).max())
+    ar_rel = rel_err(ts_.state, tb.state[0])
+    check(all(o == ht.TaylorOutcome.time_limit for o in rb[0])
+          and rs[0] == ht.TaylorOutcome.time_limit
+          and bool(((xs >= 0) & (xs < 2 * np.pi)).all())
+          and 0.0 <= ts_.state[0] < 2 * np.pi and drift <= DRIFT_MAX
+          and ar_rel[0] <= SCALAR_RTOL and ar_launches["phase"] > 0,
+          f"angle reducer: drift {drift}, scalar vs lane 0 {ar_rel}, "
+          f"{ar_launches}")
+    res["angle_reducer"] = dict(B=AR_B, t_end=AR_T, energy_drift_max_rel=
+                                drift, scalar_vs_lane0=ar_rel,
+                                launches=ar_launches,
+                                vmap_cost=vmap_cost(sys_p, circ, dev, kw))
+    paths["angle_reducer"] = ar_launches
+    say(20, nvidia_smi=smi, **res)
+    return paths, errs
+
+
+def vmap_cost(sys_p, circ, dev, kw):
+    """What running the reducer per lane under ``torch.func.vmap`` costs
+    the per-step driver at ``AR_B`` lanes: ``propagate_until(AR_T)`` with
+    the ``AngleReducer`` and with no callback, in turns (reducer, none,
+    none, reducer; each batch built before its timer starts), as wall ms
+    a loop iteration (the lockstep driver's iterations are the lanes'
+    most steps); and the host ms of one ``callback.apply`` call beside one
+    call of the same reduction written for the whole batch, on the
+    driver's tensors (medians of ``SCALAR_STEPS`` calls, each ended by a
+    device sync)."""
+    walls = {"reducer": [], "none": []}
+    for key in ("reducer", "none", "none", "reducer"):
+        tb = ht.taylor_adaptive_batch(sys_p, circ, device=dev, **kw)
+        cb = ht.AngleReducer(["x"]) if key == "reducer" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = tb.propagate_until(AR_T, callback=cb)
+        torch.cuda.synchronize()
+        walls[key].append(1e3 * (time.perf_counter() - t0)
+                          / int(np.max(r[3])))
+    red = ht.AngleReducer(["x"])
+    red.pre_hook(tb)
+    args = (tb._state, tb._pars, tb._t_hi, tb._t_lo, tb._last_h, tb._tc)
+    twopi = 2.0 * np.pi
+
+    def whole(state, *_):
+        x = state[:, :1]
+        return torch.cat([x - twopi * torch.floor(x / twopi), state[:, 1:]],
+                         1), True
+
+    host = {}
+    for name, fn in (("vmap_apply", lambda: ht.callback.apply(red, *args)),
+                     ("whole_batch", lambda: whole(*args))):
+        ms = []
+        for _ in range(SCALAR_WARM + SCALAR_STEPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        host[name] = float(np.median(ms[SCALAR_WARM:]))
+    per = {k: float(np.median(v)) for k, v in walls.items()}
+    return dict(ms_per_iteration=walls, median_ms_per_iteration=per,
+                reducer_minus_none_ms=per["reducer"] - per["none"],
+                call_ms=host,
+                vmap_minus_whole_ms=host["vmap_apply"] - host["whole_batch"])
+
+
+def turns(make_ens, build_raw, run_raw):
+    """The ensemble and the raw batch on the same lanes, in turns
+    (ensemble, raw, raw, ensemble; each call between two device syncs):
+    the first ensemble call's wall, the later one's, the raw walls, the
+    lane-steps/s of each and the ratio of the medians (raw over
+    ensemble).  The raw batch is built (``build_raw()``) before its timer
+    starts and only ``run_raw(tb)`` is timed, as the ensemble reuses its
+    template's tape; the constructor's walls stand apart.  Returns the
+    summary and the first ensemble call's result."""
+    walls, rates, first = {"ens": [], "raw": []}, {"ens": [], "raw": []}, \
+        None
+    build = []
+    for key in ("ens", "raw", "raw", "ens"):
+        if key == "raw":
+            t0 = time.perf_counter()
+            tb = build_raw()
+            torch.cuda.synchronize()
+            build.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = make_ens() if key == "ens" else run_raw(tb)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        if first is None:
+            first = r
+        walls[key].append(w)
+        rates[key].append((ens_steps if key == "ens" else batch_steps)(r)
+                          / w)
+    return dict(first_call_s=walls["ens"][0], later_call_s=walls["ens"][1],
+                ensemble_wall_s=walls["ens"], raw_wall_s=walls["raw"],
+                raw_build_s=build, ensemble_steps_per_s=rates["ens"],
+                raw_steps_per_s=rates["raw"],
+                raw_over_ensemble=float(np.median(rates["raw"])
+                                        / np.median(rates["ens"]))), first
+
+
+def ens_steps(r):
+    return int(r["nsteps"].sum())
+
+
+def batch_steps(r):
+    return int(np.asarray(r[3]).sum())
+
+
+def ensemble_paths(dev, smi, sys_ss, ics_ss, st_fused, pend_rows, hh_hits):
+    """Phase 21, ensembles at full width: the outer-SS template's
+    ``ensemble_propagate_until`` over phase 5's 10,240 lanes (B1 and B2,
+    held to phase 5's states) and ``ensemble_propagate_for``; the
+    pendulum's ``ensemble_propagate_grid`` over phase 15's grid (B4, held
+    to phase 15's rows); the Henon-Heiles ``nt_event`` ensemble to t = 200
+    (B2, its hits held to phase 18's) and its ``_for`` to t = 50; the grid
+    with events and the terminal-event callbacks on 8 pendulum instances
+    (the per-instance fallback, B4, each equal to its own scalar run);
+    ``ensemble_propagate_until_batch`` with a 1,024-lane template and
+    n_iter = 10 (held to phase 5's lanes); a ``mesh=["cuda:0"]`` run equal
+    to the plain one.  Each row of the ensemble table (until/for/grid x
+    plain/events) times the ensemble beside the raw batch on the same
+    lanes in turns.  Returns the launches of each path."""
+    kw = dict(tol=TOL, high_accuracy=True)
+    B = len(ics_ss)
+    gen = {"state": ics_ss}
+    res, paths, table = {}, {}, {}
+
+    def counted(name, fn, kernels):
+        zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(jk.LAUNCHES)
+        check(all(launches[k] > 0 for k in kernels) and all(
+            n == 0 for k, n in launches.items() if k not in kernels),
+            f"ensemble {name}: launches {launches}")
+        paths[name] = launches
+        return out
+
+    # -- until / for on the outer SS: B1 and B2 -------------------------------
+    tmpl = ht.taylor_adaptive(sys_ss, ics_ss[0], device=dev, **kw)
+    st0 = tmpl.state.copy()
+
+    def raw_ss():
+        return ht.taylor_adaptive_batch(sys_ss, ics_ss, device=dev, **kw)
+
+    table["until_plain"], first = turns(
+        lambda: counted("until_outer_ss", lambda: ht.ensemble_propagate_until(
+            tmpl, T_END, B, gen), ("jet", "prop")), raw_ss,
+        lambda tb: tb.propagate_until(T_END))
+    check(bool((first["outcome"] == int(ht.TaylorOutcome.time_limit)).all()
+               and (first["time"] == T_END).all()), "ensemble until: landing")
+    res["until_vs_phase5"] = rel_err(first["state"], st_fused)
+    check(res["until_vs_phase5"][0] <= SCALAR_RTOL,
+          f"ensemble until vs phase 5: {res['until_vs_phase5']}")
+    check(np.array_equal(tmpl.state, st0) and tmpl.time == 0.0,
+          "ensemble until: the template moved")
+
+    table["for_plain"], rf = turns(
+        lambda: counted("for_outer_ss", lambda: ht.ensemble_propagate_for(
+            tmpl, T_END, B, gen), ("jet", "prop")), raw_ss,
+        lambda tb: tb.propagate_for(T_END))
+    res["for_vs_until"] = rel_err(rf["state"], first["state"])
+    check(res["for_vs_until"][1], "ensemble for: not until's states")
+    # -- the pendulum's grid: B4 ----------------------------------------------
+    sys_p = ht.models.pendulum()
+    ics_p = pendulum_lanes(PEND_B, 0)
+    grid = np.linspace(0.0, PEND_T, PEND_GRID_N)
+    tp = ht.taylor_adaptive(sys_p, ics_p[0], device=dev, **kw)
+    table["grid_plain"], rg = turns(
+        lambda: counted("grid_pendulum", lambda: ht.ensemble_propagate_grid(
+            tp, grid, PEND_B, {"state": ics_p}), ("phase",)),
+        lambda: ht.taylor_adaptive_batch(sys_p, ics_p, device=dev, **kw),
+        lambda tb: tb.propagate_grid(grid))
+    res["grid_vs_phase15"] = rel_err(rg["out"], pend_rows)
+    check(res["grid_vs_phase15"][0] <= SCALAR_RTOL
+          and bool((rg["outcome"] == int(ht.TaylorOutcome.time_limit)).all()),
+          f"ensemble grid vs phase 15: {res['grid_vs_phase15']}")
+    del rg
+    # -- the HH Poincare section: B2 on the event path ------------------------
+    sys_h, y = hh_sys()
+    ics_h = hh_lanes(HH_B)
+    seen = [0]
+
+    def on_hit(results, t, d_sgn, instance):
+        seen[0] += 1
+
+    th = ht.taylor_adaptive(sys_h, ics_h[0], device=dev, **kw, nt_events=[
+        ht.nt_event(y, on_hit, direction=ht.EventDirection.positive)])
+    table["until_events"], rh = turns(
+        lambda: counted("until_hh_events", lambda: ht.ensemble_propagate_until(
+            th, HH_T, HH_B, {"state": ics_h}), ("jet",)),
+        lambda: hh_batch(ics_h, dev, HitArrays()),
+        lambda tb: tb.propagate_until(HH_T))
+    ts, sg, ln = hh_hits
+    count = rh["nt_count"].cpu().numpy()
+    ref_count = np.bincount(ln, minlength=HH_B)
+    check(np.array_equal(count, ref_count), "ensemble HH: hit counts")
+    slot = np.arange(ln.size) - np.repeat(np.cumsum(ref_count) - ref_count,
+                                          ref_count)
+    mine_t = rh["nt_times"].cpu().numpy()[ln, slot]
+    mine_s = rh["nt_sgn"].cpu().numpy()[ln, slot]
+    dt = float(np.abs(mine_t - ts).max(initial=0.0))
+    check(np.array_equal(mine_s, sg) and dt <= HH_HIT_ATOL,
+          f"ensemble HH: hits vs phase 18 {dt}")
+    check(seen[0] == 2 * ts.size, "ensemble HH: callbacks")
+    res["hh_events"] = dict(hits=int(ts.size), hit_dt_vs_phase18_max=dt,
+                            callbacks=seen[0] // 2)
+    del rh
+    table["for_events"], _ = turns(
+        lambda: counted("for_hh_events", lambda: ht.ensemble_propagate_for(
+            th, ENS_FOR_HH_T, HH_B, {"state": ics_h}), ("jet",)),
+        lambda: hh_batch(ics_h, dev, HitArrays()),
+        lambda tb: tb.propagate_for(ENS_FOR_HH_T))
+    # -- the per-instance fallbacks on 8 pendulum instances: B4 ---------------
+    xp, vp = (lhs for lhs, _ in sys_p)
+    ics8 = ics_p[:ENS_FALLBACK_N]
+    grid_e = np.linspace(0.0, ENS_GRID_T, 41)
+
+    def nt_ev():
+        return [ht.nt_event(xp, lambda *a: None)]
+
+    tg = ht.taylor_adaptive(sys_p, ics8[0], device=dev, **kw,
+                            nt_events=nt_ev())
+    table["grid_events"], rge = turns(
+        lambda: counted("grid_events_fallback", lambda:
+                        ht.ensemble_propagate_grid(tg, grid_e, ENS_FALLBACK_N,
+                                                   {"state": ics8}),
+                        ("phase",)),
+        lambda: ht.taylor_adaptive_batch(sys_p, ics8, device=dev, **kw,
+                                         nt_events=nt_ev()),
+        lambda tb: tb.propagate_grid(grid_e))
+
+    def go_on(ta_, d_sgn):
+        return True
+
+    te = [ht.t_event(vp, callback=go_on)]
+    tt = ht.taylor_adaptive(sys_p, ics8[0], device=dev, **kw, t_events=te)
+    table["until_te_callback"], rte = turns(
+        lambda: counted("until_te_fallback", lambda:
+                        ht.ensemble_propagate_until(tt, ENS_GRID_T,
+                                                    ENS_FALLBACK_N,
+                                                    {"state": ics8}),
+                        ("phase",)),
+        lambda: ht.taylor_adaptive_batch(
+            sys_p, ics8, device=dev, **kw, t_events=[ht.t_event(
+                vp, callback=lambda tb, d, lane: True)]),
+        lambda tb: tb.propagate_until(ENS_GRID_T))
+    worst = 0.0
+    for i in range(ENS_FALLBACK_N):
+        one = ht.taylor_adaptive(sys_p, ics8[i], device=dev, **kw,
+                                 t_events=te)
+        one.propagate_until(ENS_GRID_T)
+        rel, _ = rel_err(rte["state"][i], one.state)
+        og = ht.taylor_adaptive(sys_p, ics8[i], device=dev, **kw,
+                                nt_events=nt_ev())
+        rel_g, _ = rel_err(rge["out"][i], og.propagate_grid(grid_e)[4])
+        worst = max(worst, rel, rel_g)
+    check(worst <= SCALAR_RTOL, f"ensemble fallbacks vs own runs: {worst}")
+    res["fallbacks_vs_own_scalar_runs_max_rel"] = worst
+    # -- ensemble_propagate_until_batch: 10 x 1,024 lanes ---------------------
+    n_it = B // ENS_BATCH
+    tab = ht.taylor_adaptive_batch(sys_ss, ics_ss[:ENS_BATCH], device=dev,
+                                   **kw)
+    rb = counted("until_batch", lambda: ht.ensemble_propagate_until_batch(
+        tab, T_END, n_it, {"state": ics_ss.reshape(n_it, ENS_BATCH, -1)}),
+        ("jet", "prop"))
+    res["until_batch_vs_phase5"] = rel_err(rb["state"].reshape(B, -1),
+                                           st_fused)
+    check(res["until_batch_vs_phase5"][0] <= SCALAR_RTOL,
+          f"ensemble until_batch: {res['until_batch_vs_phase5']}")
+    # -- one mesh of one device -----------------------------------------------
+    rm = counted("mesh_cuda0", lambda: ht.ensemble_propagate_until(
+        tmpl, T_END, B, gen, mesh=ENS_MESH), ("jet", "prop"))
+    res["mesh_vs_plain"] = rel_err(rm["state"], first["state"])
+    check(res["mesh_vs_plain"][1], f"mesh: {res['mesh_vs_plain']}")
+    for name, row in table.items():
+        print(f"ensemble table {name}: ensemble first "
+              f"{row['first_call_s']:.4f} s, later {row['later_call_s']:.4f} s, ensemble "
+              f"{np.median(row['ensemble_steps_per_s']):.0f} lane-steps/s, "
+              f"raw {np.median(row['raw_steps_per_s']):.0f} (built "
+              f"{np.median(row['raw_build_s']):.4f} s apart), raw/ensemble "
+              f"{row['raw_over_ensemble']:.4f}", flush=True)
+    say(21, nvidia_smi=smi, B=B, tol=SCALAR_RTOL, table=table, **res)
+    return paths
 
 
 if __name__ == "__main__":

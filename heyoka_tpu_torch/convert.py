@@ -196,6 +196,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_dtype(dtype) -> None:
+    """Accept float64 (numpy's, torch's or their names), the one precision
+    the port integrates in; raise ``ValueError`` for any other ``dtype``
+    (the JAX package's integrators also take float32)."""
+    if isinstance(dtype, torch.dtype):
+        ok = dtype == torch.float64
+    else:
+        try:
+            ok = np.dtype(dtype) == np.float64
+        except TypeError:
+            ok = False
+    if not ok:
+        raise ValueError(f"dtype {dtype!r} is not supported: the port "
+                         "integrates in float64 only (pass float64)")
+
+
 def state_from_numpy(state, pars, t_hi, t_lo, device) -> dict:
     """The port's lane state from the arrays of a JAX
     ``TaylorAdaptiveBatch`` (``state`` (B, n), ``pars`` (B, p), and the

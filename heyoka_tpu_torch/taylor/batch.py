@@ -20,7 +20,8 @@ an in-graph one runs in the per-step driver, a host one in the
 host-driven driver (``events.propagate_stepwise``).
 
 Every tensor lives on the ``device`` given to the constructor, CUDA unless
-the caller asks for the CPU.  On a CUDA device ``step`` launches kernel B2
+the caller asks for the CPU, in f64: the constructor's ``dtype=`` takes
+float64 and refuses any other.  On a CUDA device ``step`` launches kernel B2
 and ``propagate_until`` kernel B1 (with B2 for the exact landing steps);
 on the CPU the plain twins run.  ``propagate_grid`` and
 ``propagate_until(c_output=True)`` take the per-step driver over the
@@ -46,8 +47,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..convert import (JET_OPS, plan_to_arrays, resolve_device,
-                       state_from_numpy)
+from ..convert import (JET_OPS, check_dtype, plan_to_arrays,
+                       resolve_device, state_from_numpy)
 from ..expr.core import Variable, expr
 from ..expr.decompose import Tape, taylor_decompose_sys
 from ..dfloat import dd_add_d, dd_normalize
@@ -93,13 +94,14 @@ def _normalize_sys(sys_):
 
 class TaylorAdaptiveBatch:
     def __init__(self, sys, state, *, device="cuda", time=None, pars=None,
-                 tol=None, high_accuracy=False, t_events=(), nt_events=()):
-        self._device = resolve_device(device)
+                 tol=None, high_accuracy=False, t_events=(), nt_events=(),
+                 dtype=np.float64):
+        check_dtype(dtype)
         self._sys = sys = _normalize_sys(sys)
         self._tol = tol = float(np.finfo(np.float64).eps if tol is None
                                 else tol)
         self._order = _st.taylor_order_from_tol(tol)
-        self._high_accuracy = high_accuracy = bool(high_accuracy)
+        self._high_accuracy = bool(high_accuracy)
         # the event equations are the tape's sv-funcs, terminal ones first
         self._t_events, self._nt_events = list(t_events), list(nt_events)
         self._tape: Tape = taylor_decompose_sys(
@@ -111,10 +113,71 @@ class TaylorAdaptiveBatch:
         self._phase = any(g.name not in JET_OPS
                           for lv in plan.levels for g in lv)
         self._rolled = not self._phase and plan.width >= ROLLED_MIN_WIDTH
+        self._arrays = plan_to_arrays(plan)
+        self._build_engine(resolve_device(device))
+        self._set_lanes(state, pars, time)
+
+    @classmethod
+    def _sharing(cls, src, state, *, pars=None, time=None, device=None,
+                 t_events=None, nt_events=None):
+        """A new batch of ``src``'s system, tolerance and route with the
+        lanes ``state``/``pars``/``time``, neither decomposing nor packing
+        the tape again: on ``src``'s device it shares ``src``'s jet tape
+        and drivers, on another it loads the packed tables there.
+        ``t_events``/``nt_events`` (default ``src``'s) must match
+        ``src``'s in expression, direction and cooldown: they may differ
+        in their callbacks only (the ensembles' and the scalar
+        integrator's)."""
+        # a shallow copy of every attribute (copy.copy would go through
+        # __getstate__ and rebuild), whose lanes _set_lanes then replaces
+        tb = cls.__new__(cls)
+        tb.__dict__.update(src.__dict__)
+        tb._t_events = list(src._t_events if t_events is None else t_events)
+        tb._nt_events = list(src._nt_events if nt_events is None
+                             else nt_events)
+        if (len(tb._t_events), len(tb._nt_events)) != (
+                len(src._t_events), len(src._nt_events)):
+            raise ValueError("the events must match the source's")
+        dev = src._device if device is None else resolve_device(device)
+        if dev != src._device:
+            tb._build_engine(dev)
+        tb._set_lanes(state, pars, time)
+        return tb
+
+    def _build_engine(self, device):
+        """The jet tape on ``device`` and the drivers over it."""
+        self._device = device
         tape_cls = PhaseTape if self._phase else \
             RolledTape if self._rolled else JetTape
-        self._jtape = tape_cls(plan_to_arrays(plan), self._device)
+        self._jtape = tape_cls(self._arrays, device)
+        jet_fn = jet_phase if self._phase else \
+            jet_rolled if self._rolled else jet
+        high_accuracy = self._high_accuracy
+        self._ev = build_event_step_batch(
+            self._jtape, self._t_events, self._nt_events, self._tol,
+            high_accuracy=high_accuracy, jet=jet_fn) \
+            if self._t_events or self._nt_events else None
+        kw = dict(high_accuracy=high_accuracy, jet=jet_fn, ev=self._ev)
+        self._step_fn = make_batched_step_flat(
+            self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
+        self._pg_fn = make_propagate_grid_flat(self._jtape, **kw)
+        self._cout_fn = make_propagate_until_cout(self._jtape, **kw)
+        # the per-step driver: events, an in-graph callback, and every
+        # tape kernel B1 cannot take
+        self._flat_pu = make_propagate_until_flat(self._jtape, **kw)
+        if self._ev is not None:
+            self._pu_fn, self._pu_engine = self._flat_pu, "events"
+        elif self._jtape.time_col is None and jet_fn is jet:
+            self._pu_fn = make_propagate_until_fused(
+                self._jtape, high_accuracy=high_accuracy,
+                chunk_steps=CHUNK_STEPS)
+            self._pu_engine = "fused"
+        else:
+            self._pu_fn, self._pu_engine = self._flat_pu, "flat"
 
+    def _set_lanes(self, state, pars, time):
+        """The lanes (state (B, n), pars (B, p), time (B,) or a scalar),
+        with zero last steps, coefficients and cooldowns."""
         n_eq = self._tape.n_eq
         state = np.asarray(state, dtype=np.float64)
         if state.ndim != 2 or state.shape[1] != n_eq:
@@ -138,37 +201,14 @@ class TaylorAdaptiveBatch:
                                device=self._device)
         self._last_res = [(TaylorOutcome.success, 0.0)] * B
         self._last_prop_res = None
+        self._d_output = np.zeros((B, n_eq))
         # the lanes whose last step a terminal event stopped for good (no
         # callback, or one that returned False): the host-driven driver
         # ends them
         self._event_stop = np.zeros(B, bool)
-
-        jet_fn = jet_phase if self._phase else \
-            jet_rolled if self._rolled else jet
         self._te_cooldowns = torch.zeros((B, len(self._t_events)),
                                          dtype=torch.float64,
                                          device=self._device)
-        self._ev = build_event_step_batch(
-            self._jtape, self._t_events, self._nt_events, tol,
-            high_accuracy=high_accuracy, jet=jet_fn) \
-            if self._t_events or self._nt_events else None
-        kw = dict(high_accuracy=high_accuracy, jet=jet_fn, ev=self._ev)
-        self._step_fn = make_batched_step_flat(
-            self._jtape, high_accuracy=high_accuracy, jet=jet_fn)
-        self._pg_fn = make_propagate_grid_flat(self._jtape, **kw)
-        self._cout_fn = make_propagate_until_cout(self._jtape, **kw)
-        # the per-step driver: events, an in-graph callback, and every
-        # tape kernel B1 cannot take
-        self._flat_pu = make_propagate_until_flat(self._jtape, **kw)
-        if self._ev is not None:
-            self._pu_fn, self._pu_engine = self._flat_pu, "events"
-        elif self._jtape.time_col is None and jet_fn is jet:
-            self._pu_fn = make_propagate_until_fused(
-                self._jtape, high_accuracy=high_accuracy,
-                chunk_steps=CHUNK_STEPS)
-            self._pu_engine = "fused"
-        else:
-            self._pu_fn, self._pu_engine = self._flat_pu, "flat"
 
     # -- introspection ---------------------------------------------------------
 
@@ -450,8 +490,6 @@ class TaylorAdaptiveBatch:
     def d_output(self) -> np.ndarray:
         """The last dense output computed by :meth:`update_d_output`
         (zeros before the first call)."""
-        if not hasattr(self, "_d_output"):
-            self._d_output = np.zeros((self._batch, self.dim))
         return self._d_output
 
     # -- propagation ---------------------------------------------------------------
@@ -572,6 +610,14 @@ class TaylorAdaptiveBatch:
         callbacks run after it, lane by lane in time order); with a step
         callback or terminal-event callbacks the host-driven
         :func:`.events.propagate_stepwise`."""
+        *res, out = self._grid(grid, max_delta_t, max_steps, callback)
+        return (*res, out.cpu().numpy() if isinstance(out, torch.Tensor)
+                else out)
+
+    def _grid(self, grid, max_delta_t=None, max_steps=0, callback=None):
+        """:meth:`propagate_grid` with the rows as the driver gives them: a
+        tensor on the device from the device driver (the ensembles keep
+        it there), a numpy array from the host-driven one."""
         grid_np = check_grid(grid)
         mdt_np = np.array(np.broadcast_to(np.asarray(
             _pymath.inf if max_delta_t is None else max_delta_t,
@@ -587,7 +633,7 @@ class TaylorAdaptiveBatch:
                           grid, self._lanes(mdt_np), int(max_steps),
                           fill=0.0 if self._ev is None else float("nan"),
                           **self._ev_kw(hits))
-        out = (*self._finish(res), res["out"].cpu().numpy())
+        out = (*self._finish(res), res["out"])
         if hits is not None:
             _ev.dispatch_nt(self, hits, fwd)
         return out
@@ -647,6 +693,11 @@ class TaylorAdaptiveBatch:
                       high_accuracy=st["high_accuracy"], device=st["device"],
                       t_events=st.get("t_events", ()),
                       nt_events=st.get("nt_events", ()))
+        self._load_carry(st)
+
+    def _load_carry(self, st):
+        """The lanes' double-length time, last step, coefficients and
+        cooldowns from :meth:`__getstate__`'s arrays."""
         dev = self._device
         self._t_hi, self._t_lo, self._last_h, self._tc = (
             torch.as_tensor(np.array(st[k], np.float64), device=dev)

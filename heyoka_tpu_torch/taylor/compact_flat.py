@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..callback import apply as apply_callback
 from ..dfloat import dd_add_d, dd_add_dd
 from .jet_kernels import JetTape, jet
 from .outcome import TaylorOutcome
@@ -142,14 +143,13 @@ def _lane_end(res, keep, finite, hit_step_limit, reached, hits, alive):
 
 
 def _callback(hook, new_state, pars, t_hi, t_lo, h, tc):
-    """A step callback ``hook(state, pars, t_hi, t_lo, h, tc) -> (state,
-    keep)`` after a step: the state it returns and its ``keep``, a bool or
-    one a lane, as a ``(B,)`` bool tensor (None without a hook)."""
+    """An in-graph step callback ``hook(state, pars, t_hi, t_lo, h, tc) ->
+    (state, keep)`` after a step, run per lane (``callback.apply``): the
+    states it returns and its ``keep`` as a ``(B,)`` bool tensor (None
+    without a hook)."""
     if hook is None:
         return new_state, None
-    new_state, keep = hook(new_state, pars, t_hi, t_lo, h, tc)
-    keep = torch.as_tensor(keep, dtype=torch.bool, device=h.device)
-    return new_state, keep.expand(h.shape[0])
+    return apply_callback(hook, new_state, pars, t_hi, t_lo, h, tc)
 
 
 def _pu_while(step, pars, target_hi, target_lo, max_delta_t, max_steps,

@@ -498,13 +498,13 @@ def test_angle_reducer_matches_jax(jax_plain):
 
 
 def test_step_callback_set_and_lane_stop():
-    # a set of in-graph callbacks; a lane whose keep is False stops with
-    # cb_stop, the others go on
+    # a set of in-graph callbacks, each given one lane (the JAX form); a
+    # lane whose keep is False stops with cb_stop, the others go on
     p = ht.taylor_adaptive_batch(
         _rotor(ht), [[0.0, 1.0], [0.0, 2.0]], tol=TOL, device="cpu")
 
     def stop_fast(state, pars, t_hi, t_lo, h, tc):
-        return state, state[:, 1] < 1.5
+        return state, state[1] < 1.5
 
     stop_fast.in_graph = True
     res = p.propagate_until(30.0, callback=StepCallbackSet(

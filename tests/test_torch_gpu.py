@@ -837,3 +837,129 @@ def test_events_on_cuda_match_cpu(cuda, monkeypatch, route):
     _close(g.state, c.state)
     _close(np.nan_to_num(gg[4]), np.nan_to_num(gc[4]))
     assert g.engine_report()["propagate_engine"] == "events"
+
+
+# -- one and three lanes: the scalar integrator's and small ensembles' ------
+
+
+def _guarded(t, guard=4096, fill=12345.0):
+    """``t`` copied into the middle of a buffer of ``fill`` guards: (the
+    copy, the whole buffer)."""
+    flat = torch.full((t.numel() + 2 * guard,), fill, dtype=t.dtype,
+                      device=t.device)
+    flat[guard:guard + t.numel()] = t.reshape(-1)
+    return flat[guard:guard + t.numel()].view(t.shape), flat
+
+
+def _guards_kept(flat, guard=4096, fill=12345.0):
+    return bool((flat[:guard] == fill).all() and (flat[-guard:] == fill).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", ["nbody3", "handbuilt"])
+def test_jet_and_prop_kernels_at_few_lanes(cuda, name, B):
+    # B2 and B1 with one or three lanes (one block each) against the twins
+    K = 19
+    tape = _tape(name, K, cuda)
+    st, pars, t = _inputs(name, B, 21)
+    args = (_dev(st.T, cuda), _dev(pars.T, cuda), _dev(t, cuda))
+    tc, norms = jk.jet(tape, *args)
+    tc_p, norms_p = jk.jet_plain(tape, *args)
+    assert float(_per_order_rel(tc, tc_p).max()) <= 1e-13
+    assert float(((norms - norms_p).abs().amax(1)
+                  / norms_p.amax(1)).max()) <= 1e-13
+    if name != "nbody3":
+        return  # B1 carries no time
+    aux = torch.stack([_dev(np.full(B, np.inf), cuda), _dev(np.ones(B), cuda),
+                       _dev(np.full(B, 3.0), cuda), _dev(np.zeros(B), cuda),
+                       _dev(np.ones(B), cuda)])
+    budget = torch.full((1, B), 1000, dtype=torch.int32, device=cuda)
+    k = jk.prop(tape, args[0], args[1], aux, budget, 16, True)
+    p = jk.prop_plain(tape, args[0], args[1], aux, budget, 16, True)
+    assert torch.equal(k[2], p[2])
+    torch.testing.assert_close(k[0], p[0], rtol=0, atol=1e-11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", ["mascon12", "mascon512"])
+def test_jet_rolled_kernel_at_few_lanes(cuda, name, B):
+    # B3 with one or three lanes: mascon-12 on the smem layout, mascon-512
+    # on the global layout with its scratch sized for an SM's lanes
+    tape = _tape(name, 19, cuda, jr.RolledTape)
+    args = (_dev(_orbits(B, 17).T, cuda),
+            torch.zeros((0, B), dtype=torch.float64, device=cuda),
+            torch.zeros(B, dtype=torch.float64, device=cuda))
+    _rolled_vs_twin_and_b2(cuda, tape, args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3])
+def test_phase_kernel_at_few_lanes_every_shape(cuda, B):
+    # B4 with one or three live lanes in a block of up to 32, at every
+    # shape it takes: equal to the twin, and nothing written outside the
+    # buffer (guards on both sides)
+    K = 19
+    tape = _phase_tape("pendulum", K, cuda)
+    st0, pars = PHASE_CASES["pendulum"][1:]
+    tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, B, 6), cuda)
+    tc_p = jp.phase_plain(tape, tc0.clone(), 1)
+    shapes = [(None, None, None)] + jp.sweep_shapes(tape, 8)
+    for lay, L, nt in shapes:
+        buf, flat = _guarded(tc0)
+        jp._phase_cuda(tape, buf, 1, L, nt, lay)
+        torch.cuda.synchronize()
+        assert _guards_kept(flat), (lay, L, nt)
+        rel = _per_order_rel(buf.permute(1, 0, 2), tc_p.permute(1, 0, 2))
+        assert float(rel.max()) <= 1e-13, (lay, L, nt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ROUTES)
+def test_scalar_on_cuda_matches_cpu(cuda, monkeypatch, route):
+    # the scalar integrator on the card: its route's kernels (B1 and B2 on
+    # b2, B3 on b3, B4 on b4), equal to its CPU run
+    if route == "b3":
+        monkeypatch.setattr(tbatch, "ROLLED_MIN_WIDTH", ROLLED_TEST_WIDTH)
+    sys_, st = route_case(ht, route, 1, 4)
+    kw = dict(tol=1e-12, high_accuracy=True)
+    c = ht.taylor_adaptive(sys_, st[0], device="cpu", **kw)
+    g = ht.taylor_adaptive(sys_, st[0], device=cuda, **kw)
+    n0 = dict(jk.LAUNCHES)
+    sc, sg = c.step(), g.step()
+    rc, rg = c.propagate_until(4.0), g.propagate_until(4.0)
+    torch.cuda.synchronize()
+    grown = {k for k in jk.LAUNCHES if jk.LAUNCHES[k] != n0[k]}
+    assert grown == ({"jet", "prop"} if route == "b2"
+                     else {ROUTE_KERNEL[route]})
+    assert sg[0] == sc[0] and sg[1] == pytest.approx(sc[1], rel=1e-12)
+    assert rg[0] == rc[0] and rg[3] == rc[3] and g.time == 4.0
+    _close(g.state, c.state)
+
+
+@pytest.mark.gpu
+def test_ensemble_on_cuda_matches_cpu(cuda):
+    # an ensemble of 5 instances of the 3-body template: B1 and B2, equal
+    # to the CPU ensemble; a one-device mesh equal to the plain call
+    sys_, st = route_case(ht, "b2", 5, 6)
+    kw = dict(tol=1e-12, high_accuracy=True)
+    res = {}
+    for dev in ("cpu", cuda):
+        ta = ht.taylor_adaptive(sys_, st[0], device=dev, **kw)
+        n0 = dict(jk.LAUNCHES)
+        res[str(dev)] = ht.ensemble_propagate_until(ta, 3.0, 5,
+                                                    {"state": st})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            grown = {k for k in jk.LAUNCHES if jk.LAUNCHES[k] != n0[k]}
+            assert grown == {"jet", "prop"}
+            rm = ht.ensemble_propagate_until(ta, 3.0, 5, {"state": st},
+                                             mesh=["cuda:0"])
+            assert torch.equal(rm["state"].cpu(), res[str(dev)]["state"]
+                               .cpu())
+    c, g = res["cpu"], res[str(cuda)]
+    assert g["state"].device.type == "cuda"
+    assert torch.equal(g["outcome"].cpu(), c["outcome"])
+    assert torch.equal(g["nsteps"].cpu(), c["nsteps"])
+    _close(g["state"].cpu().numpy(), c["state"].numpy())
