@@ -177,15 +177,44 @@ if anything is missing or any check fails.  Phases, one line each:
     ensemble table (until/for/grid x plain/events and the terminal
     callbacks): each ensemble beside the raw batch on the same lanes in
     turns (the raw batch built before its timer starts, its constructor
-    timed apart), their ratio, its first call against a later one.
+    timed apart), their ratio, its first call against a later one;
+22. variational systems and compiled functions: (a) BASELINE config 4
+    (``benchmarks/var_bench.py``): ``var_ode_sys(pcr3bp(mu=0.01),
+    VarArgs.vars, 1)`` (128 columns), kernels B2 and B1 against their
+    twins on its lanes, then 2,048 and 10,240 lanes (1e-6 N(0, 1), lane 0
+    unperturbed) to t = 10 at tol 1e-15 (fused B1 and B2; every lane
+    ``time_limit``, every STM's |det - 1| at most 1e-10, the Jacobi
+    constant, the port's cfunc on the card, kept to 1e-12), lane 0 against
+    the scalar ``taylor_adaptive(vsys, ic)`` (1e-13, and whether bit for
+    bit), 4 lanes against the CPU run (1e-11), one ``step()`` (B2), the
+    lane-steps/s and the construction time; (b) the CR3BP at order 2
+    (1,355 columns) on kernel B3: its layout (history rows, aliases, bytes
+    a lane), B3 against its twin (1e-13 per order) and its time, 1,024
+    lanes about a bound orbit to t = 12 (~100 steps; only B3, Jacobi drift
+    at most 1e-12, 2 lanes against the CPU), the Taylor map at deviations
+    d and d / 2 (d ~ 1e-4) against direct integrations of the displaced
+    lanes, its error 6-10x smaller at d / 2 on every lane; (c) the
+    2-[16]-2 tanh neural ODE wrt its 82 parameters (1,069 columns) on
+    kernel B4: its block shape, B4 against its twin (1e-13 per order) and
+    its time (CUDA graph), 1,024 lanes to t = 1 (only B4), 8 parameters'
+    sensitivities against central differences (step 1e-6, 1e-6 relative)
+    and 4 lanes against the CPU run (1e-12); (d) the cfunc at 2^20 points
+    on the card against the CPU (1e-14 relative, and whether bit for
+    bit): the CR3BP's Jacobi constant, the outer SS's energy, the Jacobi
+    constant with mu a parameter of each point and the rotating frame's
+    positions in the inertial one at each point's time; evaluations/s
+    and the device kernels a call launches (``torch.profiler``); the
+    share of 2^20 inputs where torch's sqrt on the CPU and on the card
+    differs from numpy's.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
 plain version's, its bound from ``tools.roofline`` and, where one torch
 call computes the same function, that call's time; for B1-B4 also
-``path_launches``, the launches on phases 15-16's, 17-19's and 20-21's
+``path_launches``, the launches on phases 15-16's, 17-19's, 20-21's and 22's
 paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
-rows); the last line is ``{"ok": true, "device": {...}}``.  Each phase's
+rows, and ``var_tape``, phase 22's time on its variational tape); the
+last line is ``{"ok": true, "device": {...}}``.  Each phase's
 line carries ``t_s``, the seconds since the script started.
 """
 
@@ -616,6 +645,27 @@ def main():
     prop_err = max(prop_err, few_errs["prop"])
     rolled = (rolled[0], max(rolled[1], few_errs["jet_rolled"]), rolled[2])
     phased = (phased[0], max(phased[1], few_errs["phase"]), phased[2])
+
+    # phase 22: variational systems and compiled functions; each kernel's
+    # launches on its paths, and its time and error on its variational tape
+    var_rows, var_launch = var_paths(dev, smi, order)
+    for key, row in (("jet", times["jet"]), ("prop", times["prop"]),
+                     ("jet_rolled", rolled[2]), ("phase", phased[2])):
+        row["path_launches"].update(
+            {p: n[key] for p, n in var_launch.items() if n[key]})
+        v = var_rows[key]
+        row["var_tape"] = dict(
+            tape={"jet": "pcr3bp var-o1", "prop": "pcr3bp var-o1",
+                  "jet_rolled": "cr3bp var-o2",
+                  "phase": "neural ODE var wrt params"}[key],
+            ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+            bound_by=v["bound_by"], max_abs_err=v["max_abs_err"])
+    jet_err = max(jet_err, var_rows["jet"]["max_abs_err"])
+    prop_err = max(prop_err, var_rows["prop"]["max_abs_err"])
+    rolled = (rolled[0], max(rolled[1], var_rows["jet_rolled"][
+        "max_abs_err"]), rolled[2])
+    phased = (phased[0], max(phased[1], var_rows["phase"]["max_abs_err"]),
+              phased[2])
 
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
@@ -2627,6 +2677,489 @@ def ensemble_paths(dev, smi, sys_ss, ics_ss, st_fused, pend_rows, hh_hits):
               f"{row['raw_over_ensemble']:.4f}", flush=True)
     say(21, nvidia_smi=smi, B=B, tol=SCALAR_RTOL, table=table, **res)
     return paths
+
+
+VAR_MU = 0.01
+VAR_IC = np.array([-0.45, 0.80, -0.80, -0.45])  # benchmarks/var_bench.py
+VAR_B = (2048, 10_240)
+VAR_T = 10.0
+VAR_DET = 1e-10  # |det STM - 1|: the PCR3BP is Hamiltonian
+VAR_SCALAR_RTOL = 1e-13
+VAR_REF_RTOL = 1e-11
+CR3BP_IC = np.array([-0.45, 0.80, 0.0, -0.80, -0.45, 0.0])
+CR3BP_B = 1024
+CR3BP_T = 12.0  # about 100 steps of the order-2 system
+CR3BP_REF_LANES = 2
+TM_D = 1e-4  # the Taylor map's deviation, then half of it
+TM_RATIO = (6.0, 10.0)  # an order-2 map's error: d^3, 8x when d halves
+NN_HIDDEN = 16
+NN_B = 1024
+NN_T = 1.0
+NN_FD_H = 1e-6
+NN_FD_PARS = 8
+NN_FD_LANES = 4
+NN_FD_RTOL = 1e-6
+NN_REF_RTOL = 1e-12
+CF_N = 2 ** 20
+CF_RTOL = 1e-14
+CF_PROFILE_CALLS = 10
+
+
+def var_lanes(B):
+    """``var_bench.py``'s lanes: the initial conditions perturbed by 1e-6
+    N(0, 1) (rng 0), lane 0 unperturbed."""
+    rng = np.random.default_rng(0)
+    st = VAR_IC[None] + 1e-6 * rng.standard_normal((B, 4))
+    st[0] = VAR_IC
+    return st
+
+
+def rel_max(a, b):
+    """max |a - b| over max |b| (arrays or tensors)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def jacobi_cf(dev, mu=VAR_MU):
+    """The CR3BP's Jacobi constant as the port's cfunc on ``dev``, inputs
+    (x, y, z, px, py, pz)."""
+    return ht.make_cfunc([ht.models.cr3bp_jacobi(mu=mu)],
+                         vars=["x", "y", "z", "px", "py", "pz"], device=dev)
+
+
+def planar_jacobi(cf, st):
+    """The Jacobi constant of PCR3BP states (B, >= 4: x, y, px, py first)
+    with z = pz = 0, per lane."""
+    st = torch.as_tensor(np.ascontiguousarray(st[:, :4]), device=cf.device)
+    z = torch.zeros_like(st[:, 0])
+    return cf(torch.stack([st[:, 0], st[:, 1], z, st[:, 2], st[:, 3], z],
+                          1))[:, 0]
+
+
+def jet_parity(tape, full, dev, n_steps=CHUNK):
+    """Kernels B2 and B1 against their twins on a variational tape's lanes
+    ``full (B, n)``: B2 per order and its norms (1e-13), B1's one chunk
+    (flags equal, state 1e-11); their times (``cuda_ms``, two windows in
+    turns with the twins) and bounds."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    B = full.shape[0]
+    st = torch.as_tensor(full.T.copy(), **f64)
+    npar = torch.zeros((0, B), **f64)
+    aux = torch.stack([torch.full((B,), float("inf"), **f64),
+                       torch.ones(B, **f64), torch.full((B,), FAR, **f64),
+                       torch.zeros(B, **f64), torch.ones(B, **f64)])
+    auxi = torch.full((1, B), 2**31 - 1, dtype=torch.int32, device=dev)
+    runs = {"jet": (lambda: jk.jet(tape, st, npar),
+                    lambda: jk.jet_plain(tape, st, npar)),
+            "prop": (lambda: jk.prop(tape, st, npar, aux, auxi, n_steps),
+                     lambda: jk.prop_plain(tape, st, npar, aux, auxi,
+                                           n_steps))}
+    (tc_k, nrm_k), (tc_p, nrm_p) = runs["jet"][0](), runs["jet"][1]()
+    rel_j = float(per_order_rel(tc_k, tc_p).max())
+    nrel = float(((nrm_k - nrm_p).abs() / nrm_p.abs()).max())
+    check(rel_j <= JET_RTOL and nrel <= JET_RTOL,
+          f"B2 vs jet_plain on the variational tape: {rel_j}, norms {nrel}")
+    (sk, ofk, oik), (sp, ofp, oip) = runs["prop"][0](), runs["prop"][1]()
+    check(torch.equal(oik, oip), "B1 vs prop_plain on the variational "
+          "tape: n_taken/near/err differ")
+    rel_p = float(((sk - sp).abs().amax(1) / sp.abs().amax(1)).max())
+    check(rel_p <= PROP_RTOL, f"B1 vs prop_plain on the variational tape: "
+          f"state {rel_p}")
+    t = {}
+    for name, (kern, plain) in runs.items():
+        p1 = cuda_ms(plain, 1)
+        k1, k2 = cuda_ms(kern, 3), cuda_ms(kern, 3)
+        t[name] = ([k1, k2], [p1, cuda_ms(plain, 1)])
+    jet_fl = rl.jet_flops(tape.arrays)
+    tables = (tape.itab, tape.dtab)
+    n_jets = int(oik[0].sum() + (oik[1] | oik[2]).sum())
+    bnd = {"jet": rl.bound(jet_fl * B, rl.nbytes(st, *tables, tc_k, nrm_k),
+                           torch.float64),
+           "prop": rl.bound(n_jets * jet_fl + int(oik[0].sum())
+                            * rl.step_flops(tape.n_eq, tape.order),
+                            rl.nbytes(st, aux, auxi, *tables, sk, ofk, oik),
+                            torch.float64)}
+    return dict(
+        jet=dict(timed(*t["jet"], bnd["jet"]), max_rel_per_order=rel_j,
+                 norms_max_rel=nrel, ms_runs=t["jet"][0],
+                 max_abs_err=float((tc_k - tc_p).abs().max())),
+        prop=dict(timed(*t["prop"], bnd["prop"]), state_max_rel=rel_p,
+                  ms_runs=t["prop"][0], steps=n_steps,
+                  max_abs_err=float((sk - sp).abs().max())))
+
+
+def var_config4(dev, smi, order):
+    """Phase 22 (a): BASELINE config 4 at ``var_bench.py``'s shape on
+    kernels B1/B2.  Returns the kernels' rows (times, errors), the
+    launches on each path and the phase line's fields."""
+    t0 = time.perf_counter()
+    vsys = ht.var_ode_sys(ht.models.pcr3bp(mu=VAR_MU), ht.VarArgs.vars,
+                          order=1)
+    build_s = time.perf_counter() - t0
+    plan = build_plan(ht.taylor_decompose_sys(vsys.sys), order)
+    tape = jk.JetTape(ht.plan_to_arrays(plan), dev)
+    par = jet_parity(tape, vsys.initial_state(var_lanes(VAR_B[0])), dev)
+    kw = dict(tol=TOL, high_accuracy=True)
+    cf = jacobi_cf(dev)
+    warm = ht.taylor_adaptive_batch(vsys, var_lanes(CHUNK), device=dev, **kw)
+    warm.propagate_until(1.0)
+    runs, paths, lane0 = {}, {}, None
+    for B in VAR_B:
+        ics = var_lanes(B)
+        ta = ht.taylor_adaptive_batch(vsys, ics, device=dev, **kw)
+        ta.assert_engine(jet="hy_jet_f64", propagate_engine="fused",
+                         prop="hy_prop_f64")
+        check(ta.is_variational and ta.get_n_orig_sv() == 4
+              and ta.dim == 20, "config 4: not the variational batch")
+        j0 = planar_jacobi(cf, ics)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        oc, _, _, nsteps = ta.propagate_until(VAR_T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = paths[f"var_pcr3bp_B{B}"] = dict(jk.LAUNCHES)
+        check(launches["jet"] > 0 and launches["prop"] > 0
+              and launches["jet_rolled"] == launches["phase"] == 0,
+              f"config 4 at B={B}: kernels launched {launches}")
+        check(all(o == ht.TaylorOutcome.time_limit for o in oc),
+              f"config 4 at B={B}: an outcome is not time_limit")
+        check(bool((ta.time == VAR_T).all()),
+              f"config 4 at B={B}: a lane did not land on the target")
+        st = ta.state
+        check(bool(np.isfinite(st).all()), f"config 4 at B={B}: non-finite")
+        stm = torch.as_tensor(st[:, ta.get_vslice(1)], device=dev).reshape(
+            B, 4, 4)
+        det_err = float((torch.linalg.det(stm) - 1.0).abs().max())
+        check(det_err <= VAR_DET, f"config 4 at B={B}: |det STM - 1| = "
+              f"{det_err}")
+        j1 = planar_jacobi(cf, st)
+        drift = float(((j1 - j0).abs() / j0.abs()).max())
+        check(drift <= JACOBI_MAX, f"config 4 at B={B}: Jacobi drift {drift}")
+        steps = int(nsteps.sum())
+        runs[f"B{B}"] = dict(wall_s=wall, lane_steps=steps,
+                             steps_per_s=steps / wall,
+                             mean_steps_per_lane=steps / B,
+                             launches=launches, det_max_err=det_err,
+                             jacobi_drift_max_rel=drift)
+        if B == VAR_B[0]:
+            lane0, ref_ics, first = st[0], ics[:REF_LANES], ta
+    # lane 0 against the scalar integrator on the card
+    ts = ht.taylor_adaptive(vsys, VAR_IC, device=dev, **kw)
+    torch.cuda.synchronize()
+    zero_launches()
+    ts.propagate_until(VAR_T)
+    torch.cuda.synchronize()
+    paths["var_scalar_pcr3bp"] = dict(jk.LAUNCHES)
+    sc_rel = rel_max(ts.state, lane0)
+    check(sc_rel <= VAR_SCALAR_RTOL, f"config 4: the scalar against lane 0: "
+          f"{sc_rel}")
+    # the lanes against the port's CPU run
+    ref = ht.taylor_adaptive_batch(vsys, ref_ics, device="cpu", **kw)
+    ref.propagate_until(VAR_T)
+    ref_rel = rel_max(first.state[:REF_LANES], ref.state)
+    check(ref_rel <= VAR_REF_RTOL, f"config 4 vs the CPU run: {ref_rel}")
+    # one step() of the batch: kernel B2
+    zero_launches()
+    first.step()
+    torch.cuda.synchronize()
+    paths["var_step"] = dict(jk.LAUNCHES)
+    check(paths["var_step"]["jet"] == 1, "config 4: step() launched "
+          f"{paths['var_step']}")
+    line = dict(vsys_build_s=build_s, W=tape.width, n_eq=tape.n_eq,
+                layout=jk.layout_report(tape), kernels=par, **runs,
+                scalar_lane0=dict(max_rel=sc_rel, bit_equal=bool(
+                    np.array_equal(ts.state, lane0)),
+                    launches=paths["var_scalar_pcr3bp"]),
+                cpu_ref_max_rel=ref_rel, nvidia_smi=smi)
+    return par, paths, line
+
+
+def cr3bp_lanes(B):
+    """Lanes about a bound CR3BP orbit, the PCR3BP's initial conditions
+    lifted to 3-D: each coordinate perturbed by 1e-3 N(0, 1) (rng 1)."""
+    rng = np.random.default_rng(1)
+    return CR3BP_IC[None] + 1e-3 * rng.standard_normal((B, 6))
+
+
+def var_cr3bp(dev, order):
+    """Phase 22 (b): the CR3BP at order 2 (1,355 columns) on kernel B3:
+    B3 against its twin, the slice, and the Taylor map's convergence
+    against direct integrations of the displaced lanes."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    vsys = ht.var_ode_sys(ht.models.cr3bp(mu=VAR_MU), ht.VarArgs.vars, 2)
+    arrays = ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(vsys.sys), order))
+    rt = jr.RolledTape(arrays, dev)
+    rep = jr.layout_report(rt)
+    ics = cr3bp_lanes(CR3BP_B)
+    full = vsys.initial_state(ics)
+    args = (torch.as_tensor(full.T.copy(), **f64),
+            torch.zeros((0, CR3BP_B), **f64), torch.zeros(CR3BP_B, **f64))
+    tc_k, nrm_k = jr.jet_rolled(rt, *args)
+    tc_p, nrm_p = jr.jet_rolled_plain(rt, *args)
+    rel = float(per_order_rel(tc_k, tc_p).max())
+    nrel = float(((nrm_k - nrm_p).abs() / nrm_p.abs()).max())
+    check(rel <= JET_RTOL and nrel <= JET_RTOL,
+          f"B3 vs jet_rolled_plain on cr3bp var-o2: {rel}, norms {nrel}")
+    t = {"b3": [], "plain": []}
+    for which in ("plain", "b3", "b3", "plain"):
+        t[which].append(cuda_ms(lambda: jr.jet_rolled(rt, *args), 3)
+                        if which == "b3" else
+                        cuda_ms(lambda: jr.jet_rolled_plain(rt, *args), 1))
+    bnd = rl.bound(rl.jet_flops(arrays) * CR3BP_B,
+                   rl.nbytes(*args, rt.ritab, rt.rdtab, tc_k, nrm_k),
+                   torch.float64)
+    WH, WC, WV, NA, NS = rt.sizes
+    kern = dict(timed(t["b3"], t["plain"], bnd), ms_runs=t["b3"],
+                max_rel_per_order=rel, norms_max_rel=nrel,
+                max_abs_err=float((tc_k - tc_p).abs().max()))
+    # the slice
+    kw = dict(tol=TOL, high_accuracy=True)
+    ta = ht.taylor_adaptive_batch(vsys, ics, device=dev, **kw)
+    ta.assert_engine(jet="hy_jet_rolled_f64", propagate_engine="flat")
+    cf = jacobi_cf(dev)
+    j0 = cf(torch.as_tensor(ics, device=dev))[:, 0]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    oc, _, _, nsteps = ta.propagate_until(CR3BP_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(launches["jet_rolled"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "jet_rolled"),
+        f"cr3bp var-o2: kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == CR3BP_T).all()),
+          "cr3bp var-o2: a lane did not land with time_limit")
+    st = ta.state
+    check(bool(np.isfinite(st).all()), "cr3bp var-o2: non-finite state")
+    drift = float(((cf(torch.as_tensor(st[:, :6], device=dev))[:, 0] - j0)
+                   .abs() / j0.abs()).max())
+    check(drift <= JACOBI_MAX, f"cr3bp var-o2: Jacobi drift {drift}")
+    ref = ht.taylor_adaptive_batch(vsys, ics[:CR3BP_REF_LANES], device="cpu",
+                                   **kw)
+    ref.propagate_until(CR3BP_T)
+    ref_rel = rel_max(st[:CR3BP_REF_LANES], ref.state)
+    check(ref_rel <= VAR_REF_RTOL, f"cr3bp var-o2 vs the CPU run: {ref_rel}")
+    # the Taylor map at d and d / 2 against direct integrations of the
+    # displaced lanes (the non-variational system, kernels B1/B2)
+    d = TM_D * np.random.default_rng(2).standard_normal(6)
+    errs, direct_launches = [], None
+    for s in (1.0, 0.5):
+        tm = ta.eval_taylor_map(s * d)
+        check(np.array_equal(ta.get_tstate(), tm), "get_tstate")
+        dr = ht.taylor_adaptive_batch(ht.models.cr3bp(mu=VAR_MU), ics + s * d,
+                                      device=dev, **kw)
+        zero_launches()
+        dr.propagate_until(CR3BP_T)
+        direct_launches = direct_launches or dict(jk.LAUNCHES)
+        errs.append(np.abs(tm - dr.state).max(1))
+    ratio = errs[0] / errs[1]
+    check(bool(((ratio >= TM_RATIO[0]) & (ratio <= TM_RATIO[1])).all()),
+          f"cr3bp var-o2: the Taylor map's error shrank "
+          f"{ratio.min()}-{ratio.max()}x when d halved")
+    steps = int(nsteps.sum())
+    line = dict(
+        W=rt.width, n_eq=rt.n_eq, layout=rep,
+        classes=dict(history_rows=WH, aliases=NA, C=WC, V=WV, S=NS),
+        lane_bytes=rep.get("lane_bytes"), b3=kern,
+        B=CR3BP_B, t_end=CR3BP_T, wall_s=wall, lane_steps=steps,
+        steps_per_s=steps / wall, mean_steps_per_lane=steps / CR3BP_B,
+        launches=launches, jacobi_drift_max_rel=drift,
+        cpu_ref_max_rel=ref_rel,
+        taylor_map=dict(d_norm=float(np.linalg.norm(d)),
+                        err_max=[float(e.max()) for e in errs],
+                        ratio_min=float(ratio.min()),
+                        ratio_median=float(np.median(ratio)),
+                        ratio_max=float(ratio.max()),
+                        direct_launches=direct_launches))
+    return kern, {"var_cr3bp_o2": launches}, line
+
+
+def neural_sys():
+    """The 2-[16]-2 tanh network's ODE (weights and biases as params)."""
+    x, y = ht.make_vars("x", "y")
+    nn = ht.models.ffnn([x, y], [NN_HIDDEN], 2, [ht.tanh, lambda e: e])
+    return list(zip([x, y], nn))
+
+
+def var_neural(dev, order):
+    """Phase 22 (c): the neural ODE's sensitivities to its 82 parameters
+    on kernel B4: B4 against its twin on the 1,069-column tape, the slice,
+    finite differences and the CPU run."""
+    sys_ = neural_sys()
+    vsys = ht.var_ode_sys(sys_, ht.VarArgs.params, 1)
+    n_par = ht.models.ffnn_par_count(2, [NN_HIDDEN], 2)
+    w = 0.3 * np.random.default_rng(0).standard_normal(n_par)
+    ics = np.random.default_rng(1).uniform(-1.0, 1.0, (NN_B, 2))
+    pars = np.tile(w, (NN_B, 1))
+    tape = jp.PhaseTape(ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(vsys.sys), order)), dev)
+    full = vsys.initial_state(ics, pars=pars)
+    tc0 = seeded_buffer(tape, full, pars, np.zeros(NN_B), dev)
+    tck, tcp = jp.phase(tape, tc0.clone(), 1), jp.phase_plain(tape,
+                                                              tc0.clone(), 1)
+    rel = float(per_order_rel(tck.permute(1, 0, 2),
+                              tcp.permute(1, 0, 2)).max())
+    nk, npl = jk._norms(tape, tck), jk._norms(tape, tcp)
+    nrel = float(((nk - npl).abs().amax(1) / npl.abs().amax(1)).max())
+    check(rel <= JET_RTOL and nrel <= JET_RTOL,
+          f"B4 vs phase_plain on the neural ODE: {rel}, norms {nrel}")
+    a, b = tc0.clone(), tc0.clone()
+    t = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(graph_ms(lambda: jp.phase(tape, a, 1), 10)
+                        if which == "kernel" else
+                        cuda_ms(lambda: jp.phase_plain(tape, b, 1), 1))
+    bnd = rl.bound(rl.phase_flops(tape.arrays, 1) * NN_B,
+                   rl.phase_bytes(tape.arrays, NN_B, 1, 8)
+                   + rl.nbytes(tape.itab, tape.dtab), torch.float64)
+    shape = jp.layout_report(tape, NN_B)
+    kern = dict(timed(t["kernel"], t["plain"], bnd), ms_runs=t["kernel"],
+                max_rel_per_order=rel, norms_max_rel=nrel, shape=shape,
+                max_abs_err=float((tck - tcp).abs().max()))
+    # the slice
+    kw = dict(tol=TOL, high_accuracy=True)
+    ta = ht.taylor_adaptive_batch(vsys, ics, pars=pars, device=dev, **kw)
+    ta.assert_engine(jet="hy_phase_f64", propagate_engine="flat")
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    oc, _, _, nsteps = ta.propagate_until(NN_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(launches["phase"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "phase"),
+        f"neural ODE: kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == NN_T).all()),
+          "neural ODE: a lane did not land with time_limit")
+    st = ta.state
+    check(bool(np.isfinite(st).all()), "neural ODE: non-finite state")
+    # central differences over NN_FD_PARS parameters on NN_FD_LANES lanes,
+    # one batch of the plain network's ODE (kernel B4 too)
+    js = np.linspace(0, n_par - 1, NN_FD_PARS).astype(int)
+    L = NN_FD_LANES
+    fd_st = np.tile(ics[:L], (2 * len(js), 1))
+    fd_pars = np.tile(w, (2 * len(js) * L, 1))
+    for k, j in enumerate(js):
+        fd_pars[2 * k * L:(2 * k + 1) * L, j] += NN_FD_H
+        fd_pars[(2 * k + 1) * L:(2 * k + 2) * L, j] -= NN_FD_H
+    fd = ht.taylor_adaptive_batch(sys_, fd_st, pars=fd_pars, device=dev, **kw)
+    zero_launches()
+    fd.propagate_until(NN_T)
+    fd_launches = dict(jk.LAUNCHES)
+    fs = fd.state.reshape(len(js), 2, L, 2)
+    fd_sens = (fs[:, 0] - fs[:, 1]) / (2 * NN_FD_H)  # (pars, lanes, comps)
+    var_sens = np.stack([st[:L, ta.get_vslice(1, c)][:, js]
+                         for c in range(2)], 2).transpose(1, 0, 2)
+    fd_rel = float((np.abs(var_sens - fd_sens).max(0)
+                    / np.abs(fd_sens).max(0)).max())
+    check(fd_rel <= NN_FD_RTOL, f"neural ODE: sensitivities against central "
+          f"differences {fd_rel}")
+    ref = ht.taylor_adaptive_batch(vsys, ics[:REF_LANES],
+                                   pars=pars[:REF_LANES], device="cpu", **kw)
+    ref.propagate_until(NN_T)
+    ref_rel = rel_max(st[:REF_LANES], ref.state)
+    check(ref_rel <= NN_REF_RTOL, f"neural ODE vs the CPU run: {ref_rel}")
+    steps = int(nsteps.sum())
+    line = dict(W=tape.width, n_eq=tape.n_eq, n_pars=tape.n_pars,
+                shape=shape, b4=kern, B=NN_B, t_end=NN_T, wall_s=wall,
+                lane_steps=steps, steps_per_s=steps / wall,
+                mean_steps_per_lane=steps / NN_B, launches=launches,
+                fd=dict(params=js.tolist(), lanes=L, h=NN_FD_H,
+                        max_rel=fd_rel, launches=fd_launches),
+                cpu_ref_max_rel=ref_rel)
+    return kern, {"var_neural_ode": launches}, line
+
+
+def cfunc_scale(dev):
+    """Phase 22 (d): the port's cfunc on ``CF_N`` points on the card and
+    on the CPU: the CR3BP's Jacobi constant, the outer Solar System's
+    energy, the Jacobi constant with mu a parameter of each point, and the
+    rotating frame's positions in the inertial one at each point's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(7)
+    x, y = ht.make_vars("x", "y")
+    t, mu = ht.time, ht.par[0]
+    cases = {
+        "jacobi": ([ht.models.cr3bp_jacobi(mu=VAR_MU)],
+                   ["x", "y", "z", "px", "py", "pz"],
+                   rng.uniform(-1.0, 1.0, (CF_N, 6)), {}),
+        "outer_ss_energy": (
+            [ht.models.nbody_energy(6, masses=MASSES, Gconst=GCONST)],
+            [v for v, _ in nbody(6, masses=MASSES, Gconst=GCONST)],
+            IC[None] * (1.0 + 1e-3 * rng.standard_normal((CF_N, 36))), {}),
+        "jacobi_pars": ([ht.models.cr3bp_jacobi(mu=mu)],
+                        ["x", "y", "z", "px", "py", "pz"],
+                        rng.uniform(-1.0, 1.0, (CF_N, 6)),
+                        {"pars": rng.uniform(0.001, 0.5, (CF_N, 1))}),
+        "inertial_time": ([x * ht.cos(t) - y * ht.sin(t),
+                           x * ht.sin(t) + y * ht.cos(t)], ["x", "y"],
+                          rng.uniform(-1.0, 1.0, (CF_N, 2)),
+                          {"time": rng.uniform(0.0, 100.0, CF_N)}),
+    }
+    res = {}
+    for name, (fns, vars_, pts, kw) in cases.items():
+        cf = ht.make_cfunc(fns, vars=vars_, device=dev)
+        cpu = ht.make_cfunc(fns, vars=vars_, device="cpu")
+        args = {k: torch.as_tensor(v, device=dev) for k, v in kw.items()}
+        pts_d = torch.as_tensor(pts, device=dev)
+        out = cf(pts_d, **args)
+        want = cpu(pts, **kw)
+        check(tuple(out.shape) == (CF_N, cf.n_outs)
+              and bool(torch.isfinite(out).all()), f"cfunc {name}: output")
+        r = rel_max(out.cpu(), want)
+        check(r <= CF_RTOL, f"cfunc {name} on the card vs the CPU: {r}")
+        ms = [cuda_ms(lambda: cf(pts_d, **args), 3) for _ in range(2)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(CF_PROFILE_CALLS):
+                cf(pts_d, **args)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = sum(1 for e in ev if "memcpy" in e.name.lower()
+                     or "memset" in e.name.lower())
+        res[name] = dict(
+            n=CF_N, n_ops=len(cf.dc.ops), max_rel=r,
+            bit_equal=bool(torch.equal(out.cpu(), want)), ms_runs=ms,
+            evals_per_s=CF_N / (min(ms) / 1e3),
+            # None where the profiler reported no device event at all
+            device_kernels_per_call=(len(ev) - copies) / CF_PROFILE_CALLS
+            if ev else None,
+            device_copies_per_call=copies / CF_PROFILE_CALLS if ev else None)
+    # where the card and the CPU part: each side's sqrt against numpy's,
+    # which is correctly rounded
+    x = rng.uniform(0.0, 10.0, CF_N)
+    exact = torch.as_tensor(np.sqrt(x))
+    res["sqrt_differs_from_numpy"] = dict(
+        cpu=float((torch.sqrt(torch.as_tensor(x)) != exact).double()
+                  .mean()),
+        card=float((torch.sqrt(torch.as_tensor(x, device=dev)).cpu()
+                    != exact).double().mean()))
+    return res
+
+
+def var_paths(dev, smi, order):
+    """Phase 22: variational systems and compiled functions on the card.
+    Returns each kernel's row additions (errors and times on its
+    variational tape) and the launches on each of the phase's paths."""
+    b12, paths, line_a = var_config4(dev, smi, order)
+    say("22a", **line_a)
+    b3, p_b, line_b = var_cr3bp(dev, order)
+    say("22b", nvidia_smi=smi, **line_b)
+    b4, p_c, line_c = var_neural(dev, order)
+    say("22c", nvidia_smi=smi, **line_c)
+    cf = cfunc_scale(dev)
+    say("22d", nvidia_smi=smi, **cf)
+    return dict(jet=b12["jet"], prop=b12["prop"], jet_rolled=b3,
+                phase=b4), {**paths, **p_b, **p_c}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,10 @@ made of sum, mul, div, sqrt and pow — the outer-Solar-System N-body workload (
 huge instance-regular tapes such as mascons (kernel B3) — and tapes with
 any other op of the recurrence rule set (trig, hyperbolic, Kepler,
 relational ...), such as the pendulum, through the phase jet (kernel B4).
+Variational systems (``var_ode_sys``, ``VarArgs``, over ``diff`` and
+``diff_tensors``; ``lagrangian``/``hamiltonian``) are augmented ODE
+systems on the same routes, and compiled functions (``cfunc``,
+``make_cfunc``) evaluate expressions in f64 torch on the device.
 """
 
 from .expr.core import (  # noqa: F401
@@ -45,6 +49,12 @@ from .expr.math import (  # noqa: F401
 from .expr.decompose import (  # noqa: F401
     function_decompose, taylor_decompose_sys,
 )
+from .expr.diff import diff  # noqa: F401
+from .expr.dtens import diff_tensors, dtens  # noqa: F401
+from .cfunc import cfunc, make_cfunc  # noqa: F401
+from . import lagham, varsys  # noqa: F401
+from .lagham import hamiltonian, lagrangian  # noqa: F401
+from .varsys import VarArgs, var_ode_sys  # noqa: F401
 from .taylor.stepper import taylor_order_from_tol  # noqa: F401
 from . import models  # noqa: F401
 from .convert import (  # noqa: F401

@@ -18,7 +18,11 @@ The batch shares the template's jet tape and drivers
 (``TaylorAdaptiveBatch._sharing``), so no call decomposes or packs the
 tape again; on another device of ``mesh`` the packed tables are loaded
 there once and kept on the template (the counterpart of the JAX
-``_ens_cache``, ``ensemble.py:83``).  The template is left as it was.
+``_ens_cache``, ``ensemble.py:83``).  The template is left as it was.  A
+variational template's batch keeps its ``var_ode_sys`` (``_sharing``
+copies it, as the JAX fallbacks' ``deepcopy`` does, ``ensemble.py:481,
+522``): the instances' states are augmented states, sliced by the
+template's ``get_vslice``.
 
 Events: with pure-stop terminal events and non-terminal events the batch
 runs its event driver (``events.propagate_until_ev``); the results gain

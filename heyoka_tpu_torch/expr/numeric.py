@@ -15,8 +15,8 @@ until all have converged; here a converged lane is frozen with
 convergence would be a host sync per iteration on a CUDA tensor), so a
 lane's last bit no longer depends on its batch-mates.
 
-These rules are also the seed of the port's compiled functions
-(``cfunc``), which are still to come.
+The port's compiled functions (``cfunc.tape_eval``) evaluate their tapes
+with the same rules.
 """
 
 from __future__ import annotations

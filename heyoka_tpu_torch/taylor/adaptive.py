@@ -2,12 +2,14 @@
 
 The counterpart of ``heyoka_tpu.taylor.adaptive.TaylorAdaptive``
 (``heyoka_tpu/taylor/adaptive.py:45-1042``; reference: heyoka
-``taylor_adaptive<T>``, ``include/heyoka/taylor.hpp:355-670``) without
-variational systems: ``step``/``step_backward``, ``propagate_until``/
+``taylor_adaptive<T>``, ``include/heyoka/taylor.hpp:355-670``):
+``step``/``step_backward``, ``propagate_until``/
 ``propagate_for`` (``max_delta_t``, ``max_steps``, step callbacks,
 continuous output), ``propagate_grid``, the dense output of the last step,
 the state, parameters, double-length time and cooldowns with their
-setters, events and pickling.
+setters, events, variational systems (a ``var_ode_sys``, whose one-lane
+batch carries it: the variational getters, ``eval_taylor_map``) and
+pickling.
 
 One integrator holds a one-lane :class:`.batch.TaylorAdaptiveBatch` on
 its ``device`` (CUDA unless the caller asks for the CPU) and translates
@@ -35,8 +37,7 @@ the native runtime is absent, ``adaptive.py:151-177``) and
 :attr:`backend` is ``"device"``; ``backend="native"``, the JAX package's
 host C++ runtime, is not ported (ROADMAP A.22) and raises
 ``NotImplementedError``.  ``compact_mode=`` is accepted and has no
-effect: the port has one engine.  A variational system raises
-``NotImplementedError`` (ROADMAP A.20).  Unlike the JAX class, whose
+effect: the port has one engine.  Unlike the JAX class, whose
 getters return host arrays of a device computation too, each getter here
 copies from the device.
 """
@@ -53,6 +54,7 @@ from ..callback import is_in_graph
 from .batch import TaylorAdaptiveBatch
 from .continuous import ContinuousOutput
 from .events import t_event
+from ..varsys import var_ode_sys
 
 
 class _ScalarEvent:
@@ -104,9 +106,6 @@ class TaylorAdaptive:
     def __init__(self, sys, state, *, time=0.0, pars=None, tol=None,
                  high_accuracy=False, compact_mode=False, dtype=np.float64,
                  t_events=(), nt_events=(), backend="jax", device="cuda"):
-        if type(sys).__name__ == "var_ode_sys":
-            raise NotImplementedError(
-                "variational systems are not ported yet (ROADMAP A.20)")
         check_dtype(dtype)
         if backend not in ("jax", "native", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -115,15 +114,24 @@ class TaylorAdaptive:
                 "backend='native' (the JAX package's host C++ runtime) is "
                 "not ported yet (ROADMAP A.22); the port runs its one "
                 "engine on the device (backend='jax' or 'auto')")
-        sys = list(sys)
-        n_eq = len(sys)
+        # a var_ode_sys integrates its augmented system; given the original
+        # initial conditions only, the variational ones are filled in
+        # (``heyoka_tpu/taylor/adaptive.py:69-82``)
         state = np.asarray(state, dtype=np.float64)
+        if isinstance(sys, var_ode_sys):
+            if state.shape == (sys.n_orig,):
+                state = sys.initial_state(state, pars=pars, t0=float(time))
+            n_eq = len(sys.sys)
+        else:
+            sys = list(sys)
+            n_eq = len(sys)
         if state.shape != (n_eq,):
             raise ValueError(
                 f"state must have shape ({n_eq},), got {state.shape}")
         self._compact_mode = bool(compact_mode)
         self._t_events, self._nt_events = list(t_events), list(nt_events)
         self._event_stop = False
+        self._tstate = None
         self._tb = TaylorAdaptiveBatch(
             sys, state[None], device=device, time=float(time),
             pars=None if pars is None else np.asarray(
@@ -145,6 +153,7 @@ class TaylorAdaptive:
         new._t_events, new._nt_events = list(ta._t_events), \
             list(ta._nt_events)
         new._event_stop = False
+        new._tstate = None
         tb = ta._tb
         new._tb = TaylorAdaptiveBatch._sharing(
             tb, tb.state, pars=tb.pars, time=tb.time,
@@ -158,35 +167,56 @@ class TaylorAdaptive:
     def sys(self):
         return list(self._tb.sys)
 
-    def is_variational(self) -> bool:
-        return False
+    # -- variational API (``heyoka_tpu/taylor/adaptive.py:202-252``) ---------
 
-    def _not_variational(self, fname):
-        raise ValueError(f"'{fname}()' cannot be invoked on non-variational "
-                         "integrators")
+    def is_variational(self) -> bool:
+        return self._tb.is_variational
+
+    def _check_variational(self, fname):
+        if not self._tb.is_variational:
+            raise ValueError(f"'{fname}()' cannot be invoked on "
+                             "non-variational integrators")
 
     def get_vargs(self):
-        self._not_variational("get_vargs")
+        self._check_variational("get_vargs")
+        return self._tb.get_vargs()
 
-    def get_vorder(self):
-        self._not_variational("get_vorder")
+    def get_vorder(self) -> int:
+        self._check_variational("get_vorder")
+        return self._tb.get_vorder()
 
-    def get_vslice(self, order, component=None):
-        self._not_variational("get_vslice")
+    def get_vslice(self, order: int, component: int | None = None) -> slice:
+        self._check_variational("get_vslice")
+        return self._tb.get_vslice(order, component)
 
-    def get_mindex(self, i):
-        self._not_variational("get_mindex")
+    def get_mindex(self, i: int):
+        self._check_variational("get_mindex")
+        return self._tb.get_mindex(i)
 
-    def eval_taylor_map(self, s):
-        self._not_variational("eval_taylor_map")
+    def eval_taylor_map(self, s) -> np.ndarray:
+        """Evaluate the Taylor map of the flow at the deviations ``s``
+        (n_vargs,) of the variational arguments (reference
+        ``eval_taylor_map``, ``taylor_adaptive.cpp:2013``); returns the
+        (n_orig,) mapped state."""
+        self._check_variational("eval_taylor_map")
+        s = np.asarray(s, dtype=np.float64)
+        K = len(self._tb.get_vargs())
+        if s.shape != (K,):
+            raise ValueError(f"expected {K} deviation values, got {s.shape}")
+        self._tstate = self._tb.eval_taylor_map(s[None])[0]
+        return self._tstate
 
-    def get_tstate(self):
-        self._not_variational("get_tstate")
+    def get_tstate(self) -> np.ndarray:
+        """The last :meth:`eval_taylor_map` result, zeros before it."""
+        self._check_variational("get_tstate")
+        if getattr(self, "_tstate", None) is None:
+            self._tstate = np.zeros((self.get_n_orig_sv(),))
+        return self._tstate
 
     def get_n_orig_sv(self) -> int:
-        """Number of original state variables (reference
-        ``get_n_orig_sv``): all of them, without variational equations."""
-        return self.dim
+        """Number of original (non-variational) state variables (reference
+        ``get_n_orig_sv``)."""
+        return self._tb.get_n_orig_sv()
 
     def engine_report(self) -> dict:
         """The one-lane batch's :meth:`.batch.TaylorAdaptiveBatch.
@@ -423,13 +453,14 @@ class TaylorAdaptive:
     # -- pickling -------------------------------------------------------------
 
     def __getstate__(self):
-        """The system, tolerance, flags, the device's name, the events
-        (their callbacks pickled with them, or the pickling fails as the
-        JAX class's does) and numpy copies of the lane."""
+        """The system (and the ``var_ode_sys``, None without one),
+        tolerance, flags, the device's name, the events (their callbacks
+        pickled with them, or the pickling fails as the JAX class's does)
+        and numpy copies of the lane."""
         tb = self._tb
         hi, lo = self.dtime
         return {
-            "sys": tb.sys, "tol": tb.tol,
+            "vsys": tb._vsys, "sys": tb.sys, "tol": tb.tol,
             "high_accuracy": tb.high_accuracy,
             "compact_mode": self._compact_mode, "device": str(tb._device),
             "t_events": self._t_events, "nt_events": self._nt_events,
@@ -440,7 +471,8 @@ class TaylorAdaptive:
 
     def __setstate__(self, st):
         """Rebuild on the pickled device (raises where it is absent)."""
-        self.__init__(st["sys"], st["state"], pars=st["pars"], tol=st["tol"],
+        self.__init__(st.get("vsys") or st["sys"], st["state"],
+                      pars=st["pars"], tol=st["tol"],
                       high_accuracy=st["high_accuracy"],
                       compact_mode=st["compact_mode"], device=st["device"],
                       t_events=st["t_events"], nt_events=st["nt_events"])

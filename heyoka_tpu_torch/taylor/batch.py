@@ -2,8 +2,10 @@
 
 The counterpart of ``heyoka_tpu.taylor.batch.TaylorAdaptiveBatch``
 (reference: heyoka ``taylor_adaptive_batch``, ``include/heyoka/
-taylor.hpp:781-1121``) without variational systems: the constructor with
-its terminal and non-terminal events, ``step``/``step_backward``,
+taylor.hpp:781-1121``): the constructor with its terminal and
+non-terminal events and variational systems (a ``var_ode_sys``: its
+augmented system on the route its tape takes, the variational getters and
+the Taylor map, a cfunc on the device), ``step``/``step_backward``,
 ``propagate_until``/``propagate_for`` (with continuous output and step
 callbacks), ``propagate_grid``, the dense output of the last step, the
 per-lane state, parameters, double-length time and terminal-event
@@ -68,6 +70,7 @@ from .jet_phase import PhaseTape, jet_phase
 from .jet_rolled import RolledTape, jet_rolled
 from .jet_rolled import layout_report as rolled_layout
 from .outcome import TaylorOutcome
+from ..varsys import var_ode_sys
 
 #: lane steps per launch of kernel B1 in ``propagate_until``
 CHUNK_STEPS = 64
@@ -97,6 +100,16 @@ class TaylorAdaptiveBatch:
                  tol=None, high_accuracy=False, t_events=(), nt_events=(),
                  dtype=np.float64):
         check_dtype(dtype)
+        # a var_ode_sys integrates its augmented system; lanes given by
+        # their original initial conditions get the variational ones
+        # (``heyoka_tpu/taylor/batch.py:54-75``), all lanes in one call
+        self._vsys = sys if isinstance(sys, var_ode_sys) else None
+        if self._vsys is not None:
+            state = np.asarray(state, dtype=np.float64)
+            if state.ndim == 2 and state.shape[1] == self._vsys.n_orig:
+                state = self._vsys.initial_state(
+                    state, pars=pars, t0=0.0 if time is None else time)
+            sys = self._vsys.sys
         self._sys = sys = _normalize_sys(sys)
         self._tol = tol = float(np.finfo(np.float64).eps if tol is None
                                 else tol)
@@ -206,6 +219,7 @@ class TaylorAdaptiveBatch:
         # callback, or one that returned False): the host-driven driver
         # ends them
         self._event_stop = np.zeros(B, bool)
+        self._tstate = None
         self._te_cooldowns = torch.zeros((B, len(self._t_events)),
                                          dtype=torch.float64,
                                          device=self._device)
@@ -262,16 +276,71 @@ class TaylorAdaptiveBatch:
                     f"{v!r} (full report: {rep})")
         return self
 
+    # -- variational API (``heyoka_tpu/taylor/batch.py:457-519``) -------------
+
+    def _check_variational(self, name):
+        if self._vsys is None:
+            raise ValueError(
+                f"{name} requires an integrator built from a var_ode_sys")
+
     @property
     def is_variational(self) -> bool:
-        return False
+        return self._vsys is not None
 
-    def _variational(self, *args, **kwargs):
-        raise NotImplementedError(
-            "variational systems are not ported yet (ROADMAP A.20)")
+    def get_n_orig_sv(self) -> int:
+        """Number of original (non-variational) state variables
+        (reference ``get_n_orig_sv``)."""
+        return self._vsys.n_orig if self._vsys is not None else self.dim
 
-    get_vargs = get_vorder = get_vslice = get_mindex = _variational
-    eval_taylor_map = get_tstate = _variational
+    def get_vargs(self):
+        self._check_variational("get_vargs")
+        return list(self._vsys.vargs)
+
+    def get_vorder(self) -> int:
+        self._check_variational("get_vorder")
+        return self._vsys.order
+
+    def get_vslice(self, order: int, component: int | None = None) -> slice:
+        self._check_variational("get_vslice")
+        return self._vsys.get_vslice(order, component)
+
+    def get_mindex(self, i: int):
+        self._check_variational("get_mindex")
+        return self._vsys.get_mindex(i)
+
+    def _taylor_map(self):
+        """The Taylor map's cfunc on this batch's device, built once a
+        device (the ensembles' batches share the cache)."""
+        tms = self.__dict__.setdefault("_tms", {})
+        key = str(self._device)
+        if key not in tms:
+            tms[key] = self._vsys.make_taylor_map(device=self._device)
+        return tms[key]
+
+    def eval_taylor_map(self, s) -> np.ndarray:
+        """Evaluate the Taylor map at deviations ``s`` for every lane
+        (reference ``taylor_adaptive_batch::eval_taylor_map``): ``s`` is
+        ``(n_vargs,)`` (shared across lanes) or ``(batch, n_vargs)``;
+        returns the ``(batch, n_orig)`` mapped states.  The map is a cfunc
+        on the device, each lane's augmented state its parameters."""
+        self._check_variational("eval_taylor_map")
+        s = np.asarray(s, dtype=np.float64)
+        K = self._vsys.n_vargs
+        if s.shape == (K,):
+            s = np.broadcast_to(s, (self._batch, K))
+        if s.shape != (self._batch, K):
+            raise ValueError(
+                f"expected deviations of shape ({K},) or "
+                f"({self._batch}, {K}); got {s.shape}")
+        self._tstate = self._taylor_map()(s, self._state).cpu().numpy()
+        return self._tstate
+
+    def get_tstate(self) -> np.ndarray:
+        """The last :meth:`eval_taylor_map` result, zeros before it."""
+        self._check_variational("get_tstate")
+        if self._tstate is None:
+            self._tstate = np.zeros((self._batch, self._vsys.n_orig))
+        return self._tstate
 
     @property
     def batch_size(self) -> int:
@@ -672,12 +741,13 @@ class TaylorAdaptiveBatch:
     # -- pickling ------------------------------------------------------------------
 
     def __getstate__(self):
-        """The system, tolerance, ``high_accuracy``, the device's name, the
-        events (their callbacks pickled with them, or the pickling fails
-        as the JAX class's does) and numpy copies of the lanes (state,
-        parameters, time, last step and its coefficients, cooldowns)."""
+        """The system (and the ``var_ode_sys``, None without one), tolerance,
+        ``high_accuracy``, the device's name, the events (their callbacks
+        pickled with them, or the pickling fails as the JAX class's does)
+        and numpy copies of the lanes (state, parameters, time, last step
+        and its coefficients, cooldowns)."""
         return {
-            "sys": self._sys, "tol": self._tol,
+            "vsys": self._vsys, "sys": self._sys, "tol": self._tol,
             "high_accuracy": self._high_accuracy,
             "device": str(self._device),
             "t_events": self._t_events, "nt_events": self._nt_events,
@@ -689,7 +759,8 @@ class TaylorAdaptiveBatch:
 
     def __setstate__(self, st):
         """Rebuild on the pickled device (raises where it is absent)."""
-        self.__init__(st["sys"], st["state"], pars=st["pars"], tol=st["tol"],
+        sys_ = st.get("vsys") or st["sys"]
+        self.__init__(sys_, st["state"], pars=st["pars"], tol=st["tol"],
                       high_accuracy=st["high_accuracy"], device=st["device"],
                       t_events=st.get("t_events", ()),
                       nt_events=st.get("nt_events", ()))

@@ -212,8 +212,9 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_out_of_scope_members_raise():
-    # the variational members (ROADMAP A.20) raise where the JAX signature
-    # has them; callbacks and events (A.11) are ported: a host callback
+    # the variational members (ROADMAP A.20, now ported) raise
+    # ValueError on an integrator without a var_ode_sys, as the JAX
+    # class's do; callbacks and events (A.11) are ported: a host callback
     # that returns False stops every lane after one step, as in JAX, and
     # an event must be one
     p = _port("b4", None)
@@ -226,6 +227,9 @@ def test_out_of_scope_members_raise():
     with pytest.raises(AttributeError):
         ht.taylor_adaptive_batch(sys_, st, device="cpu", t_events=[object()])
     assert p.is_variational is j.is_variational is False
+    assert p.get_n_orig_sv() == j.get_n_orig_sv() == p.dim
     for name in ("get_vargs", "get_vorder", "get_tstate"):
-        with pytest.raises(NotImplementedError, match="A.20"):
+        with pytest.raises(ValueError, match="var_ode_sys"):
             getattr(p, name)()
+        with pytest.raises(ValueError, match="var_ode_sys"):
+            getattr(j, name)()

@@ -963,3 +963,67 @@ def test_ensemble_on_cuda_matches_cpu(cuda):
     assert torch.equal(g["outcome"].cpu(), c["outcome"])
     assert torch.equal(g["nsteps"].cpu(), c["nsteps"])
     _close(g["state"].cpu().numpy(), c["state"].numpy())
+
+
+#: the variational systems of each route (tests/test_torch_var.py's):
+#: the system, its arguments and order, and a base state
+VAR_ROUTES = {
+    "b2": (lambda: ht.models.pcr3bp(mu=0.01), ht.VarArgs.vars, 1,
+           [-0.45, 0.80, -0.80, -0.45]),
+    "b3": (lambda: ht.models.cr3bp(mu=0.01), ht.VarArgs.vars, 1,
+           [-0.45, 0.80, 0.05, -0.80, -0.45, 0.02]),
+    "b4": (ht.models.pendulum, ht.VarArgs.vars, 2, [0.05, 0.025]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ROUTES)
+def test_var_on_cuda_matches_cpu(cuda, monkeypatch, route):
+    # a variational batch and scalar on the card: their route's kernels,
+    # states and Taylor maps equal to the CPU run
+    if route == "b3":
+        monkeypatch.setattr(tbatch, "ROLLED_MIN_WIDTH", ROLLED_TEST_WIDTH)
+    make, args, order, base = VAR_ROUTES[route]
+    vs = ht.var_ode_sys(make(), args, order)
+    st = np.array(base)[None] + 1e-3 * np.random.default_rng(9) \
+        .standard_normal((4, len(base)))
+    kw = dict(tol=1e-13, high_accuracy=True)
+    d = 1e-4 * np.arange(1, vs.n_vargs + 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        tb = ht.taylor_adaptive_batch(vs, st, device=dev, **kw)
+        ta = ht.taylor_adaptive(vs, st[0], device=dev, **kw)
+        n0 = dict(jk.LAUNCHES)
+        tb.propagate_until(3.0)
+        ta.propagate_until(3.0)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            grown = {k for k in jk.LAUNCHES if jk.LAUNCHES[k] != n0[k]}
+            assert grown == ({"jet", "prop"} if route == "b2"
+                             else {ROUTE_KERNEL[route]})
+        out[str(dev)] = (tb.state, tb.eval_taylor_map(d), ta.state,
+                         ta.eval_taylor_map(d))
+    for g, c in zip(out[str(cuda)], out["cpu"]):
+        _close(g, c)
+
+
+@pytest.mark.gpu
+def test_cfunc_on_cuda_matches_cpu(cuda):
+    # the tape's rows as torch ops on the card: results there, equal to
+    # the CPU's to 1e-14; a CPU tensor is refused, not moved
+    x, y = ht.make_vars("x", "y")
+    fns = [x * ht.sin(y) + ht.par[0] * (x * x + y * y) ** -1.5,
+           ht.kepE(0.3, y) + ht.time * ht.tanh(x), 2.0]
+    pts = np.random.default_rng(10).uniform(0.2, 1.0, (4096, 2))
+    pars = np.random.default_rng(11).uniform(0.0, 1.0, (4096, 1))
+    tm = np.linspace(0.0, 3.0, 4096)
+    g = ht.make_cfunc(fns, vars=[x, y], device=cuda)
+    c = ht.make_cfunc(fns, vars=[x, y], device="cpu")
+    out = g(torch.as_tensor(pts, device=cuda), pars=pars, time=tm)
+    assert out.device.type == "cuda" and out.shape == (4096, 3)
+    _close(out.cpu().numpy(), c(pts, pars=pars, time=tm).numpy(), 1e-14)
+    one = g(pts[0], pars=pars[0], time=1.5)
+    _close(one.cpu().numpy(), c(pts[0], pars=pars[0], time=1.5).numpy(),
+           1e-14)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        g(torch.as_tensor(pts))

@@ -20,16 +20,11 @@ import heyoka_tpu as hy
 import heyoka_tpu_torch as ht
 import heyoka_tpu_torch.models as htm
 
-A13, A14, A15, A20, A21, A22 = ("A.13 cfunc", "A.14 series",
-                                "A.15 numeric rest", "A.20 variational",
-                                "A.21 models", "A.22 native")
+A14, A15, A21, A22 = ("A.14 series", "A.15 numeric rest", "A.21 models",
+                      "A.22 native")
 
 #: top-level names of ``heyoka_tpu`` the port does not have yet
 NOT_PORTED = {
-    "cfunc": A13, "make_cfunc": A13,
-    "var_ode_sys": A20, "VarArgs": A20, "varsys": A20, "diff": A20,
-    "diff_tensors": A20, "dtens": A20, "lagham": A20, "lagrangian": A20,
-    "hamiltonian": A20,
     "EOPData": A15, "SWData": A15, "eop_data": A15, "sw_data": A15,
     "eop_sw": A15, "multiprec": A15, "s11n": A15, "utils": A15,
     "gp": A21, "logging": A21, "set_logger_level_trace": A21,
@@ -39,8 +34,7 @@ NOT_PORTED = {
 }
 
 _A21_MODELS = (
-    "np1body np1body_energy np1body_potential cr3bp pcr3bp cr3bp_jacobi "
-    "ffnn kepler kepler_to_cartesian cartesian_to_kepler lagrange_prop "
+    "np1body np1body_energy np1body_potential kepler kepler_to_cartesian cartesian_to_kepler lagrange_prop "
     "sh_gravity sh_gravity_acc sh_gravity_pot egm2008_acc egm2008_pot "
     "get_egm2008_CS get_egm2008_a get_egm2008_mu cart2geo geo2cart "
     "time_conversions delta_tdb_tt delta_tt_tai thermonets nrlmsise00_tn "
@@ -104,8 +98,14 @@ def test_this_slice_and_the_repaired_names():
               "ensemble_propagate_grid_batch", "sin", "logical_not",
               "select", "cbrt", "kepE", "kepF", "kepDE", "sum_expr",
               "function_decompose", "taylor_order_from_tol",
-              "AngleReducer", "StepCallbackSet", "angle_reducer"):
+              "AngleReducer", "StepCallbackSet", "angle_reducer",
+              # compiled functions and variational systems (A.13, A.20)
+              "cfunc", "make_cfunc", "var_ode_sys", "VarArgs", "varsys",
+              "diff", "diff_tensors", "dtens", "lagham", "lagrangian",
+              "hamiltonian"):
         assert hasattr(ht, n) and n not in NOT_PORTED
+    for n in ("cr3bp", "pcr3bp", "cr3bp_jacobi", "ffnn"):
+        assert hasattr(ht.models, n) and n not in MODELS_NOT_PORTED
     assert isinstance(ht.time, ht.TimeExpr) and ht.time is ht.time_
     assert ht.__version__ == hy.__version__
     # the JAX rule on a host without an accelerator

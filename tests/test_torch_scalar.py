@@ -368,11 +368,11 @@ def test_refused_and_accepted_knobs():
     with pytest.raises(ValueError, match="state must have shape"):
         ht.taylor_adaptive(sys_, [0.1], device="cpu")
 
-    class var_ode_sys:  # noqa: N801  (the JAX class's name)
-        pass
-
-    with pytest.raises(NotImplementedError, match="A.20"):
-        ht.taylor_adaptive(var_ode_sys(), IC, device="cpu")
+    # a var_ode_sys is accepted (ROADMAP A.20, now ported): the
+    # original initial conditions are augmented
+    ta = ht.taylor_adaptive(ht.var_ode_sys(sys_), IC, device="cpu")
+    assert ta.is_variational() and ta.dim == 6 and ta.get_n_orig_sv() == 2
+    np.testing.assert_array_equal(ta.state, [*IC, 1.0, 0.0, 0.0, 1.0])
     if not pbatch.torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ht.taylor_adaptive(sys_, IC)
