@@ -206,15 +206,43 @@ if anything is missing or any check fails.  Phases, one line each:
     and the device kernels a call launches (``torch.profiler``); the
     share of 2^20 inputs where torch's sqrt on the CPU and on the card
     differs from numpy's.
+23. BASELINE config 5 (``benchmarks/geopot_bench.py``,
+    ``benchmarks/sgp4_bench.py``; the systems, lanes and satellites from
+    ``heyoka_tpu_torch/tools/cases.py``): (a) ``ensemble_propagate_until``
+    of a scalar ``taylor_adaptive`` template of the EGM2008 geopotential
+    at degree 4 in km (270 ops) over 10,240 lanes perturbed by 1e-6 for
+    one day at tol 1e-15 (only B1 and B2; every instance ``time_limit`` on
+    t = 86,400; the energy ``0.5 |v|^2 - U``, the port's cfunc on the
+    card, kept to 1e-12 on every lane; equal to the raw batch bit for
+    bit; 4 lanes against the CPU run), B1/B2 against their twins on the
+    tape, B1's time a chunk, and the device's idle share over a tenth of
+    the day (profiler); (b) degree 10 (1,248 ops) on 1,024 of those lanes
+    for a day (only B3, drift at most 1e-12, 2 lanes against the CPU over
+    the first 5,600 s), B3 against its twin and its time, and the same
+    lanes through the fused B1 route (``ROLLED_MIN_WIDTH`` raised while
+    the integrator is built; ROADMAP A.16), timed beside it and held to
+    its states; (c) the degree-4 system plus NRLMSISE-00 thermoNET drag
+    (2,388 ops, four parameters a lane: space weather and ballistic
+    coefficient) on 1,024 lanes for a day (only B4, order 0 in torch;
+    every lane's energy falls; 2 lanes against the CPU over 5,600 s), B4
+    against its twin and its time (CUDA graph), the idle share; (d)
+    ``SGP4Propagator`` on the card: the Spacetrack Report #3 vectors,
+    16,384 satellites at 32 epochs over a day (64 against the CPU to
+    1e-12), ``diff_order=1`` on 1,024 satellites against the CPU, UTC
+    dates against the same instants as minutes, satellite-epochs/s and
+    the device kernels a call; (e) ``lagrange_prop`` through the cfunc at
+    2^20 points against the CPU (1e-13).  Each path's lane-steps/s beside
+    the card's name and power limit.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
 plain version's, its bound from ``tools.roofline`` and, where one torch
 call computes the same function, that call's time; for B1-B4 also
-``path_launches``, the launches on phases 15-16's, 17-19's, 20-21's and 22's
-paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
-rows, and ``var_tape``, phase 22's time on its variational tape); the
-last line is ``{"ok": true, "device": {...}}``.  Each phase's
+``path_launches``, the launches on phases 15-16's, 17-19's, 20-21's, 22's
+and 23's paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
+rows, ``var_tape``, phase 22's time on its variational tape, and
+``config5_tape``, phase 23's on its config-5 tape); the last line is
+``{"ok": true, "device": {...}}``.  Each phase's
 line carries ``t_s``, the seconds since the script started.
 """
 
@@ -241,7 +269,9 @@ from heyoka_tpu_torch.tools import (
 )
 from heyoka_tpu_torch.tools import roofline as rl
 from heyoka_tpu_torch.tools.cases import (
-    pendulum_lanes, phase_cases, phase_lanes,
+    GEOPOT_IC, REPORT3, SGP4_TLE, drag_pars, drag_sys, geopot_energy,
+    geopot_lanes, geopot_sys, pendulum_lanes, phase_cases, phase_lanes,
+    sgp4_population,
 )
 
 TOL = 1e-15
@@ -667,6 +697,28 @@ def main():
     phased = (phased[0], max(phased[1], var_rows["phase"]["max_abs_err"]),
               phased[2])
 
+    # phase 23: BASELINE config 5; each kernel's launches on its paths,
+    # and its time and error on its config-5 tape
+    c5_rows, c5_launch = config5_paths(dev, smi, order)
+    for key, row in (("jet", times["jet"]), ("prop", times["prop"]),
+                     ("jet_rolled", rolled[2]), ("phase", phased[2])):
+        row["path_launches"].update(
+            {p: n[key] for p, n in c5_launch.items() if n[key]})
+        v = c5_rows[key]
+        row["config5_tape"] = dict(
+            tape={"jet": "geopotential degree 4",
+                  "prop": "geopotential degree 4",
+                  "jet_rolled": "geopotential degree 10",
+                  "phase": "degree 4 + thermoNET drag"}[key],
+            ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+            bound_by=v["bound_by"], max_abs_err=v["max_abs_err"])
+    jet_err = max(jet_err, c5_rows["jet"]["max_abs_err"])
+    prop_err = max(prop_err, c5_rows["prop"]["max_abs_err"])
+    rolled = (rolled[0], max(rolled[1], c5_rows["jet_rolled"][
+        "max_abs_err"]), rolled[2])
+    phased = (phased[0], max(phased[1], c5_rows["phase"]["max_abs_err"]),
+              phased[2])
+
     rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
             ("hy_jet_rolled_f64", *rolled),
@@ -760,14 +812,14 @@ def mid_width(dev):
                 fused_route=fused_route(sys_, orbits, ta.state, dev))
 
 
-def fused_route(sys_, orbits, st_rolled, dev):
-    """Phase 8's lanes and horizon through the fused route (kernel B1 on
-    the layout the tape takes, B2 for the first step and the landing:
-    ``ROLLED_MIN_WIDTH`` raised above the tape's width while the
-    integrators are built), after phase 8's launch counts were read: its
-    lane-steps/s beside the rolled route's (ROADMAP A.16); every lane
-    lands on the target and the states agree with the rolled route's to
-    ``REF_RTOL``."""
+def fused_route(sys_, orbits, st_rolled, dev, t_end=MASCON_T, what="phase 8"):
+    """The rolled route's lanes and horizon (phase 8's; phase 23 (b)'s)
+    through the fused route (kernel B1 on the layout the tape takes, B2
+    for the first step and the landing: ``ROLLED_MIN_WIDTH`` raised above
+    the tape's width while the integrators are built), after the rolled
+    route's launch counts were read: its lane-steps/s beside the rolled
+    route's (ROADMAP A.16); every lane lands on the target and the states
+    agree with the rolled route's to ``REF_RTOL``."""
     from heyoka_tpu_torch.taylor import batch as tbatch
     min_width = tbatch.ROLLED_MIN_WIDTH
     tbatch.ROLLED_MIN_WIDTH = 1 << 30
@@ -778,22 +830,22 @@ def fused_route(sys_, orbits, st_rolled, dev):
     finally:
         tbatch.ROLLED_MIN_WIDTH = min_width
     eng = tf.engine_report()
-    check(eng["prop"] == "hy_prop_f64",
-          f"phase 8: not the fused route: {eng}")
+    check(eng["propagate_engine"] == "fused",
+          f"{what}: not the fused route: {eng}")
     warm.propagate_until(1.0)
     n0 = dict(jk.LAUNCHES)
     tf.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    oc, _, _, nsteps = tf.propagate_until(MASCON_T)
+    oc, _, _, nsteps = tf.propagate_until(t_end)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(all(o == ht.TaylorOutcome.time_limit for o in oc)
-          and bool((tf.time == MASCON_T).all()),
-          "phase 8, fused route: a lane did not land on the target")
+          and bool((tf.time == t_end).all()),
+          f"{what}, fused route: a lane did not land on the target")
     rel = float(np.abs(tf.state - st_rolled).max()
                 / np.abs(st_rolled).max())
-    check(rel <= REF_RTOL, f"phase 8, fused route vs rolled: {rel}")
+    check(rel <= REF_RTOL, f"{what}, fused route vs rolled: {rel}")
     steps = int(nsteps.sum())
     return dict(wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
                 launches={k: jk.LAUNCHES[k] - n0[k] for k in ("jet", "prop")},
@@ -2736,17 +2788,19 @@ def planar_jacobi(cf, st):
                           1))[:, 0]
 
 
-def jet_parity(tape, full, dev, n_steps=CHUNK):
-    """Kernels B2 and B1 against their twins on a variational tape's lanes
-    ``full (B, n)``: B2 per order and its norms (1e-13), B1's one chunk
-    (flags equal, state 1e-11); their times (``cuda_ms``, two windows in
-    turns with the twins) and bounds."""
+def jet_parity(tape, full, dev, n_steps=CHUNK, what="the variational tape",
+               jet_rtol=JET_RTOL, far=FAR):
+    """Kernels B2 and B1 against their twins on ``what``'s lanes ``full
+    (B, n)``: B2 per order and its norms (``jet_rtol``), B1's one chunk
+    with ``far`` time units left to go (flags equal, state 1e-11); their
+    times (``cuda_ms``, two windows in turns with the twins) and
+    bounds."""
     f64 = dict(dtype=torch.float64, device=dev)
     B = full.shape[0]
     st = torch.as_tensor(full.T.copy(), **f64)
     npar = torch.zeros((0, B), **f64)
     aux = torch.stack([torch.full((B,), float("inf"), **f64),
-                       torch.ones(B, **f64), torch.full((B,), FAR, **f64),
+                       torch.ones(B, **f64), torch.full((B,), far, **f64),
                        torch.zeros(B, **f64), torch.ones(B, **f64)])
     auxi = torch.full((1, B), 2**31 - 1, dtype=torch.int32, device=dev)
     runs = {"jet": (lambda: jk.jet(tape, st, npar),
@@ -2757,13 +2811,13 @@ def jet_parity(tape, full, dev, n_steps=CHUNK):
     (tc_k, nrm_k), (tc_p, nrm_p) = runs["jet"][0](), runs["jet"][1]()
     rel_j = float(per_order_rel(tc_k, tc_p).max())
     nrel = float(((nrm_k - nrm_p).abs() / nrm_p.abs()).max())
-    check(rel_j <= JET_RTOL and nrel <= JET_RTOL,
-          f"B2 vs jet_plain on the variational tape: {rel_j}, norms {nrel}")
+    check(rel_j <= jet_rtol and nrel <= jet_rtol,
+          f"B2 vs jet_plain on {what}: {rel_j}, norms {nrel}")
     (sk, ofk, oik), (sp, ofp, oip) = runs["prop"][0](), runs["prop"][1]()
-    check(torch.equal(oik, oip), "B1 vs prop_plain on the variational "
-          "tape: n_taken/near/err differ")
+    check(torch.equal(oik, oip), f"B1 vs prop_plain on {what}: "
+          "n_taken/near/err differ")
     rel_p = float(((sk - sp).abs().amax(1) / sp.abs().amax(1)).max())
-    check(rel_p <= PROP_RTOL, f"B1 vs prop_plain on the variational tape: "
+    check(rel_p <= PROP_RTOL, f"B1 vs prop_plain on {what}: "
           f"state {rel_p}")
     t = {}
     for name, (kern, plain) in runs.items():
@@ -2785,6 +2839,7 @@ def jet_parity(tape, full, dev, n_steps=CHUNK):
                  max_abs_err=float((tc_k - tc_p).abs().max())),
         prop=dict(timed(*t["prop"], bnd["prop"]), state_max_rel=rel_p,
                   ms_runs=t["prop"][0], steps=n_steps,
+                  mean_steps_taken=float(oik[0].double().mean()),
                   max_abs_err=float((sk - sp).abs().max())))
 
 
@@ -3160,6 +3215,413 @@ def var_paths(dev, smi, order):
     say("22d", nvidia_smi=smi, **cf)
     return dict(jet=b12["jet"], prop=b12["prop"], jet_rolled=b3,
                 phase=b4), {**paths, **p_b, **p_c}
+
+
+C5_B = 10_240  # geopot_bench.py's batch
+C5_T = 86_400.0  # one day
+C5_B_SMALL = 1_024  # (b) degree 10 and (c) the drag ODE
+C5_REF_T = 5_600.0  # about one orbit: (b)'s and (c)'s CPU reference
+C5_REF_LANES = 2
+C5_WARM_T = 600.0
+C5_PROFILE_T = 8_640.0  # a tenth of the day under the profiler
+C5_FAR = 1e7  # a B1 chunk's time to go: no lane nears it in 64 steps
+SGP4_N = 16_384  # sgp4_bench.py's population and epochs
+SGP4_EPOCHS = 32
+SGP4_REF_SATS = 64
+SGP4_DIFF_SATS = 1_024
+SGP4_RTOL = 1e-12
+SGP4_PROFILE_CALLS = 5
+LP_N = 2 ** 20
+#: ``kepDE``'s last bits grow with |DE| (tests/test_torch_earth_models.py)
+LP_RTOL = 1e-13
+#: B2-B4 against their twins per order on the config-5 tapes: their
+#: dependency chains run deep (the V/W recursion two to three levels a
+#: degree, then sums of terms of both signs; the drag's network and
+#: exponential profile), and the twins' and the kernels' summation
+#: orders part by more ulps there than on the other tapes (degree 4 at
+#: 10,240 lanes on an H100: 1.18e-13)
+C5_JET_RTOL = 1e-12
+
+
+def energy_cf(deg, dev):
+    """The geopotential's energy ``0.5 |v|^2 - U`` as the port's cfunc on
+    ``dev``: a function of states (B, 6), arrays or tensors on ``dev``,
+    per lane."""
+    e, vs = geopot_energy(ht, deg)
+    cf = ht.make_cfunc([e], vars=vs, device=dev)
+    return lambda st: cf(st)[:, 0]
+
+
+def c5_arrays(sys_, order):
+    """The plan arrays of a config-5 tape, as the kernels take them."""
+    return ht.plan_to_arrays(build_plan(ht.taylor_decompose_sys(sys_), order))
+
+
+def profiled(make, t_end, kernel):
+    """``make()``'s ``propagate_until(t_end)`` timed without the profiler,
+    then again under ``torch.profiler``: the device's busy and idle shares
+    and ``kernel``'s (a substring of its name) share of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    wall = timed_call(make, lambda t: t.propagate_until(t_end))[2]
+    tp = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp.propagate_until(t_end)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e6
+    kern = sum(e.time_range.elapsed_us() for e in dev_ev
+               if kernel in e.name) / 1e6
+    return dict(t_end=t_end, wall_s=wall, device_events=len(dev_ev),
+                device_busy_s=busy if dev_ev else None,
+                device_idle_share=1.0 - busy / wall if dev_ev else None,
+                kernel_share_of_busy=kern / busy if dev_ev else None)
+
+
+def only(launches, *keys):
+    """Whether the kernels ``keys`` and no other were launched."""
+    return all((n > 0) == (k in keys) for k, n in launches.items())
+
+
+def geopot_ensemble(dev, smi, order):
+    """Phase 23 (a): ``geopot_bench.py``'s 10,240 lanes at degree 4
+    through ``ensemble_propagate_until`` of a scalar template for one
+    day on kernels B1/B2: the energy drift of every lane, the raw batch
+    bit for bit, 4 lanes against the CPU, B1/B2 against their twins on
+    the tape and B1's time a chunk, the device's idle share."""
+    sys4 = geopot_sys(ht, 4)
+    ics = geopot_lanes(C5_B, 0)
+    kw = dict(tol=TOL, high_accuracy=True)
+    ta = ht.taylor_adaptive(sys4, GEOPOT_IC, device=dev, **kw)
+    ta.assert_engine(jet="hy_jet_f64", propagate_engine="fused",
+                     prop="hy_prop_f64")
+    en = energy_cf(4, dev)
+    ht.ensemble_propagate_until(ta, C5_WARM_T, CHUNK, {"state": ics[:CHUNK]})
+    e0 = en(ics)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = ht.ensemble_propagate_until(ta, C5_T, C5_B, {"state": ics})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "jet", "prop"),
+          f"config 5 (a): kernels launched {launches}")
+    check(bool((res["outcome"] == int(ht.TaylorOutcome.time_limit)).all()
+               and (res["time"] == C5_T).all()),
+          "config 5 (a): an instance did not land with time_limit")
+    st = res["state"]
+    check(st.device.type == dev.type and bool(torch.isfinite(st).all()),
+          "config 5 (a): bad final state")
+    drift = float(((en(st) - e0).abs() / e0.abs()).max())
+    check(drift <= DRIFT_MAX, f"config 5 (a): energy drift {drift}")
+    raw, rres, raw_wall = timed_call(
+        lambda: ht.taylor_adaptive_batch(sys4, ics, device=dev, **kw),
+        lambda t: t.propagate_until(C5_T))
+    same = bool(np.array_equal(st.cpu().numpy(), raw.state) and np.array_equal(
+        res["nsteps"].cpu().numpy(), np.asarray(rres[3])))
+    check(same, "config 5 (a): the ensemble differs from the raw batch")
+    ref = ht.taylor_adaptive_batch(sys4, ics[:REF_LANES], device="cpu", **kw)
+    ref.propagate_until(C5_T)
+    ref_rel = rel_max(st[:REF_LANES].cpu(), ref.state)
+    check(ref_rel <= REF_RTOL, f"config 5 (a) vs the CPU run: {ref_rel}")
+    tape = jk.JetTape(c5_arrays(sys4, order), dev)
+    par = jet_parity(tape, ics, dev, what="geopotential degree 4",
+                     jet_rtol=C5_JET_RTOL, far=C5_FAR)
+    prof = profiled(lambda: ht.taylor_adaptive_batch(sys4, ics, device=dev,
+                                                     **kw),
+                    C5_PROFILE_T, "prop_kernel")
+    steps = int(res["nsteps"].sum())
+    line = dict(
+        B=C5_B, t_end=C5_T, W=tape.width, n_ops=len(raw.decomposition.ops),
+        wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
+        mean_steps_per_lane=steps / C5_B, launches=launches,
+        energy_drift_max_rel=drift, raw_batch_bit_equal=same,
+        raw_batch_wall_s=raw_wall, cpu_ref_max_rel=ref_rel,
+        b1_ms_a_chunk=par["prop"]["ms"], kernels=par, profile=prof,
+        nvidia_smi=smi)
+    return par, {"config5_geopot_ensemble": launches}, line
+
+
+def geopot_deg10(dev, smi, order):
+    """Phase 23 (b): degree 10 (1,248 columns) on 1,024 of (a)'s lanes for
+    one day on kernel B3, then the same lanes through the fused B1 route
+    (``ROLLED_MIN_WIDTH`` raised while the integrator is built, ROADMAP
+    A.16), timed beside it and held to its states; B3 against its twin
+    on the tape."""
+    sys10 = geopot_sys(ht, 10)
+    ics = geopot_lanes(C5_B, 0)[:C5_B_SMALL]
+    kw = dict(tol=TOL, high_accuracy=True)
+    en = energy_cf(10, dev)
+    ta = ht.taylor_adaptive_batch(sys10, ics, device=dev, **kw)
+    ta.assert_engine(jet="hy_jet_rolled_f64", propagate_engine="flat")
+    e0 = en(ics)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    first = ta.propagate_until(C5_REF_T)[3]
+    st_ref_t = ta.state[:C5_REF_LANES]
+    oc, _, _, nsteps = ta.propagate_until(C5_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "jet_rolled"),
+          f"config 5 (b): kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == C5_T).all()),
+          "config 5 (b): a lane did not land with time_limit")
+    st = ta.state
+    check(bool(np.isfinite(st).all()), "config 5 (b): non-finite state")
+    drift = float(((en(st) - e0).abs() / e0.abs()).max())
+    check(drift <= DRIFT_MAX, f"config 5 (b): energy drift {drift}")
+    ref = ht.taylor_adaptive_batch(sys10, ics[:C5_REF_LANES], device="cpu",
+                                   **kw)
+    ref.propagate_until(C5_REF_T)
+    ref_rel = rel_max(st_ref_t, ref.state)
+    check(ref_rel <= REF_RTOL, f"config 5 (b) vs the CPU run: {ref_rel}")
+    # B3 against its twin on the tape, and its time
+    arrays = c5_arrays(sys10, order)
+    rt = jr.RolledTape(arrays, dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    args = (torch.as_tensor(ics.T.copy(), **f64),
+            torch.zeros((0, C5_B_SMALL), **f64),
+            torch.zeros(C5_B_SMALL, **f64))
+    tc_k, nrm_k = jr.jet_rolled(rt, *args)
+    tc_p, nrm_p = jr.jet_rolled_plain(rt, *args)
+    rel = float(per_order_rel(tc_k, tc_p).max())
+    nrel = float(((nrm_k - nrm_p).abs() / nrm_p.abs()).max())
+    check(rel <= C5_JET_RTOL and nrel <= C5_JET_RTOL,
+          f"B3 vs jet_rolled_plain on degree 10: {rel}, norms {nrel}")
+    t = {"b3": [], "plain": []}
+    for which in ("plain", "b3", "b3", "plain"):
+        t[which].append(cuda_ms(lambda: jr.jet_rolled(rt, *args), 3)
+                        if which == "b3" else
+                        cuda_ms(lambda: jr.jet_rolled_plain(rt, *args), 1))
+    bnd = rl.bound(rl.jet_flops(arrays) * C5_B_SMALL,
+                   rl.nbytes(*args, rt.ritab, rt.rdtab, tc_k, nrm_k),
+                   torch.float64)
+    kern = dict(timed(t["b3"], t["plain"], bnd), ms_runs=t["b3"],
+                max_rel_per_order=rel, norms_max_rel=nrel,
+                layout=jr.layout_report(rt),
+                max_abs_err=float((tc_k - tc_p).abs().max()))
+    fused = fused_route(sys10, ics, st, dev, C5_T, "config 5 (b)")
+    steps = int(first.sum() + nsteps.sum())
+    line = dict(B=C5_B_SMALL, t_end=C5_T, W=rt.width,
+                n_ops=len(ta.decomposition.ops), wall_s=wall,
+                lane_steps=steps, steps_per_s=steps / wall,
+                mean_steps_per_lane=steps / C5_B_SMALL, launches=launches,
+                energy_drift_max_rel=drift, cpu_ref_t=C5_REF_T,
+                cpu_ref_max_rel=ref_rel, b3=kern, fused_route=fused,
+                nvidia_smi=smi)
+    return kern, {"config5_deg10": launches}, line, fused
+
+
+
+def drag_ode(dev, smi, order):
+    """Phase 23 (c): the drag ODE (``tools/cases.py`` ``drag_sys``: the
+    degree-4 geopotential plus NRLMSISE-00 thermoNET drag as
+    ``models/eo_dynamics.py`` ``_drag_acc`` writes it, 2,388 columns) on
+    1,024 lanes with per-lane space weather and ballistic coefficients
+    for one day on kernel B4, order 0 in torch.  Two simplifications keep
+    it within the port's models: no EOP/SW rotations (ROADMAP A.15), so
+    the atmosphere rests in the body-fixed frame (``vrel = v``, with the
+    ``veps`` regularisation kept); ``h, lat, lon = cart2geo(r, R_eq =
+    A_EARTH / 1e3)`` and the indices are parameters, ``time / 86400``
+    the day fraction.  Every lane loses energy over the day (drag only
+    dissipates), 2 lanes agree with the CPU over the first 5,600 s; B4
+    against its twin on the tape; the device's idle share."""
+    sys_ = drag_sys(ht, 4)
+    ics = geopot_lanes(C5_B, 0)[:C5_B_SMALL]
+    pars = drag_pars(C5_B_SMALL, 1)
+    kw = dict(tol=TOL, high_accuracy=True)
+    en = energy_cf(4, dev)
+    ta = ht.taylor_adaptive_batch(sys_, ics, pars=pars, device=dev, **kw)
+    ta.assert_engine(jet="hy_phase_f64", propagate_engine="flat")
+    e0 = en(ics)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    first = ta.propagate_until(C5_REF_T)[3]
+    st_ref_t = ta.state[:C5_REF_LANES]
+    oc, _, _, nsteps = ta.propagate_until(C5_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "phase"),
+          f"config 5 (c): kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == C5_T).all()),
+          "config 5 (c): a lane did not land with time_limit")
+    st = ta.state
+    check(bool(np.isfinite(st).all()), "config 5 (c): non-finite state")
+    de = en(st) - e0
+    check(bool((de < 0).all()), "config 5 (c): a lane gained energy")
+    ref = ht.taylor_adaptive_batch(sys_, ics[:C5_REF_LANES],
+                                   pars=pars[:C5_REF_LANES], device="cpu",
+                                   **kw)
+    ref.propagate_until(C5_REF_T)
+    ref_rel = rel_max(st_ref_t, ref.state)
+    check(ref_rel <= REF_RTOL, f"config 5 (c) vs the CPU run: {ref_rel}")
+    # B4 against its twin on the tape from lo = 1, and its time
+    tape = jp.PhaseTape(c5_arrays(sys_, order), dev)
+    tc0 = seeded_buffer(tape, ics, pars, np.zeros(C5_B_SMALL), dev)
+    tck, tcp = jp.phase(tape, tc0.clone(), 1), jp.phase_plain(tape,
+                                                              tc0.clone(), 1)
+    rel = float(per_order_rel(tck.permute(1, 0, 2),
+                              tcp.permute(1, 0, 2)).max())
+    nk, npl = jk._norms(tape, tck), jk._norms(tape, tcp)
+    nrel = float(((nk - npl).abs().amax(1) / npl.abs().amax(1)).max())
+    check(rel <= C5_JET_RTOL and nrel <= C5_JET_RTOL,
+          f"B4 vs phase_plain on the drag ODE: {rel}, norms {nrel}")
+    a, b = tc0.clone(), tc0.clone()
+    t = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(graph_ms(lambda: jp.phase(tape, a, 1), 10)
+                        if which == "kernel" else
+                        cuda_ms(lambda: jp.phase_plain(tape, b, 1), 1))
+    bnd = rl.bound(rl.phase_flops(tape.arrays, 1) * C5_B_SMALL,
+                   rl.phase_bytes(tape.arrays, C5_B_SMALL, 1, 8)
+                   + rl.nbytes(tape.itab, tape.dtab), torch.float64)
+    shape = jp.layout_report(tape, C5_B_SMALL)
+    kern = dict(timed(t["kernel"], t["plain"], bnd), ms_runs=t["kernel"],
+                max_rel_per_order=rel, norms_max_rel=nrel, shape=shape,
+                max_abs_err=float((tck - tcp).abs().max()))
+    prof = profiled(lambda: ht.taylor_adaptive_batch(
+        sys_, ics, pars=pars, device=dev, **kw), C5_PROFILE_T,
+        "phase_kernel")
+    steps = int(first.sum() + nsteps.sum())
+    line = dict(B=C5_B_SMALL, t_end=C5_T, W=tape.width, n_eq=tape.n_eq,
+                n_ops=len(ta.decomposition.ops), n_pars=tape.n_pars,
+                wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
+                mean_steps_per_lane=steps / C5_B_SMALL, launches=launches,
+                energy_change_rel=dict(
+                    min=float((de / e0.abs()).min()),
+                    max=float((de / e0.abs()).max())),
+                cpu_ref_t=C5_REF_T, cpu_ref_max_rel=ref_rel, b4=kern,
+                profile=prof, nvidia_smi=smi)
+    return kern, {"config5_drag": launches}, line
+
+
+def sgp4_batch(dev, smi):
+    """Phase 23 (d): ``sgp4_bench.py``'s 16,384 satellites at 32 epochs
+    over a day through ``SGP4Propagator`` on the card: the Spacetrack
+    Report #3 vectors, 64 satellites against the CPU, ``diff_order=1`` on
+    1,024 satellites against the CPU, dates against times; the
+    satellite-epochs/s and the device kernels a call."""
+    from torch.profiler import ProfilerActivity, profile
+    from heyoka_tpu_torch.utils import cal_to_jd, parse_tle
+    gpe = parse_tle(*SGP4_TLE).reshape(9, 1)
+    rep = ht.models.SGP4Propagator(gpe, device=dev)
+    out = rep(REPORT3[:, :1].copy())
+    check(out.device.type == dev.type, "sgp4: result not on the card")
+    out = out.cpu().numpy()[:, 0]
+    rep_pos = float(np.abs(out[:, :3] - REPORT3[:, 1:4]).max())
+    rep_vel = float(np.abs(out[:, 3:6] - REPORT3[:, 4:7]).max())
+    check(rep_pos <= 2e-2 and rep_vel <= 2e-5 and (out[:, 6] == 0).all(),
+          f"sgp4: Report #3 vectors {rep_pos} km, {rep_vel} km/s")
+    g = sgp4_population(SGP4_N)
+    g[7], g[8] = cal_to_jd(2024, 3, 1), 0.25
+    tm = np.broadcast_to(np.linspace(0.0, 1440.0, SGP4_EPOCHS)[:, None],
+                         (SGP4_EPOCHS, SGP4_N)).copy()
+    prop = ht.models.SGP4Propagator(g, device=dev)
+    tm_d = torch.as_tensor(tm, device=dev)
+    res = prop(tm_d)
+    check(tuple(res.shape) == (SGP4_EPOCHS, SGP4_N, 7)
+          and bool(torch.isfinite(res).all())
+          and bool((res[..., 6] == 0).all()), "sgp4: bad output")
+    cpu = ht.models.SGP4Propagator(g[:, :SGP4_REF_SATS].copy(), device="cpu")
+    want = cpu(tm[:, :SGP4_REF_SATS].copy())
+    ref_rel = rel_max(res[:, :SGP4_REF_SATS].cpu(), want)
+    check(ref_rel <= SGP4_RTOL, f"sgp4 vs the CPU run: {ref_rel}")
+    # the first derivatives on 1,024 satellites at one epoch each
+    n = SGP4_DIFF_SATS
+    g1 = g[:, :n].copy()
+    t1 = tm[SGP4_EPOCHS // 2, :n].copy()
+    p_d = ht.models.SGP4Propagator(g1, diff_order=1, device=dev)
+    d_card = p_d(t1)
+    d_cpu = ht.models.SGP4Propagator(g1, diff_order=1, device="cpu")(t1)
+    d_rel = float((((d_card.cpu() - d_cpu).abs().amax(0))
+                   / d_cpu.abs().amax(0).clamp_min(1e-300)).max())
+    check(d_rel <= SGP4_RTOL, f"sgp4 diff_order=1 vs the CPU: {d_rel}")
+    # UTC dates against the same instants as minutes since the epoch
+    jd = np.broadcast_to(g[7], tm.shape)
+    res_d = prop(jd=jd, frac=g[8] + tm / 1440.0)
+    dates_err = float((res_d - res).abs().amax())
+    check(dates_err <= 1e-7, f"sgp4: dates against times {dates_err} km")
+    ms = [cuda_ms(lambda: prop(tm_d), 3) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as pr:
+        for _ in range(SGP4_PROFILE_CALLS):
+            prop(tm_d)
+        torch.cuda.synchronize()
+    ev = [e for e in pr.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    d_ms = cuda_ms(lambda: p_d(t1), 1)
+    return dict(
+        report3_max_err_km=rep_pos, report3_max_err_km_s=rep_vel,
+        sats=SGP4_N, epochs=SGP4_EPOCHS, n_ops=len(prop._cf.dc.ops),
+        cpu_ref_sats=SGP4_REF_SATS, cpu_ref_max_rel=ref_rel,
+        bit_equal_cpu=bool(torch.equal(res[:, :SGP4_REF_SATS].cpu(), want)),
+        diff1_sats=n, diff1_max_rel=d_rel, diff1_ms=d_ms,
+        dates_max_err_km=dates_err, ms_runs=ms,
+        sat_epochs_per_s=SGP4_N * SGP4_EPOCHS / (min(ms) / 1e3),
+        device_kernels_per_call=len(ev) / SGP4_PROFILE_CALLS if ev else None,
+        nvidia_smi=smi)
+
+
+def lagrange_points(dev, smi):
+    """Phase 23 (e): ``lagrange_prop`` through the cfunc at 2^20 points on
+    the card against the CPU: ``kepDE``'s Newton loop on the device.  The
+    orbits are bound and far from radial (|r| in [0.8, 1.2], the speed
+    0.8-1.15 of the circular one, a radial part up to 0.1; e below ~0.4),
+    where the solver converges from its start value: near e = 1 it does
+    not in 50 iterations, and two libms' last bits then part."""
+    rng = np.random.default_rng(8)
+    u = rng.standard_normal((LP_N, 3))
+    u /= np.linalg.norm(u, axis=1)[:, None]
+    w = np.cross(u, rng.standard_normal((LP_N, 3)))
+    w /= np.linalg.norm(w, axis=1)[:, None]
+    r = rng.uniform(0.8, 1.2, (LP_N, 1))
+    v = (w * rng.uniform(0.8, 1.15, (LP_N, 1))
+         + u * rng.uniform(-0.1, 0.1, (LP_N, 1))) / np.sqrt(r)
+    pts = np.concatenate([u * r, v], 1)
+    tof = rng.uniform(-5.0, 5.0, LP_N)
+    fns = ht.models.lagrange_prop(mu=1.0)
+    vars_ = ["x0", "y0", "z0", "vx0", "vy0", "vz0"]
+    cf = ht.make_cfunc(fns, vars=vars_, device=dev)
+    pts_d, tof_d = (torch.as_tensor(a, device=dev) for a in (pts, tof))
+    out = cf(pts_d, time=tof_d)
+    want = ht.make_cfunc(fns, vars=vars_, device="cpu")(pts, time=tof)
+    check(bool(torch.isfinite(out).all()), "lagrange_prop: non-finite")
+    r = float((((out.cpu() - want).abs().amax(0))
+               / want.abs().amax(0)).max())
+    check(r <= LP_RTOL, f"lagrange_prop on the card vs the CPU: {r}")
+    ms = [cuda_ms(lambda: cf(pts_d, time=tof_d), 3) for _ in range(2)]
+    return dict(n=LP_N, n_ops=len(cf.dc.ops), max_rel=r,
+                bit_equal=bool(torch.equal(out.cpu(), want)), ms_runs=ms,
+                evals_per_s=LP_N / (min(ms) / 1e3), nvidia_smi=smi)
+
+
+def config5_paths(dev, smi, order):
+    """Phase 23: BASELINE config 5 on the card.  Returns each kernel's
+    row additions (error and time on its config-5 tape) and the launches
+    on each of the phase's paths."""
+    b12, paths, line_a = geopot_ensemble(dev, smi, order)
+    say("23a", **line_a)
+    b3, p_b, line_b, fused = geopot_deg10(dev, smi, order)
+    paths.update(p_b, config5_deg10_fused={
+        k: fused["launches"].get(k, 0) for k in jk.LAUNCHES})
+    say("23b", **line_b)
+    b4, p_c, line_c = drag_ode(dev, smi, order)
+    paths.update(p_c)
+    say("23c", **line_c)
+    say("23d", **sgp4_batch(dev, smi))
+    say("23e", **lagrange_points(dev, smi))
+    return dict(jet=b12["jet"], prop=b12["prop"], jet_rolled=b3,
+                phase=b4), paths
 
 
 if __name__ == "__main__":

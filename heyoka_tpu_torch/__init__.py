@@ -20,6 +20,12 @@ Variational systems (``var_ode_sys``, ``VarArgs``, over ``diff`` and
 ``diff_tensors``; ``lagrangian``/``hamiltonian``) are augmented ODE
 systems on the same routes, and compiled functions (``cfunc``,
 ``make_cfunc``) evaluate expressions in f64 torch on the device.
+The Earth-orbit model library (``models``: ``np1body``, the Kepler
+helpers, ``sh_gravity``/``egm2008_*``, ``cart2geo``, the time
+conversions, the thermoNET densities on the port's copies of the data,
+and the batched ``SGP4Propagator`` over a compiled function) and
+``utils`` (time scales, TLE parsing), ``gp`` and ``logging`` are copies
+of the JAX package's.
 """
 
 from .expr.core import (  # noqa: F401
@@ -57,6 +63,14 @@ from .lagham import hamiltonian, lagrangian  # noqa: F401
 from .varsys import VarArgs, var_ode_sys  # noqa: F401
 from .taylor.stepper import taylor_order_from_tol  # noqa: F401
 from . import models  # noqa: F401
+from . import gp, logging, utils  # noqa: F401
+from .logging import (  # noqa: F401
+    set_logger_level_trace,
+    set_logger_level_debug,
+    set_logger_level_info,
+    set_logger_level_warn,
+    set_logger_level_err,
+)
 from .convert import (  # noqa: F401
     JET_OPS, OPCODES, PHASE_OPS, UnsupportedKernelOp, plan_from_arrays,
     plan_to_arrays, state_from_numpy,

@@ -118,3 +118,105 @@ def route_case(pkg, route, B, seed):
     if route == "b4":
         return pkg.models.pendulum(), pendulum_lanes(B, seed)
     raise ValueError(f"unknown route {route!r}")
+
+
+#: BASELINE config 5's geopotential initial condition in km and km/s
+#: (``benchmarks/geopot_bench.py:40-41``, heyoka's ``benchmark/geopot.cpp``)
+GEOPOT_IC = np.array([6740.440, 0.0, 0.0, 0.0, 6.725973853066024,
+                      3.8832537950295855])
+#: the drag lanes' parameters: f107, f107a, ap and Cb [m^2/kg] drawn
+#: uniformly in these ranges
+DRAG_PAR_RANGES = ((70.0, 250.0), (70.0, 200.0), (0.0, 50.0), (0.005, 0.02))
+
+
+def geopot_sys(pkg, deg):
+    """The geopotential ODE of ``geopot_bench.py``, built with ``pkg``:
+    ``egm2008_acc`` to degree and order ``deg`` in km and km/s, in the
+    body-fixed frame (autonomous)."""
+    m = pkg.models
+    x, y, z, vx, vy, vz = pkg.make_vars("x", "y", "z", "vx", "vy", "vz")
+    acc = m.egm2008_acc([x, y, z], deg, deg, mu=m.get_egm2008_mu() / 1e9,
+                        a=m.get_egm2008_a() / 1e3)
+    return [(x, vx), (y, vy), (z, vz), *zip((vx, vy, vz), acc)]
+
+
+def geopot_energy(pkg, deg):
+    """The conserved energy ``0.5 |v|^2 - U`` of :func:`geopot_sys` and
+    its variables in state order."""
+    m = pkg.models
+    x, y, z, vx, vy, vz = vs = pkg.make_vars("x", "y", "z", "vx", "vy", "vz")
+    U = m.egm2008_pot([x, y, z], deg, deg, mu=m.get_egm2008_mu() / 1e9,
+                      a=m.get_egm2008_a() / 1e3)
+    return 0.5 * (vx * vx + vy * vy + vz * vz) - U, list(vs)
+
+
+def geopot_lanes(B, seed=0):
+    """``geopot_bench.py``'s lanes: ``GEOPOT_IC`` perturbed by ``|ic| *
+    U(-1, 1) * 1e-6`` per coordinate (numpy rng ``seed``), (B, 6)."""
+    rng = np.random.default_rng(seed)
+    return GEOPOT_IC[None] + np.abs(GEOPOT_IC)[None] * rng.uniform(
+        -1, 1, (B, 6)) * 1e-6
+
+
+def drag_sys(pkg, deg=4):
+    """:func:`geopot_sys` plus thermoNET drag as the JAX package's
+    ``models/eo_dynamics.py`` ``_drag_acc`` (:98-139) writes it, without
+    the EOP/SW rotations: the atmosphere rests in the body-fixed frame
+    (``vrel = v``, with its ``veps`` regularisation), the geodetic
+    coordinates are ``cart2geo`` of the position with ``R_eq = A_EARTH /
+    1e3``, the density ``nrlmsise00_tn`` with ``f107 = par[0]``, ``f107a
+    = par[1]``, ``ap = par[2]`` and ``time / 86400`` days since Jan 1,
+    times 1e9 (kg/km^3); ``Cb = par[3]`` in m^2/kg."""
+    m, par = pkg.models, pkg.par
+    sys_ = geopot_sys(pkg, deg)
+    (x, _), (y, _), (z, _) = sys_[:3]
+    v = [lhs for lhs, _ in sys_[3:]]
+    a_earth = 6378137.0  # models/cart2geo.py A_EARTH [m]
+    h, lat, lon = m.cart2geo([x, y, z], R_eq=a_earth / 1e3)
+    rho = m.nrlmsise00_tn(geodetic=[h, lat, lon], f107=par[0], f107a=par[1],
+                          ap=par[2], time_expr=pkg.time / 86400.0) * 1e9
+    veps = 1e-8
+    vn = pkg.sqrt(pkg.sum_([c * c for c in v] + [pkg.Number(veps * veps)]))
+    factor = -0.5 * rho * vn * par[3] * 1e-6
+    return sys_[:3] + [(lhs, rhs + factor * c)
+                       for (lhs, rhs), c in zip(sys_[3:], v)]
+
+
+def drag_pars(B, seed=1):
+    """(B, 4) drag parameters, each uniform in ``DRAG_PAR_RANGES`` (numpy
+    rng ``seed``)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(lo, hi, B) for lo, hi in DRAG_PAR_RANGES], 1)
+
+
+def sgp4_population(N, seed=0):
+    """``benchmarks/sgp4_bench.py``'s (9, N) GPEs: LEO satellites about
+    the ISS elements (numpy rng ``seed``); epoch rows 7-8 zero."""
+    rng = np.random.default_rng(seed)
+    base = dict(n0=0.0487 * 1440 / (2 * np.pi), e0=0.0001647, i0=51.6416,
+                node0=247.4627, omega0=130.5360, m0=325.0288, bstar=2.2e-5)
+    g = np.zeros((9, N))
+    g[0] = base["n0"] * 2 * np.pi / 1440 * (1 + 1e-3 * rng.standard_normal(N))
+    g[1] = np.abs(base["e0"] * (1 + 0.1 * rng.standard_normal(N)))
+    g[2] = np.deg2rad(base["i0"] + 0.01 * rng.standard_normal(N))
+    g[3] = np.deg2rad(base["node0"] + rng.uniform(0, 360, N))
+    g[4] = np.deg2rad(base["omega0"] + rng.uniform(0, 360, N))
+    g[5] = np.deg2rad(base["m0"] + rng.uniform(0, 360, N))
+    g[6] = base["bstar"] * (1 + 0.1 * rng.standard_normal(N))
+    return g
+
+
+#: the Spacetrack Report #3 test case (satellite 88888) and its published
+#: ephemeris in km and km/s: tsince [min], x, y, z, vx, vy, vz
+#: (``tests/test_sgp4.py``; the Vallado update moves positions by ~10 m)
+SGP4_TLE = (
+    "1 88888U          80275.98708465  .00073094  13844-3  66816-4 0    8",
+    "2 88888  72.8435 115.9689 0086731  52.6988 110.5714 16.05824518  105")
+REPORT3 = np.array([
+    [0.0, 2328.97048951, -5995.22076416, 1719.97067261,
+     2.91207230, -0.98341546, -7.09081703],
+    [360.0, 2456.10705566, -6071.93853760, 1222.89727783,
+     2.67938992, -0.44829041, -7.22879231],
+    [720.0, 2567.56195068, -6112.50384522, 713.96397400,
+     2.44024599, 0.09810869, -7.31995916],
+])

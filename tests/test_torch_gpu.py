@@ -24,6 +24,7 @@ from heyoka_tpu_torch.tools import mascon_body
 from heyoka_tpu_torch.tools import microbench_conv as mc
 from heyoka_tpu_torch.tools import proto_phase as pp
 
+from heyoka_tpu_torch.tools import cases as c5
 from heyoka_tpu_torch.tools.cases import ROLLED_TEST_WIDTH, ROUTES, route_case
 
 from chip_smoke import pendulum_lanes, phase_cases, phase_lanes, seeded_buffer
@@ -1027,3 +1028,75 @@ def test_cfunc_on_cuda_matches_cpu(cuda):
            1e-14)
     with pytest.raises(ValueError, match="lies on cpu"):
         g(torch.as_tensor(pts))
+
+
+# -- BASELINE config 5 (chip_smoke.py phase 23) --------------------------------
+
+
+def _c5_arrays(sys_, K):
+    return ht.plan_to_arrays(build_plan(taylor_decompose_sys(sys_), K))
+
+
+@pytest.mark.gpu
+def test_config5_geopot_b1_chunk_matches_plain(cuda):
+    # the degree-4 geopotential (270 columns) at order 19: one 64-step B1
+    # chunk against its twin (flags equal, the state within 1e-11
+    # relative) and B2 per order (1e-13)
+    B = 256
+    tape = jk.JetTape(_c5_arrays(c5.geopot_sys(ht, 4), 19), cuda)
+    st = _dev(c5.geopot_lanes(B, 2).T, cuda)
+    pars = torch.zeros(0, B, dtype=torch.float64, device=cuda)
+    aux = torch.stack([_dev(np.full(B, np.inf), cuda), _dev(np.ones(B), cuda),
+                       _dev(np.full(B, 1e7), cuda), _dev(np.zeros(B), cuda),
+                       _dev(np.ones(B), cuda)])
+    budget = torch.full((1, B), 2**31 - 1, dtype=torch.int32, device=cuda)
+    n0 = jk.LAUNCHES["prop"]
+    k = jk.prop(tape, st, pars, aux, budget, 64, True)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["prop"] == n0 + 1
+    p = jk.prop_plain(tape, st, pars, aux, budget, 64, True)
+    assert torch.equal(k[2], p[2]) and bool((k[2][0] == 64).all())
+    rel = ((k[0] - p[0]).abs().amax(1) / p[0].abs().amax(1)).max()
+    assert float(rel) <= 1e-11
+    tc, _ = jk.jet(tape, st, pars)
+    tc_p, _ = jk.jet_plain(tape, st, pars)
+    assert float(_per_order_rel(tc, tc_p).max()) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_config5_drag_b4_matches_plain(cuda):
+    # the drag ODE (2,388 columns, four parameters a lane, the time) at
+    # order 19 on B4's global layout: 1e-13 relative per order from lo = 1
+    B = 96
+    tape = jp.PhaseTape(_c5_arrays(c5.drag_sys(ht, 4), 19), cuda)
+    t = np.random.default_rng(3).uniform(0.0, 86400.0, B)
+    tc0 = seeded_buffer(tape, c5.geopot_lanes(B, 4), c5.drag_pars(B, 5), t,
+                        cuda)
+    n0 = jk.LAUNCHES["phase"]
+    tc_k = jp.phase(tape, tc0.clone(), 1)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["phase"] == n0 + 1
+    tc_p = jp.phase_plain(tape, tc0.clone(), 1)
+    assert bool(torch.isfinite(tc_k).all())
+    rel = _per_order_rel(tc_k.permute(1, 0, 2), tc_p.permute(1, 0, 2))
+    assert float(rel.max()) <= 1e-13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [0, 1])
+def test_sgp4_on_cuda_matches_cpu(cuda, order):
+    # the propagator's tape as torch ops on the card, the derivatives
+    # through torch.func there: within 1e-12 of the CPU's largest
+    # magnitude per output (the card's libm)
+    g = c5.sgp4_population(64)
+    tm = np.random.default_rng(6).uniform(0.0, 1440.0, (4, 64))
+    pg = ht.models.SGP4Propagator(g, diff_order=order, device=cuda)
+    pc = ht.models.SGP4Propagator(g, diff_order=order, device="cpu")
+    out = pg(torch.as_tensor(tm, device=cuda))
+    assert out.device.type == "cuda" and out.shape == (4, 64, pg.nouts)
+    want = pc(tm)
+    err = (out.cpu() - want).abs().reshape(-1, pg.nouts).amax(0)
+    scale = want.abs().reshape(-1, pg.nouts).amax(0)
+    assert bool((err <= 1e-12 * scale).all())
+    with pytest.raises(ValueError, match="lies on cpu"):
+        pg(torch.as_tensor(tm))

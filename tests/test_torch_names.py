@@ -20,31 +20,21 @@ import heyoka_tpu as hy
 import heyoka_tpu_torch as ht
 import heyoka_tpu_torch.models as htm
 
-A14, A15, A21, A22 = ("A.14 series", "A.15 numeric rest", "A.21 models",
-                      "A.22 native")
+A14, A15, A22 = "A.14 series", "A.15 numeric rest", "A.22 native"
 
 #: top-level names of ``heyoka_tpu`` the port does not have yet
 NOT_PORTED = {
     "EOPData": A15, "SWData": A15, "eop_data": A15, "sw_data": A15,
-    "eop_sw": A15, "multiprec": A15, "s11n": A15, "utils": A15,
-    "gp": A21, "logging": A21, "set_logger_level_trace": A21,
-    "set_logger_level_debug": A21, "set_logger_level_info": A21,
-    "set_logger_level_warn": A21, "set_logger_level_err": A21,
+    "eop_sw": A15, "multiprec": A15, "s11n": A15,
     "native": A22,
 }
 
-_A21_MODELS = (
-    "np1body np1body_energy np1body_potential kepler kepler_to_cartesian cartesian_to_kepler lagrange_prop "
-    "sh_gravity sh_gravity_acc sh_gravity_pot egm2008_acc egm2008_pot "
-    "get_egm2008_CS get_egm2008_a get_egm2008_mu cart2geo geo2cart "
-    "time_conversions delta_tdb_tt delta_tt_tai thermonets nrlmsise00_tn "
-    "jb08_tn")
 _A14_MODELS = (
     "vsop2013 vsop2013_cartesian vsop2013_cartesian_icrf vsop2013_elliptic "
     "get_vsop2013_mus elp2000 elp2000_cartesian elp2000_cartesian_e2000 "
     "elp2000_cartesian_fk5 elp2000_spherical get_elp2000_mus iau2006")
 _A15_MODELS = (
-    "sgp4 sgp4_propagator SGP4Propagator gpe_is_deep_space eo_dynamics eop "
+    "eo_dynamics eop "
     "sw frames dayfrac era erap gmst82 gmst82p pm_x pm_xp pm_y pm_yp dX dXp "
     "dY dYp Ap_avg Ap_avgp f107 f107p f107a_center81 f107a_center81p "
     "rot_fk5j2000_icrs rot_icrs_fk5j2000 rot_icrs_itrs rot_itrs_icrs "
@@ -53,7 +43,6 @@ _A15_MODELS = (
 
 #: names of ``heyoka_tpu.models`` the port does not have yet
 MODELS_NOT_PORTED = {
-    **{n: A21 for n in _A21_MODELS.split()},
     **{n: A14 for n in _A14_MODELS.split()},
     **{n: A15 for n in _A15_MODELS.split()},
 }
@@ -135,3 +124,23 @@ def test_other_dtypes_are_refused(dtype):
     with pytest.raises(ValueError, match="float64"):
         ht.taylor_adaptive(ht.models.pendulum(), [0.1, 0.0], device="cpu",
                            dtype=dtype)
+
+
+def test_the_earth_orbit_slice():
+    # the model library of ROADMAP A.21, the SGP4 part of A.15, and the
+    # pure-Python helpers that came with them
+    for n in ("np1body", "np1body_energy", "np1body_potential", "kepler",
+              "kepler_to_cartesian", "cartesian_to_kepler", "lagrange_prop",
+              "sh_gravity", "sh_gravity_acc", "sh_gravity_pot",
+              "egm2008_acc", "egm2008_pot", "get_egm2008_CS",
+              "get_egm2008_a", "get_egm2008_mu", "cart2geo", "geo2cart",
+              "time_conversions", "delta_tdb_tt", "delta_tt_tai",
+              "thermonets", "nrlmsise00_tn", "jb08_tn", "sgp4",
+              "sgp4_propagator", "SGP4Propagator", "gpe_is_deep_space"):
+        assert hasattr(ht.models, n) and n not in MODELS_NOT_PORTED
+    for n in ("gp", "logging", "utils", "set_logger_level_trace",
+              "set_logger_level_debug", "set_logger_level_info",
+              "set_logger_level_warn", "set_logger_level_err"):
+        assert hasattr(ht, n) and n not in NOT_PORTED
+    assert hasattr(ht.utils, "parse_tle_file")
+    assert hasattr(ht.utils, "jd_utc_to_tai")
