@@ -233,6 +233,28 @@ if anything is missing or any check fails.  Phases, one line each:
     the device kernels a call; (e) ``lagrange_prop`` through the cfunc at
     2^20 points against the CPU (1e-13).  Each path's lane-steps/s beside
     the card's name and power limit.
+24. the series slice (ROADMAP A.14; ``heyoka_tpu_torch/tools/cases.py``
+    ``elp_sys``, ``p9_sys``): (a) kernel S1 (``hy_series_jet_f64``)
+    against its twin on the 24 series ops of the complete ELP2000 tape
+    (9 ops, 37,863 terms) and of planet 9's q/p at thresh 1e-9 (15 ops,
+    4,479 terms) at 10,240 lanes, u0 from U(-0.5, 0.5), u1 = 1, K = 19:
+    every order within 1e-13 of its sum of the terms' magnitudes, two
+    runs bit for bit; S1's time a launch, its bound and the twin's time;
+    (b) the complete ELP2000 ODE (``x' = c_x 1e-10``, as
+    ``benchmarks/vsop2013_cartesian.py``) on 10,240 lanes starting at
+    U(-0.5, 0.5) centuries, zero state, tol 1e-15, ``propagate_for(0.02)``
+    on the card: only S1 and B4 launched, every lane ``time_limit`` on its
+    target bit for bit, 16 lanes against the port's CPU run (1e-12
+    relative), steps a lane, lane-steps/s, the idle share (profiler),
+    S1's and B4's time a launch; the same at 256 lanes (the benchmark's
+    width); (c) planet 9 at thresh 1e-7 on 1,024 lanes through the series
+    route (S1 + B4) and the expanded tape (1,332 u-vars, B4 alone): the
+    routes' states within 1e-12 relative, both rates; (d) the complete
+    ELP2000 cfunc at 2^18 times on the card (evaluations/s; the 9 series
+    within 1e-13 of their terms' magnitudes of the CPU twin's, the
+    position within 1e-12 relative, on 1,024 of the points), the
+    published ELP2000 vectors (thresh 1e-5, 0.05 km) and Pluto's
+    inclination and node through the card.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
@@ -241,7 +263,8 @@ call computes the same function, that call's time; for B1-B4 also
 ``path_launches``, the launches on phases 15-16's, 17-19's, 20-21's, 22's
 and 23's paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
 rows, ``var_tape``, phase 22's time on its variational tape, and
-``config5_tape``, phase 23's on its config-5 tape); the last line is
+``config5_tape``, phase 23's on its config-5 tape; S1's line is phase
+24's, B4's gains ``series_tapes``); the last line is
 ``{"ok": true, "device": {...}}``.  Each phase's
 line carries ``t_s``, the seconds since the script started.
 """
@@ -261,6 +284,8 @@ from heyoka_tpu_torch.models import nbody
 from heyoka_tpu_torch.taylor import jet_kernels as jk
 from heyoka_tpu_torch.taylor import jet_phase as jp
 from heyoka_tpu_torch.taylor import jet_rolled as jr
+from heyoka_tpu_torch.taylor import series_jet as sj
+from heyoka_tpu_torch.expr import series as PS
 from heyoka_tpu_torch.taylor.compact import build_plan
 from heyoka_tpu_torch.taylor.stepper import taylor_order_from_tol
 from heyoka_tpu_torch.tools import (
@@ -269,9 +294,9 @@ from heyoka_tpu_torch.tools import (
 )
 from heyoka_tpu_torch.tools import roofline as rl
 from heyoka_tpu_torch.tools.cases import (
-    GEOPOT_IC, REPORT3, SGP4_TLE, drag_pars, drag_sys, geopot_energy,
-    geopot_lanes, geopot_sys, pendulum_lanes, phase_cases, phase_lanes,
-    sgp4_population,
+    GEOPOT_IC, REPORT3, SGP4_TLE, drag_pars, drag_sys, elp_sys,
+    geopot_energy, geopot_lanes, geopot_sys, p9_sys, pendulum_lanes,
+    phase_cases, phase_lanes, series_times, sgp4_population,
 )
 
 TOL = 1e-15
@@ -316,14 +341,17 @@ PEND_GRID_N = 1001
 GRID_RTOL = 1e-11
 COUT_RTOL = 1e-13  # phase 16: the continuous output against the grid rows
 
-SOURCES = {"hy_jet_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
+SOURCES = {"hy_series_jet_f64": "heyoka_tpu_torch/csrc/series_jet.cu",
+           "hy_jet_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_prop_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_jet_rolled_f64": "heyoka_tpu_torch/csrc/taylor_jet_rolled.cu",
            "hy_phase_f64": "heyoka_tpu_torch/csrc/taylor_phase.cu",
            "hy_conv_f32": "heyoka_tpu_torch/csrc/conv_microbench.cu",
            "hy_conv_dd": "heyoka_tpu_torch/csrc/conv_microbench.cu",
            "hy_proto_phase_f32": "heyoka_tpu_torch/csrc/proto_phase.cu"}
-REPLACES = {"hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
+#: kernel S1 replaces XLA code, not a Pallas kernel: ``_series_jet``
+REPLACES = {"hy_series_jet_f64": "heyoka_tpu/expr/series.py:427",
+            "hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
             "hy_prop_f64": "heyoka_tpu/taylor/pallas_phase.py:2454",
             "hy_jet_rolled_f64": "heyoka_tpu/taylor/pallas_phase.py:1842",
             "hy_phase_f64": "heyoka_tpu/taylor/pallas_phase.py:899",
@@ -332,7 +360,8 @@ REPLACES = {"hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
             "hy_proto_phase_f32": "tools/proto_pallas_phase.py:240"}
 #: the kernels' names in ptxas's log, longest first where one name holds
 #: another
-PTXAS_NAMES = ("jet_rolled_kernel", "jet_kernel", "prop_kernel",
+PTXAS_NAMES = ("jet_rolled_kernel", "series_jet_kernel",
+               "series_reduce_kernel", "jet_kernel", "prop_kernel",
                "proto_phase_kernel", "phase_kernel", "conv_f32_kernel",
                "conv_dd_ring", "conv_dd_direct")
 #: block shapes of B1/B2 with the jets in shared memory timed in phase 6
@@ -719,7 +748,18 @@ def main():
     phased = (phased[0], max(phased[1], c5_rows["phase"]["max_abs_err"]),
               phased[2])
 
-    rows = [("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
+    # phase 24: the series slice; S1's row, B4's launches and time on the
+    # series tapes
+    s1_row, s1_err, b4_series, ser_launch = series_paths(dev, smi, order)
+    phased[2]["path_launches"].update(
+        {p: n["phase"] for p, n in ser_launch.items() if n["phase"]})
+    phased[2]["series_tapes"] = b4_series
+    s1_row["path_launches"] = {p: n["series"] for p, n in ser_launch.items()
+                               if n["series"]}
+
+    rows = [("hy_series_jet_f64", ser_launch["elp2000_complete"]["series"],
+             s1_err, s1_row),
+            ("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
             ("hy_jet_rolled_f64", *rolled),
             ("hy_phase_f64", *phased),
@@ -1135,7 +1175,9 @@ def phase_tapes(dev, order, smi):
               f"B4 vs phase_plain on {name}: {r}")
         res[name] = dict(W=tape.width, shape=jp.layout_report(tape, PHASE_B),
                          shapes_equal=len(shapes), **r)
-    missing = sorted(set(ht.PHASE_OPS) - ops)
+    # the series opcode's rows come from kernel S1's buffer: phase 24 (b)
+    # holds B4 with them against its twin
+    missing = sorted(set(ht.PHASE_OPS) - ops - {"trigseries"})
     check(not missing, f"phase 10 ran no tape with {missing}")
     say(10, B=PHASE_B, order=order, lo=[1, PHASE_LO], tol=JET_RTOL,
         opcodes=sorted(ops, key=ht.OPCODES.index), max_rel_per_order=max(
@@ -3257,17 +3299,19 @@ def c5_arrays(sys_, order):
     return ht.plan_to_arrays(build_plan(ht.taylor_decompose_sys(sys_), order))
 
 
-def profiled(make, t_end, kernel):
-    """``make()``'s ``propagate_until(t_end)`` timed without the profiler,
-    then again under ``torch.profiler``: the device's busy and idle shares
-    and ``kernel``'s (a substring of its name) share of the busy time."""
+def profiled(make, t_end, kernel, run=None):
+    """``make()``'s ``propagate_until(t_end)`` (or ``run(integrator)``)
+    timed without the profiler, then again under ``torch.profiler``: the
+    device's busy and idle shares and ``kernel``'s (a substring of its
+    name) share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
-    wall = timed_call(make, lambda t: t.propagate_until(t_end))[2]
+    run = run or (lambda t: t.propagate_until(t_end))
+    wall = timed_call(make, run)[2]
     tp = make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tp.propagate_until(t_end)
+        run(tp)
         torch.cuda.synchronize()
     dev_ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3622,6 +3666,279 @@ def config5_paths(dev, smi, order):
     say("23e", **lagrange_points(dev, smi))
     return dict(jet=b12["jet"], prop=b12["prop"], jet_rolled=b3,
                 phase=b4), paths
+
+
+# -- phase 24: the series slice ----------------------------------------------
+
+SER_B = 10_240
+SER_B_REF = 256  # benchmarks/vsop2013_cartesian.py's batch
+SER_T = 0.02  # centuries: the benchmark's horizon
+SER_P9_THRESH = 1e-9  # (a): planet 9's 15 ops, 4,479 terms
+SER_ROUTE_THRESH = 1e-7  # (c): the expanded tape has 1,332 u-vars
+SER_ROUTE_B = 1_024
+SER_ROUTE_T = 0.01  # millennia
+SER_REF_LANES = 16
+SER_PROFILE_T = 0.004
+SER_CF_N = 2 ** 18
+SER_CF_REF = 1_024
+#: S1 against its twin: each order within this share of the sum of its
+#: terms' magnitudes (the kernel's recurrence uses fma, the sums over
+#: 10^4 terms run in other orders)
+SER_RTOL = 1e-13
+SER_REF_RTOL = 1e-12
+SER_ROUTES_RTOL = 1e-12
+#: the position from the cfunc: the series' 1e-13 through cos/sin of U, V
+SER_CF_POS_RTOL = 1e-12
+ELP_VEC_ATOL = 0.05  # km: tests/test_ephemeris.py:23-40
+ELP_VECTORS = np.array([
+    (-361605.79234692274, 44981.04302003427, -30693.19198820311, 2469000.5),
+    (-363123.49639910535, 35877.2078378671, -33194.68710267386, 2449000.5),
+    (-371572.8001113177, 75278.04108874535, -32227.390108194537, 2429000.5),
+    (-373885.8585384737, 127397.62026596011, -30039.82215825389, 2409000.5),
+    (-346323.78767959465, 206374.952164921, -28496.523303933904, 2389000.5)])
+
+
+def series_ops(sys_):
+    """The series op names of a system's tape, in tape order."""
+    return [op.op for op in ht.taylor_decompose_sys(sys_).ops
+            if op.op.startswith("trigseries%")]
+
+
+def s1_parity(dev, order):
+    """Phase 24 (a): kernel S1 against its twin on the 24 series ops of
+    the complete ELP2000 tape and planet 9's at ``SER_P9_THRESH``, at
+    ``SER_B`` lanes; on the ELP2000 ops also its time a launch, its bound
+    and the twin's time."""
+    rng = np.random.default_rng(24)
+    u0 = torch.as_tensor(rng.uniform(-0.5, 0.5, SER_B), device=dev)
+    u1 = torch.ones_like(u0)
+    ops, err, worst = [], 0.0, 0.0
+    for which, names in (("elp", series_ops(elp_sys(ht, 0.0))),
+                         ("p9", series_ops(p9_sys(ht, SER_P9_THRESH)))):
+        for nm in names:
+            tab = sj.tables_on(nm, dev)
+            got = sj.series_jet(tab, u0, u1, order)
+            again = sj.series_jet(tab, u0, u1, order)
+            torch.cuda.synchronize()
+            want, scale = sj.series_jet_plain(tab, u0, u1, order,
+                                              with_scale=True)
+            check(bool(torch.isfinite(got).all()), f"S1 on {nm}: not finite")
+            rel = float(((got - want).abs() / scale).max())
+            check(rel <= SER_RTOL, f"S1 vs its twin on {which} {nm}: {rel}")
+            check(torch.equal(got, again), f"S1 on {nm}: two runs differ")
+            err, worst = max(err, float((got - want).abs().max())), \
+                max(worst, rel)
+            row = dict(tape=which, n=tab.n, d=tab.d, q=tab.q,
+                       max_err_of_scale=rel)
+            if which == "elp":
+                ms = cuda_ms(lambda: sj.series_jet(tab, u0, u1, order), 3)
+                plain = cuda_ms(lambda: sj.series_jet_plain(
+                    tab, u0, u1, order), 1, warmup=False)
+                bnd = rl.bound(
+                    SER_B * rl.series_flops(tab.n, tab.d, tab.q, order),
+                    rl.series_bytes(tab.n, tab.d, tab.q, order, SER_B),
+                    torch.float64)
+                row.update(ms=ms, plain_ms=plain, **bnd,
+                           x_bound=ms / bnd["bound_ms"])
+            ops.append(row)
+    elp = [r for r in ops if r["tape"] == "elp"]
+    step = {k: sum(r[k] for r in elp) for k in ("ms", "plain_ms",
+                                                 "bound_ms", "flops",
+                                                 "bytes")}
+    n = len(elp)
+    # the kernels line: a launch's mean over the 9 ELP2000 ops (one launch
+    # each a step), its bound likewise
+    row = dict(ms=step["ms"] / n, plain_ms=step["plain_ms"] / n,
+               bound_ms=step["bound_ms"] / n,
+               bound_by="operations" if step["flops"] / rl.PEAK_FLOPS[
+                   torch.float64] > step["bytes"] / rl.HBM_BYTES_PER_S
+               else "bytes", library_ms=None,
+               x_bound=step["ms"] / step["bound_ms"],
+               ms_a_step_elp2000=step["ms"], bound_ms_a_step=step[
+                   "bound_ms"], lanes=SER_B, order=order,
+               max_err_of_scale=worst)
+    return row, err, dict(B=SER_B, K=order, ops=ops, max_err_of_scale=worst,
+                          elp2000_ms_a_step=step["ms"],
+                          elp2000_bound_ms_a_step=step["bound_ms"],
+                          elp2000_plain_ms_a_step=step["plain_ms"])
+
+
+def elp_batch(sys_, t0, dev):
+    return ht.taylor_adaptive_batch(sys_, np.zeros((t0.size, 3)), time=t0,
+                                    tol=TOL, device=dev)
+
+
+def elp_complete(dev, smi, order):
+    """Phase 24 (b): the complete ELP2000 ODE on ``SER_B`` lanes through
+    S1 and B4 only; B4 against its twin on the tape and its time a launch;
+    the idle share; the same at ``SER_B_REF`` lanes."""
+    sys_ = elp_sys(ht, 0.0)
+    t0 = series_times(SER_B, 0)
+    ta = elp_batch(sys_, t0, dev)
+    ta.assert_engine(jet="hy_phase_f64", propagate_engine="flat",
+                     series="hy_series_jet_f64")
+    torch.cuda.synchronize()
+    zero_launches()
+    w0 = time.perf_counter()
+    res = ta.propagate_for(SER_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "phase", "series"),
+          f"ELP2000: kernels launched {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in res[0]),
+          "ELP2000: a lane did not end with time_limit")
+    check(bool(np.array_equal(ta.time, t0 + SER_T)),
+          "ELP2000: a lane missed its target")
+    check(bool(np.isfinite(ta.state).all()), "ELP2000: bad final state")
+    ref = elp_batch(sys_, t0[:SER_REF_LANES], "cpu")
+    ref.propagate_for(SER_T)
+    ref_rel = rel_max(ta.state[:SER_REF_LANES], ref.state)
+    check(ref_rel <= SER_REF_RTOL, f"ELP2000 vs the CPU run: {ref_rel}")
+    steps = int(np.asarray(res[3]).sum())
+    # B4 on the tape at the main width: against its twin, its time
+    tape = ta._jtape
+    tc = jk._seed_plain(tape, *lane_tensors(np.zeros((SER_B, 3)),
+                                            np.zeros((SER_B, 0)), t0, dev))
+    ser = jp.order0(tape, tc)
+    tc_k = jp.phase(tape, tc.clone(), 1, ser)
+    tc_p = jp.phase_plain(tape, tc.clone(), 1, ser)
+    b4_rel = float(per_order_rel(tc_k.permute(1, 0, 2),
+                                 tc_p.permute(1, 0, 2)).max())
+    check(b4_rel <= JET_RTOL, f"B4 vs its twin on ELP2000: {b4_rel}")
+    work = tc.clone()
+    b4_ms = cuda_ms(lambda: jp.phase(tape, work, 1, ser), 5)
+    b4_plain = cuda_ms(lambda: jp.phase_plain(tape, work, 1, ser), 1)
+    b4_bnd = rl.bound(SER_B * rl.phase_flops(tape.arrays, 1),
+                      rl.phase_bytes(tape.arrays, SER_B, 1, 8)
+                      + rl.nbytes(ser), torch.float64)
+    prof = profiled(lambda: elp_batch(sys_, t0, dev), None, "series_jet",
+                    run=lambda t: t.propagate_for(SER_PROFILE_T))
+    small, sres, swall = timed_call(
+        lambda: elp_batch(sys_, t0[:SER_B_REF], dev),
+        lambda t: t.propagate_for(SER_T))
+    line = dict(
+        B=SER_B, t_span=SER_T, W=tape.width, n_series=tape.n_ser,
+        n_terms=sum(tab.n for _, _, tab in tape.series), wall_s=wall,
+        lane_steps=steps, mean_steps_per_lane=steps / SER_B,
+        lane_steps_per_s=steps / wall, launches=launches,
+        cpu_ref_lanes=SER_REF_LANES, cpu_ref_max_rel=ref_rel,
+        b4=dict(ms=b4_ms, plain_ms=b4_plain, max_rel_per_order=b4_rel,
+                **b4_bnd, layout=jp.layout_report(tape, SER_B)),
+        profile=prof, b256=dict(
+            B=SER_B_REF, wall_s=swall,
+            lane_steps_per_s=int(np.asarray(sres[3]).sum()) / swall,
+            mean_steps_per_lane=float(np.asarray(sres[3]).mean())),
+        nvidia_smi=smi)
+    return line, launches, dict(ms=b4_ms, plain_ms=b4_plain,
+                                bound_ms=b4_bnd["bound_ms"],
+                                bound_by=b4_bnd["bound_by"],
+                                max_abs_err=float((tc_k - tc_p).abs().max()),
+                                tape="complete ELP2000 (series rows)")
+
+
+def series_routes(dev, smi):
+    """Phase 24 (c): planet 9 at ``SER_ROUTE_THRESH`` through the series
+    route and the expanded tape on the same lanes."""
+    t0 = series_times(SER_ROUTE_B, 2)
+    out, states, paths = {}, {}, {}
+    for name, series_op, kern in (("series", True, ("phase", "series")),
+                                  ("expanded", False, ("phase",))):
+        sys_ = p9_sys(ht, SER_ROUTE_THRESH, series_op)
+        ta = ht.taylor_adaptive_batch(sys_, np.zeros((SER_ROUTE_B, 2)),
+                                      time=t0, tol=TOL, device=dev)
+        torch.cuda.synchronize()
+        zero_launches()
+        w0 = time.perf_counter()
+        res = ta.propagate_for(SER_ROUTE_T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        launches = dict(jk.LAUNCHES)
+        check(only(launches, *kern), f"planet 9 {name}: kernels {launches}")
+        check(all(o == ht.TaylorOutcome.time_limit for o in res[0]),
+              f"planet 9 {name}: a lane did not end with time_limit")
+        states[name] = ta.state
+        steps = int(np.asarray(res[3]).sum())
+        out[name] = dict(n_uvars=ta._tape.n_uvars, wall_s=wall,
+                         lane_steps_per_s=steps / wall,
+                         mean_steps_per_lane=steps / SER_ROUTE_B,
+                         launches=launches)
+        paths[f"p9_{name}"] = launches
+    r = rel_max(states["series"], states["expanded"])
+    check(r <= SER_ROUTES_RTOL, f"planet 9: the routes differ by {r}")
+    return dict(B=SER_ROUTE_B, t_span=SER_ROUTE_T, thresh=SER_ROUTE_THRESH,
+                routes_max_rel=r, nvidia_smi=smi, **out), paths
+
+
+def series_cfuncs(dev, smi):
+    """Phase 24 (d): the complete ELP2000 cfunc at ``SER_CF_N`` times,
+    the published vectors and Pluto's elements on the card."""
+    names = series_ops(elp_sys(ht, 0.0))
+    fns = ht.models.elp2000_cartesian_e2000(thresh=0.0, series_op=True)
+    sers = [PS.trig_series(ht.time, *PS.tables(nm)) for nm in names]
+    times = series_times(SER_CF_N, 4)
+    td = torch.as_tensor(times, device=dev)
+    none = torch.zeros((SER_CF_N, 0), dtype=torch.float64, device=dev)
+    cf = ht.make_cfunc(fns, vars=[], device=dev)
+    cfs = ht.make_cfunc(sers, vars=[], device=dev)
+    out, outs = cf(none, time=td), cfs(none, time=td)
+    check(tuple(out.shape) == (SER_CF_N, 3) and bool(
+        torch.isfinite(out).all()), "ELP2000 cfunc: bad output")
+    m = SER_CF_REF
+    want = ht.make_cfunc(fns, vars=[], device="cpu")(np.zeros((m, 0)),
+                                                     time=times[:m])
+    pos_rel = rel_max(out[:m].cpu(), want)
+    check(pos_rel <= SER_CF_POS_RTOL, f"ELP2000 cfunc vs CPU: {pos_rel}")
+    worst = 0.0
+    u = torch.as_tensor(times[:m])
+    for i, nm in enumerate(names):
+        tab = sj.tables_on(nm, "cpu")
+        val, scale = sj.series_jet_plain(tab, u, torch.zeros_like(u), 0,
+                                         with_scale=True)
+        worst = max(worst, float(((outs[:m, i].cpu() - val[0]).abs()
+                                  / scale[0]).max()))
+    check(worst <= SER_RTOL, f"ELP2000 series on the card vs CPU: {worst}")
+    ms = [cuda_ms(lambda: cf(none, time=td), 3) for _ in range(2)]
+    vec = ht.make_cfunc(ht.models.elp2000_cartesian_e2000(
+        thresh=1e-5, series_op=True), vars=[], device=dev)
+    tv = torch.as_tensor((ELP_VECTORS[:, 3] - 2451545.0) / 36525.0,
+                         device=dev)
+    got = vec(torch.zeros((5, 0), dtype=torch.float64, device=dev),
+              time=tv).cpu().numpy()
+    vec_err = float(np.abs(got - ELP_VECTORS[:, :3]).max())
+    check(vec_err <= ELP_VEC_ATOL, f"ELP2000 vectors: {vec_err} km")
+    qp = ht.make_cfunc([ht.models.vsop2013_elliptic(
+        9, v, thresh=1e-7, series_op=True) for v in (5, 6)], vars=[],
+        device=dev)(torch.zeros(0, dtype=torch.float64, device=dev),
+                    time=0.0).cpu().numpy()
+    incl = 2 * np.degrees(np.arcsin(np.hypot(qp[0], qp[1])))
+    node = np.degrees(np.arctan2(qp[1], qp[0])) % 360
+    check(abs(incl - 17.15) <= 0.05 and abs(node - 110.29) <= 0.05,
+          f"Pluto: inclination {incl}, node {node}")
+    return dict(n=SER_CF_N, n_ops=len(cf.dc.ops), ms_runs=ms,
+                evals_per_s=SER_CF_N / (min(ms) / 1e3),
+                position_max_rel=pos_rel, series_max_err_of_scale=worst,
+                ref_points=m, vectors_max_err_km=vec_err,
+                pluto_inclination_deg=float(incl),
+                pluto_node_deg=float(node), nvidia_smi=smi)
+
+
+def series_paths(dev, smi, order):
+    """Phase 24: the series slice on the card.  Returns S1's row of the
+    kernels line, its largest error against its twin, B4's time on the
+    ELP2000 tape and the launches on each of the phase's paths."""
+    s1_row, s1_err, line_a = s1_parity(dev, order)
+    say("24a", nvidia_smi=smi, **line_a)
+    line_b, launches, b4 = elp_complete(dev, smi, order)
+    say("24b", **line_b)
+    s1_row["profile_share_of_busy"] = line_b["profile"][
+        "kernel_share_of_busy"]
+    paths = {"elp2000_complete": launches}
+    line_c, p_c = series_routes(dev, smi)
+    paths.update(p_c)
+    say("24c", **line_c)
+    say("24d", **series_cfuncs(dev, smi))
+    return s1_row, s1_err, b4, paths
 
 
 if __name__ == "__main__":

@@ -25,7 +25,10 @@ helpers, ``sh_gravity``/``egm2008_*``, ``cart2geo``, the time
 conversions, the thermoNET densities on the port's copies of the data,
 and the batched ``SGP4Propagator`` over a compiled function) and
 ``utils`` (time scales, TLE parsing), ``gp`` and ``logging`` are copies
-of the JAX package's.
+of the JAX package's, and so are the ephemeris models (``vsop2013``,
+``elp2000``, ``iau2006``) and the dense trig-series op behind them
+(``expr.series``), whose Taylor jet is kernel S1 (``csrc/series_jet.cu``)
+before B4 runs the rest of such a tape.
 """
 
 from .expr.core import (  # noqa: F401

@@ -49,9 +49,9 @@ SIGNATURES = {
     # itab, dtab, state, pars, t, scratch, V, out, norms, trace, B,
     # threads, smem, lane_dbl, blocks, stream
     "hy_jet_rolled_f64": (_P,) * 10 + (_I,) * 5 + (_P,),
-    # itab, dtab, tc, syn, B, lo, lanes, threads, smem, n_it, n_dt,
-    # global layout, stream (csrc/phase_block.cuh)
-    "hy_phase_f64": (_P,) * 4 + (_I,) * 8 + (_P,),
+    # itab, dtab, tc, syn, ser, n_ser, B, lo, lanes, threads, smem, n_it,
+    # n_dt, global layout, stream (csrc/phase_block.cuh)
+    "hy_phase_f64": (_P,) * 5 + (_I,) * 9 + (_P,),
     # itab, dtab, tc, B, lo, lanes, threads, smem, n_it, n_dt, stream
     "hy_phase_stage_f64": (_P,) * 3 + (_I,) * 7 + (_P,),
     # a, b, c, N, K, stream
@@ -64,8 +64,12 @@ SIGNATURES = {
     "hy_conv_dd_direct": (_P,) * 6 + (_I,) * 4 + (_P,),
     # tile
     "hy_conv_dd_occupancy": (_I,),
-    # the arguments of hy_phase_f64
+    # itab, dtab, tc, syn, B, lo, lanes, threads, smem, n_it, n_dt,
+    # global layout, stream
     "hy_proto_phase_f32": (_P,) * 4 + (_I,) * 8 + (_P,),
+    # amp, ph, u0, u1, out, part, n, q1, d1, B, K, per, chunks, smem,
+    # stream (csrc/series_jet.cu)
+    "hy_series_jet_f64": (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 

@@ -13,6 +13,11 @@ broadcast over a leading evaluation axis: ``inputs`` (n_evals, n_vars),
 ``pars`` (n_pars,) shared or (n_evals, n_pars) per evaluation, ``time`` a
 scalar or (n_evals,).
 
+A dense trig-series op (``expr/series.py``) is one tape row too: kernel
+S1 at order 0 over every evaluation on the card, its twin by chunks of
+terms on the CPU (``taylor.series_jet.series_value``), never an
+``(n_evals, n_terms)`` tensor.
+
 Every tensor lives on the cfunc's ``device`` (CUDA unless the caller asks
 for the CPU); results are tensors there.  Numpy arrays and lists are
 copied to the device; a tensor on another device raises ``ValueError``,

@@ -28,7 +28,16 @@ Array layout (all int32 unless noted):
 - ``aux`` ((n_ops, 2)): the auxiliary columns of each op column
   (``_Group.aux``, in the order of ``AUX_KEYS``: the sin/cos ``pair``, the
   ``sq`` square of tan/tanh/sigmoid, the Kepler ``sin``/``cos``), -1 where
-  there is none.
+  there is none;
+- the dense trig series (``expr/series.py``; every series op has the one
+  opcode ``"trigseries"``, its group the op's full name
+  ``trigseries%<key>``): ``ser`` ((n_ops,)) the series row of each op
+  column in column order, -1 elsewhere; ``ser_key`` ((n_ser,)) the index
+  of each row's series in ``ser_names`` (str, one per distinct series);
+  and that series' tables, flattened in ``ser_amp`` / ``ser_ph`` (f64)
+  with ``ser_shape`` ((n_names, 3): terms, amplitude and phase
+  coefficients a term), so that the arrays carry everything the jets need
+  and ``plan_from_arrays`` can restore the store.
 """
 
 from __future__ import annotations
@@ -36,20 +45,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .expr import series
 from .taylor.compact import _Group, _Plan
 
 #: every op the port has a recurrence for; the position is the opcode the
 #: CUDA kernels switch on (csrc/taylor_common.cuh ``enum Op``).  The first
 #: five are kernels B1/B2/B3's rule set (``JET_OPS``); the phase kernel B4
 #: takes them all (``PHASE_OPS``, ``heyoka_tpu/taylor/pallas_phase.py``
-#: ``_SUPPORTED``).
+#: ``_SUPPORTED``, and the dense series, whose rows kernel S1 computes and
+#: B4 copies in).
 OPCODES = (
     "sum", "mul", "div", "sqrt", "pow",
     "exp", "log", "sin", "cos", "sinh", "cosh", "tan", "tanh", "sigmoid",
     "asin", "acos", "atan", "atanh", "asinh", "acosh", "erf", "atan2",
     "kepE", "kepF", "kepDE", "relu", "relup", "select",
     "lt", "le", "gt", "ge", "eq", "ne",
-    "logical_and", "logical_or", "logical_not",
+    "logical_and", "logical_or", "logical_not", "trigseries",
 )
 JET_OPS = OPCODES[:5]
 PHASE_OPS = OPCODES
@@ -63,6 +74,15 @@ AUX_KEYS = {
 }
 
 
+SERIES = "trigseries"
+
+
+def op_kind(name: str) -> str:
+    """The ``OPCODES`` entry of op ``name``: ``"trigseries"`` for every
+    dense series op (``trigseries%<key>``), the name itself otherwise."""
+    return SERIES if series.is_series(name) else name
+
+
 class UnsupportedKernelOp(Exception):
     """A tape op outside the rule set of the route that was asked for."""
 
@@ -73,7 +93,7 @@ def check_supported(plan, rules=JET_OPS) -> None:
     ``PHASE_OPS`` for the phase kernel B4."""
     for lv in plan.levels:
         for g in lv:
-            if g.name not in rules:
+            if op_kind(g.name) not in rules:
                 raise UnsupportedKernelOp(
                     f"op {g.name!r} has no rule in this jet (rule set: "
                     f"{', '.join(rules)})")
@@ -90,13 +110,19 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
     row_args = [None] * n_ops
     alpha = np.zeros(n_ops, np.float64)
     aux = np.full((n_ops, 2), -1, np.int64)
+    ser = np.full(n_ops, -1, np.int64)
+    ser_names: list[str] = []
     for li, lv in enumerate(plan.levels):
         for g in lv:
             in_cols = np.asarray(g.in_cols, np.int64)
             m, nargs = in_cols.shape
             start = int(g.out_start)
             g_level.append(li)
-            g_op.append(OPCODES.index(g.name))
+            g_op.append(OPCODES.index(op_kind(g.name)))
+            if op_kind(g.name) == SERIES:
+                if g.name not in ser_names:
+                    ser_names.append(g.name)
+                ser[start - n_eq:start - n_eq + m] = ser_names.index(g.name)
             g_start.append(start)
             g_m.append(m)
             g_nargs.append(nargs)
@@ -121,6 +147,11 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
     arg_ptr[1:] = np.cumsum([len(r) for r in row_args])
     args = np.array([c for r in row_args for c in r], np.int64)
     i32 = np.int32
+    # the series rows in column order, each with its series' index
+    is_ser = ser >= 0
+    ser_key = ser[is_ser]
+    ser[is_ser] = np.arange(ser_key.size)
+    tabs = [_series_tables(n) for n in ser_names]
     return dict(
         meta=np.array([plan.width, n_eq, plan.order,
                        -1 if plan.time_col is None else plan.time_col,
@@ -140,7 +171,38 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
         args=args.astype(i32),
         alpha=alpha,
         aux=aux.astype(i32),
+        ser=ser.astype(i32),
+        ser_key=ser_key.astype(i32),
+        ser_names=np.array(ser_names, dtype=str),
+        ser_shape=np.array([[a.shape[0], a.shape[1], p.shape[1]]
+                            for a, p in tabs], np.int64).reshape(-1, 3),
+        ser_amp=np.concatenate([a.ravel() for a, _ in tabs]
+                               + [np.zeros(0)]),
+        ser_ph=np.concatenate([p.ravel() for _, p in tabs] + [np.zeros(0)]),
     )
+
+
+def _series_tables(name):
+    try:
+        return series.tables(name)
+    except KeyError:
+        raise KeyError(f"series op {name!r} is not in the port's store: "
+                       "build its expression with the port") from None
+
+
+def series_names(d: dict) -> list[str]:
+    """The op name of every series row of ``d`` (plan arrays), with the
+    tables restored to the series store where it lacks them."""
+    names, off_a, off_p = [], 0, 0
+    for name, (n, q1, d1) in zip(d["ser_names"], d["ser_shape"]):
+        n, q1, d1 = int(n), int(q1), int(d1)
+        amp = d["ser_amp"][off_a:off_a + n * q1].reshape(n, q1)
+        ph = d["ser_ph"][off_p:off_p + n * d1].reshape(n, d1)
+        off_a, off_p = off_a + n * q1, off_p + n * d1
+        if series.add(amp, ph) != name:
+            raise ValueError(f"the tables of {name!r} do not hash to it")
+        names.append(str(name))
+    return [names[int(k)] for k in d["ser_key"]]
 
 
 def plan_from_arrays(d: dict) -> _Plan:
@@ -153,10 +215,13 @@ def plan_from_arrays(d: dict) -> _Plan:
     n_levels = int(d["g_level"].max()) + 1 if d["g_level"].size else 0
     levels: list[list[_Group]] = [[] for _ in range(n_levels)]
     arg_ptr, args = d["arg_ptr"], d["args"]
+    ser_rows = series_names(d)
     for li, op, start, m, nargs in zip(d["g_level"], d["g_op"], d["g_start"],
                                        d["g_m"], d["g_nargs"]):
         start, m, nargs = int(start), int(m), int(nargs)
         name = OPCODES[int(op)]
+        if name == SERIES:
+            name = ser_rows[int(d["ser"][start - n_eq])]
         in_cols = np.full((m, nargs), zero_col, np.int64)
         for r in range(m):
             o = start - n_eq + r

@@ -4,13 +4,19 @@
 // the caller's (K+1, W, B) buffer, lane index minor; they differ in their
 // scalar type and their rules only, which a kernel passes as a functor:
 //
-//   Rule::order_k(T, aux, syn, J, S, op, c, o, k)  order k of column c
-//   Rule::synth(T, aux, J, op, o, j)               order j of the Kepler
-//                                                  synthetic row of c
+//   Rule::order_k(T, aux, syn, J, S, Q, op, c, o, k)  order k of column c
+//   Rule::synth(T, aux, J, op, o, j)                  order j of the Kepler
+//                                                     synthetic row of c
 //
 // with J and S one lane's views of the coefficients and synthetic rows
-// (`at(k, c)`).  The tables are those of taylor/jet_phase.py (`enum Hdr`
-// of taylor_common.cuh), with the level table.
+// (`at(k, c)`), Q its view of the dense-series rows (`at(k, r)`: the
+// read-only (K+1, n_ser, B) buffer kernel S1 filled before the launch; B4
+// copies order k of a series column from it, on both layouts, since the
+// smem layout stages only orders below lo of an op column and writes
+// orders lo..K of it back).  The tables are those of taylor/jet_phase.py
+// (`enum Hdr` of taylor_common.cuh), with the level table; `syn[o]` is
+// the synthetic row of a Kepler column and the series row of a series
+// column.
 //
 // Layout.  A block owns L consecutive lanes.  On the smem layout its
 // dynamic shared memory holds, in this order: the f64 tables (dtab) where
@@ -125,6 +131,18 @@ __device__ void stage_out(T* g, const T* s, const StageRange& R, int L,
   }
 }
 
+// One lane's view of the dense-series rows: row (k, r) of a (K+1, n, B)
+// buffer in global memory, read only.
+template <typename T>
+struct SeriesRows {
+  const T* p;  // at the lane
+  int n;
+  size_t ld;
+  __device__ T at(int k, int r) const {
+    return p[((size_t)k * (size_t)n + (size_t)r) * ld];
+  }
+};
+
 // The tables the passes read, in shared memory or in place.
 struct PhaseTables {
   Tape T;
@@ -174,7 +192,8 @@ __device__ void tail_pass(const PhaseTables& P, const BlockRows<T, kSmem>& J,
 template <typename T, class Rule, bool kSmem, bool kPasses = true>
 __device__ void phase_block(const int* __restrict__ it_g,
                             const double* __restrict__ dt_g,
-                            T* __restrict__ tc, T* __restrict__ syn_g, int B,
+                            T* __restrict__ tc, T* __restrict__ syn_g,
+                            const T* __restrict__ ser_g, int n_ser, int B,
                             int lo, int L, int n_it, int n_dt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -222,7 +241,10 @@ __device__ void phase_block(const int* __restrict__ it_g,
           const int c = c0 + r, o = c - n_eq;
           J.at(k, c, l) = Rule::order_k(
               P.T, P.aux, P.syn, LaneRows<T, kSmem>{J, l},
-              LaneRows<T, kSmem>{S, l}, P.cop[o], c, o, k);
+              LaneRows<T, kSmem>{S, l},
+              SeriesRows<T>{ser_g == nullptr ? nullptr : ser_g + lane0 + l,
+                            n_ser, Bs},
+              P.cop[o], c, o, k);
         }
         __syncthreads();
       }
@@ -241,11 +263,12 @@ __device__ void phase_block(const int* __restrict__ it_g,
 // (`allowed`).  Returns the launch's CUDA error.
 template <typename T, class F>
 int launch_phase(F* kernel, bool& allowed, const int* itab,
-                 const double* dtab, T* tc, T* syn, int B, int lo, int lanes,
-                 int threads, int smem, int n_it, int n_dt,
-                 cudaStream_t stream) {
+                 const double* dtab, T* tc, T* syn, const T* ser, int n_ser,
+                 int B, int lo, int lanes, int threads, int smem, int n_it,
+                 int n_dt, cudaStream_t stream) {
   if (threads < 32 || threads % 32 != 0 || threads > kPhaseMaxThreads ||
-      lanes < 1 || smem < 0 || smem > kPhaseSmemMax || lo < 1 || B < 1)
+      lanes < 1 || smem < 0 || smem > kPhaseSmemMax || lo < 1 || B < 1 ||
+      n_ser < 0 || (n_ser > 0 && ser == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -254,7 +277,7 @@ int launch_phase(F* kernel, bool& allowed, const int* itab,
     allowed = true;
   }
   kernel<<<(B + lanes - 1) / lanes, threads, (size_t)smem, stream>>>(
-      itab, dtab, tc, syn, B, lo, lanes, n_it, n_dt);
+      itab, dtab, tc, syn, ser, n_ser, B, lo, lanes, n_it, n_dt);
   return (int)cudaGetLastError();
 }
 

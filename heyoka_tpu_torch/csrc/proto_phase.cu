@@ -44,10 +44,10 @@ namespace {
 // The engine's rules in f32: the state rows are the engine's; sum over the
 // operands, mul as the full Cauchy product, pow with its f32 weights.
 struct T2Rule {
-  template <class LV, class SV>
+  template <class LV, class SV, class QV>
   __device__ static float order_k(const Tape& T, const int*, const int*,
-                                  const LV& L, const SV&, int op, int c,
-                                  int o, int k) {
+                                  const LV& L, const SV&, const QV&, int op,
+                                  int c, int o, int k) {
     const float kf = (float)k;
     const int* a = T.args + T.argptr[o];
     const int na = T.argptr[o + 1] - T.argptr[o];
@@ -82,10 +82,13 @@ struct T2Rule {
 template <bool kSmem>
 __global__ void __launch_bounds__(kPhaseMaxThreads)
 proto_phase_kernel(const int* __restrict__ it, const double* __restrict__ dt,
-                   float* __restrict__ tc, float* __restrict__ syn, int B,
-                   int lo, int lanes, int n_it, int n_dt) {
-  phase_block<float, T2Rule, kSmem>(it, dt, tc, syn, B, lo, lanes, n_it,
-                                    n_dt);
+                   float* __restrict__ tc, float* __restrict__ syn,
+                   const float* __restrict__ ser, int n_ser, int B, int lo,
+                   int lanes, int n_it, int n_dt) {
+  // no dense-series rows (ser is null): the prototype's rule set is
+  // {sum, mul, pow}
+  phase_block<float, T2Rule, kSmem>(it, dt, tc, syn, ser, n_ser, B, lo,
+                                    lanes, n_it, n_dt);
 }
 
 }  // namespace
@@ -99,7 +102,9 @@ extern "C" int hy_proto_phase_f32(const int* itab, const double* dtab,
   const cudaStream_t s = (cudaStream_t)stream;
   if (global)
     return launch_phase(proto_phase_kernel<false>, allowed[0], itab, dtab, tc,
-                        syn, B, lo, lanes, threads, smem, n_it, n_dt, s);
+                        syn, (const float*)nullptr, 0, B, lo, lanes, threads,
+                        smem, n_it, n_dt, s);
   return launch_phase(proto_phase_kernel<true>, allowed[1], itab, dtab, tc,
-                      syn, B, lo, lanes, threads, smem, n_it, n_dt, s);
+                      syn, (const float*)nullptr, 0, B, lo, lanes, threads,
+                      smem, n_it, n_dt, s);
 }

@@ -10,14 +10,15 @@
 
 namespace {
 
-// convert.OPCODES: B1/B2/B3 know the first five, B4 all of them
+// convert.OPCODES: B1/B2/B3 know the first five, B4 all of them (the
+// dense series, OP_SERIES, by copying the rows kernel S1 made)
 enum Op {
   OP_SUM, OP_MUL, OP_DIV, OP_SQRT, OP_POW,
   OP_EXP, OP_LOG, OP_SIN, OP_COS, OP_SINH, OP_COSH, OP_TAN, OP_TANH,
   OP_SIGMOID, OP_ASIN, OP_ACOS, OP_ATAN, OP_ATANH, OP_ASINH, OP_ACOSH,
   OP_ERF, OP_ATAN2, OP_KEPE, OP_KEPF, OP_KEPDE, OP_RELU, OP_RELUP,
   OP_SELECT, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE, OP_LAND, OP_LOR,
-  OP_LNOT
+  OP_LNOT, OP_SERIES
 };
 
 // header of the int32 table `it` of kernels B1, B2, B4 and T2

@@ -101,10 +101,10 @@ __device__ double conv_syn(const LV& L, const SV& S, int row, int c, int k) {
 }
 
 // Order k (>= 1) of op column c = n_eq + o (pallas_phase._rule in f64).
-template <class LV, class SV>
+template <class LV, class SV, class QV>
 __device__ double phase_k(const Tape& T, const int* aux, const int* syn,
-                          const LV& L, const SV& S, int op, int c, int o,
-                          int k) {
+                          const LV& L, const SV& S, const QV& Q, int op,
+                          int c, int o, int k) {
   const int* a = T.args + T.argptr[o];
   const int na = T.argptr[o + 1] - T.argptr[o];
   const int* x = aux + 2 * o;
@@ -220,6 +220,8 @@ __device__ double phase_k(const Tape& T, const int* aux, const int* syn,
       return L.at(0, a[0]) > 0.0 ? L.at(k, a[0]) : 0.0;
     case OP_SELECT:
       return L.at(0, a[0]) != 0.0 ? L.at(k, a[1]) : L.at(k, a[2]);
+    case OP_SERIES:  // a dense series: order k of its row from kernel S1
+      return Q.at(k, syn[o]);
     default:  // relup, the relational and the logical ops
       return 0.0;
   }
@@ -227,11 +229,12 @@ __device__ double phase_k(const Tape& T, const int* aux, const int* syn,
 
 // The engine's rules: phase_k and synth_j in f64.
 struct B4Rule {
-  template <class LV, class SV>
+  template <class LV, class SV, class QV>
   __device__ static double order_k(const Tape& T, const int* aux,
                                    const int* syn, const LV& L, const SV& S,
-                                   int op, int c, int o, int k) {
-    return phase_k(T, aux, syn, L, S, op, c, o, k);
+                                   const QV& Q, int op, int c, int o,
+                                   int k) {
+    return phase_k(T, aux, syn, L, S, Q, op, c, o, k);
   }
   template <class LV>
   __device__ static double synth(const Tape& T, const int* aux, const LV& L,
@@ -243,29 +246,33 @@ struct B4Rule {
 template <bool kSmem, bool kPasses = true>
 __global__ void __launch_bounds__(kPhaseMaxThreads)
 phase_kernel(const int* __restrict__ it, const double* __restrict__ dt,
-             double* __restrict__ tc, double* __restrict__ syn, int B, int lo,
+             double* __restrict__ tc, double* __restrict__ syn,
+             const double* __restrict__ ser, int n_ser, int B, int lo,
              int lanes, int n_it, int n_dt) {
-  phase_block<double, B4Rule, kSmem, kPasses>(it, dt, tc, syn, B, lo, lanes,
-                                              n_it, n_dt);
+  phase_block<double, B4Rule, kSmem, kPasses>(it, dt, tc, syn, ser, n_ser, B,
+                                              lo, lanes, n_it, n_dt);
 }
 
 }  // namespace
 
 // `global` 0: the lanes staged in shared memory (`syn` unused); 1: in
 // place in `tc`, the synthetic rows in `syn`, a (K+1, n_syn, B) scratch
-// buffer.  `lanes`, `threads`, `smem`, `n_it`, `n_dt`:
-// jet_phase.block_shape's.
+// buffer.  `ser`: the dense-series rows, a (K+1, n_ser, B) buffer that
+// kernel S1 filled (null where n_ser is 0).  `lanes`, `threads`, `smem`,
+// `n_it`, `n_dt`: jet_phase.block_shape's.
 extern "C" int hy_phase_f64(const int* itab, const double* dtab, double* tc,
-                            double* syn, int B, int lo, int lanes,
-                            int threads, int smem, int n_it, int n_dt,
-                            int global, void* stream) {
+                            double* syn, const double* ser, int n_ser, int B,
+                            int lo, int lanes, int threads, int smem,
+                            int n_it, int n_dt, int global, void* stream) {
   static bool allowed[2] = {false, false};
   const cudaStream_t s = (cudaStream_t)stream;
   if (global)
     return launch_phase(phase_kernel<false>, allowed[0], itab, dtab, tc, syn,
-                        B, lo, lanes, threads, smem, n_it, n_dt, s);
-  return launch_phase(phase_kernel<true>, allowed[1], itab, dtab, tc, syn, B,
-                      lo, lanes, threads, smem, n_it, n_dt, s);
+                        ser, n_ser, B, lo, lanes, threads, smem, n_it, n_dt,
+                        s);
+  return launch_phase(phase_kernel<true>, allowed[1], itab, dtab, tc, syn,
+                      ser, n_ser, B, lo, lanes, threads, smem, n_it, n_dt,
+                      s);
 }
 
 // The staging of hy_phase_f64's smem layout alone (rows in and back, no
@@ -277,6 +284,7 @@ extern "C" int hy_phase_stage_f64(const int* itab, const double* dtab,
                                   void* stream) {
   static bool allowed = false;
   return launch_phase(phase_kernel<true, false>, allowed, itab, dtab, tc,
-                      (double*)nullptr, B, lo, lanes, threads, smem, n_it,
-                      n_dt, (cudaStream_t)stream);
+                      (double*)nullptr, (const double*)nullptr, 0, B, lo,
+                      lanes, threads, smem, n_it, n_dt,
+                      (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
 """Packaged data of the port: byte-identical copies of ``heyoka_tpu/data``'s
-EGM2008 coefficients (``egm2008.npz``) and thermoNET weights
-(``nrlmsise00_tn.npz``, ``jb08_tn.npz``).
+EGM2008 coefficients (``egm2008.npz``), thermoNET weights
+(``nrlmsise00_tn.npz``, ``jb08_tn.npz``) and ephemeris series tables
+(``vsop2013_p9.npz``, ``elp2000.npz``, ``iau2006.npz``).
 
 The JAX models read these through ``importlib.resources`` of
 ``heyoka_tpu.data``, which imports the JAX package; the port reads its

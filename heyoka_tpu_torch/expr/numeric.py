@@ -16,7 +16,9 @@ convergence would be a host sync per iteration on a CUDA tensor), so a
 lane's last bit no longer depends on its batch-mates.
 
 The port's compiled functions (``cfunc.tape_eval``) evaluate their tapes
-with the same rules.
+with the same rules.  A dense trig-series op (``trigseries%<key>``,
+``series.py``) resolves through its store: kernel S1 at order 0 on a CUDA
+tensor, its twin on a CPU one.
 """
 
 from __future__ import annotations
@@ -169,5 +171,13 @@ EVALUATE = {
 
 def evaluate(name: str, *args):
     """The value of op ``name`` on f64 tensors ``args`` (pow has its own
-    rule with the exponent, ``taylor.jet_kernels._pow0_plain``)."""
+    rule with the exponent, ``taylor.jet_kernels._pow0_plain``); a dense
+    series op (``trigseries%<key>``) goes to ``series_jet.series_value``."""
+    if name not in EVALUATE:
+        from .series import is_series
+
+        if is_series(name):
+            from ..taylor.series_jet import series_value
+
+            return series_value(name, args[0])
     return EVALUATE[name](*args[:EVAL_ARITY.get(name, len(args))])

@@ -1,4 +1,6 @@
-"""Model library of the port: the models of the slices ported so far."""
+"""Model library of the port: the models of the slices ported so far (the
+ephemeris models ``vsop2013``, ``elp2000`` and ``iau2006`` since ROADMAP
+A.14)."""
 
 from .nbody import (  # noqa: F401
     nbody,
@@ -41,3 +43,17 @@ from .sgp4 import (  # noqa: F401
 from .cart2geo import cart2geo, geo2cart  # noqa: F401
 from .time_conversions import delta_tt_tai, delta_tdb_tt  # noqa: F401
 from .thermonets import nrlmsise00_tn, jb08_tn  # noqa: F401
+from .iau2006 import iau2006  # noqa: F401
+from .elp2000 import (  # noqa: F401
+    elp2000_spherical,
+    elp2000_cartesian,
+    elp2000_cartesian_e2000,
+    elp2000_cartesian_fk5,
+    get_elp2000_mus,
+)
+from .vsop2013 import (  # noqa: F401
+    vsop2013_elliptic,
+    vsop2013_cartesian,
+    vsop2013_cartesian_icrf,
+    get_vsop2013_mus,
+)

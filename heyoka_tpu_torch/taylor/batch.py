@@ -37,7 +37,11 @@ driver, as the JAX package routes it (``compact_flat.py:458-475``,
 (``convert.JET_OPS``: trig, Kepler, relational ...) takes the phase jet at
 any width: order 0 in f64 torch, orders 1..K in kernel B4
 (``jet_phase.jet_phase``), and the per-step driver, since B1 has no
-order-0 rules for those ops.  The public getters return numpy arrays,
+order-0 rules for those ops.  A dense trig series (``expr/series.py``,
+the ephemeris models' ``series_op=True``) is such an op: kernel S1
+(``taylor/series_jet.py``) makes its column's orders 0..K before B4's
+launch, which copies them; its input must be affine in time, or the
+constructor raises ValueError.  The public getters return numpy arrays,
 like the JAX class's.
 """
 
@@ -243,7 +247,9 @@ class TaylorAdaptiveBatch:
         ``layout``, the block layout of kernels B1/B2 on this tape
         (``jet_kernels.layout_report``) or of kernel B3 on a huge one
         (``jet_rolled.layout_report``; the CPU names the one the card would
-        run), None on the B4 route."""
+        run), None on the B4 route, and, on a tape with dense trig series
+        only, ``series``, their jet (kernel S1 ``hy_series_jet_f64`` /
+        ``series_jet_plain``)."""
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
         if self._phase:
@@ -252,7 +258,7 @@ class TaylorAdaptiveBatch:
             jet_name = "hy_jet_rolled_f64" if cuda else "jet_rolled_plain"
         else:
             jet_name = "hy_jet_f64" if cuda else "jet_plain"
-        return dict(
+        rep = dict(
             device=str(self._device),
             jet=jet_name,
             propagate_engine=self._pu_engine,
@@ -263,6 +269,10 @@ class TaylorAdaptiveBatch:
             layout=None if self._phase else rolled_layout(self._jtape)
             if self._rolled else layout_report(self._jtape),
         )
+        if getattr(self._jtape, "n_ser", 0):
+            rep["series"] = "hy_series_jet_f64" if cuda \
+                else "series_jet_plain"
+        return rep
 
     def assert_engine(self, **expected):
         """Raise ``AssertionError`` unless :meth:`engine_report` matches

@@ -48,9 +48,11 @@ from ..dfloat import dd_add_d
 from .stepper import ceval_update, h_from_norms, horner_update, rho_factor
 
 #: launches of each kernel; a wrapper adds one where it launches its kernel
-#: (the last three are the kernels of the tools, ``heyoka_tpu_torch.tools``)
+#: (``conv_f32``, ``conv_dd`` and ``proto_phase`` are the kernels of the
+#: tools, ``heyoka_tpu_torch.tools``; ``series`` is kernel S1,
+#: ``taylor/series_jet.py``)
 LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0, "phase": 0,
-            "conv_f32": 0, "conv_dd": 0, "proto_phase": 0}
+            "conv_f32": 0, "conv_dd": 0, "proto_phase": 0, "series": 0}
 
 #: header of the packed int32 table the kernels read (csrc/taylor_jet.cu
 #: ``enum Hdr``): sizes, then offsets of the sub-tables in ``itab`` (and of

@@ -30,6 +30,13 @@ series (kepE q = e cos E; kepF w = h sin F + k cos F; kepDE w = s0 sin DE
 - c0 cos DE) live in a ``(K+1, n_syn, B)`` buffer, one row per Kepler
 column, filled for orders below ``lo`` first and then once per order, as
 the JAX kernel keeps ``hist[(gi, "synth")]``.
+
+Dense trig series (``expr/series.py``): :func:`order0` fills a series
+column's orders ``0..K`` when it reaches the column's level, through
+``series_jet.series_jet`` (kernel S1 on the card) at ``u0`` the input
+column's order 0 and ``u1`` its rate (``series_jet.AffineInput``), into a
+read-only ``(K+1, n_ser, B)`` buffer ``ser`` that it returns; the twin and
+kernel B4 copy order k of the column from it.
 """
 
 from __future__ import annotations
@@ -41,21 +48,23 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..convert import AUX_KEYS, PHASE_OPS
+from ..convert import AUX_KEYS, PHASE_OPS, SERIES, op_kind, series_names
 from ..expr.numeric import evaluate
 from .jet_kernels import (
     BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, SMEM_MAX, JetTape, _F64,
     _HDR, _HDR_LEN, _check, _device_of, _eval0, _eval_k, _norms, _ptr,
     _rows, _seed_plain, table_bytes,
 )
+from .series_jet import AffineInput, series_jet, tables_on
 
 #: header of the phase kernels' int32 table (csrc/taylor_common.cuh ``enum
 #: Hdr``): ``jet_kernels._HDR``, then the offsets of the level table (the
 #: first column of each level, then one past the last op column), the
 #: opcode of each op column, the op column of each synthetic row, the aux
-#: table (two slots per op column, -1 where unused) and the synthetic-row
-#: table (one per op column, -1 but for Kepler columns), and the numbers
-#: of synthetic rows and of levels
+#: table (two slots per op column, -1 where unused) and the side-row
+#: table (one per op column: a Kepler column's synthetic row, a series
+#: column's row of the series buffer, -1 elsewhere), and the numbers of
+#: synthetic rows and of levels
 _PHDR = _HDR + ("lvl", "cop", "syncol", "aux", "syn", "n_syn", "n_lv")
 assert len(_PHDR) == _HDR_LEN
 
@@ -67,34 +76,48 @@ _TWO_SQRTPI = 2.0 / _pymath.sqrt(_pymath.pi)
 
 class PhaseTape(JetTape):
     """A :class:`JetTape` over the whole rule set ``convert.PHASE_OPS``,
-    with the aux columns and the Kepler synthetic rows: the twin's groups
-    ``pgroups`` and kernel B4's packed tables (``itab``, ``dtab``, header
-    ``_PHDR``)."""
+    with the aux columns, the Kepler synthetic rows and the dense series:
+    the twin's groups ``pgroups``, kernel B4's packed tables (``itab``,
+    ``dtab``, header ``_PHDR``) and, per series row in column order,
+    ``series`` ``(column, AffineInput, SeriesTables)``.  Raises
+    ValueError where a series op's input is not affine in time."""
 
     RULES = PHASE_OPS
 
     def __init__(self, arrays: dict, device):
         super().__init__(arrays, device)
         aux, syn = arrays["aux"], self._syn_rows(arrays)
+        ser = np.asarray(arrays["ser"], np.int64)
         n_eq = self.n_eq
         self.n_syn = int(syn.max(initial=-1)) + 1
         self.lvl = level_table(arrays)
         self._shapes = {}  # (B, itemsize, device) -> block_shape's default
+        names = series_names(arrays)
+        self.series = [
+            (n_eq + int(o), AffineInput(arrays, n_eq + int(o), names),
+             tables_on(names[int(ser[o])], self.device))
+            for o in np.flatnonzero(ser >= 0)]
+        self.n_ser = len(self.series)
 
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
         # per group, in level order: (op name, first column, rows, operand
-        # columns, pow exponents, aux key -> columns, synthetic rows)
+        # columns, pow exponents, aux key -> columns, synthetic rows or,
+        # for a series, its rows of the series buffer)
         self.pgroups = []
         for name, s, m, cols, alpha in self.groups:
             o = slice(s - n_eq, s - n_eq + m)
+            side = syn if name in SYNTH else \
+                ser if op_kind(name) == SERIES else None
             self.pgroups.append((
                 name, s, m, cols, alpha,
                 {key: idx(aux[o, slot])
                  for slot, key in enumerate(AUX_KEYS.get(name, ()))},
-                (int(syn[o][0]), int(syn[o][0]) + m) if name in SYNTH
-                else None))
+                None if side is None else
+                (int(side[o][0]), int(side[o][0]) + m)))
+
+
 
     @staticmethod
     def _syn_rows(a):
@@ -111,12 +134,14 @@ class PhaseTape(JetTape):
 
     def _pack(self, a, norm):
         syn = self._syn_rows(a)
+        ser = np.asarray(a["ser"], np.int64)
         lvl = level_table(a)
         check_levels(a, lvl)
+        side = np.where(ser >= 0, ser, syn)
         return super()._pack(
             a, norm, {"lvl": lvl, "cop": op_codes(a),
                       "syncol": np.flatnonzero(syn >= 0),
-                      "aux": np.asarray(a["aux"]).reshape(-1), "syn": syn},
+                      "aux": np.asarray(a["aux"]).reshape(-1), "syn": side},
             {"n_syn": int(syn.max(initial=-1)) + 1, "n_lv": lvl.size - 1})
 
 
@@ -302,8 +327,19 @@ def _synth_j(name, j: int, hist):
 def order0(tape: PhaseTape, tc):
     """Order 0 of every group column, in level order, in place on the
     ``(K+1, W, B)`` buffer whose order-0 state and virtual columns are
-    set."""
+    set.  Returns the series buffer ``ser (K+1, n_ser, B)``, orders
+    ``0..K`` of every series column (None without series): each made when
+    its level is reached, by kernel S1 on the card."""
+    ser = tc.new_empty((tape.order + 1, tape.n_ser, tc.shape[2])) \
+        if tape.n_ser else None
     for name, s, m, cols, alpha, aux, srows in tape.pgroups:
+        if op_kind(name) == SERIES:
+            for r in range(srows[0], srows[1]):
+                _, aff, tab = tape.series[r]
+                ser[:, r] = series_jet(tab, tc[0, aff.in_col].contiguous(),
+                                       aff.u1(tc), tape.order)
+            tc[0, s:s + m] = ser[0, srows[0]:srows[1]]
+            continue
         hist = _hist(tc, None, s, m, cols, aux, srows)
         if name == "pow":  # the exponent per column, as kernel B2 has it
             v = _eval0(name, alpha, hist, 1)
@@ -311,22 +347,25 @@ def order0(tape: PhaseTape, tc):
             v = evaluate(name, *(hist(q, 0, 1)[0]
                                  for q in range(cols.shape[1])))
         tc[0, s:s + m] = v
+    return ser
 
 
 def _synth(tape: PhaseTape, tc, syn, j: int):
     for name, s, m, cols, alpha, aux, srows in tape.pgroups:
-        if srows is not None:
+        if name in SYNTH:
             syn[j, srows[0]:srows[1]] = _synth_j(
                 name, j, _hist(tc, syn, s, m, cols, aux, srows))
 
 
-def phase_plain(tape: PhaseTape, tc, lo: int):
+def phase_plain(tape: PhaseTape, tc, lo: int, ser=None):
     """Plain torch twin of kernel B4: orders ``lo..K`` of ``tc (K+1, W,
     B)`` in place, from its orders below ``lo``; returns ``tc``.  Each
     order: the state rows from the right-hand sides at ``k-1`` over ``k``,
-    then the groups in level order, then the synthetic rows."""
+    then the groups in level order (a series column's row copied from
+    ``ser``, :func:`order0`'s buffer), then the synthetic rows."""
     K, n_eq = tape.order, tape.n_eq
     _check_lo(lo, K)
+    _check_ser(tape, tc, ser)
     dev = tc.device
     syn = tc.new_empty((K + 1, tape.n_syn, tc.shape[2])) if tape.n_syn \
         else None
@@ -335,6 +374,9 @@ def phase_plain(tape: PhaseTape, tc, lo: int):
     for k in range(lo, K + 1):
         tc[k, :n_eq] = tc[k - 1].index_select(0, tape.rhs) / k
         for name, s, m, cols, alpha, aux, srows in tape.pgroups:
+            if op_kind(name) == SERIES:
+                tc[k, s:s + m] = ser[k, srows[0]:srows[1]]
+                continue
             tc[k, s:s + m] = _phase_k(
                 name, alpha, k, _hist(tc, syn, s, m, cols, aux, srows),
                 cols.shape[1], dev)
@@ -352,22 +394,39 @@ def _check_lo(lo, K):
         raise ValueError(f"lo must lie in 1..{K + 1}; got {lo}")
 
 
-def phase(tape: PhaseTape, tc, lo: int):
+def _check_ser(tape: PhaseTape, tc, ser):
+    """``ser`` must be :func:`order0`'s buffer on a tape with series, None
+    on one without."""
+    if not tape.n_ser:
+        if ser is not None:
+            raise ValueError("a series buffer for a tape without series")
+        return
+    if ser is None:
+        raise ValueError("the tape has dense series: pass order0's series "
+                         "buffer")
+    _check("ser", ser, (tape.order + 1, tape.n_ser, tc.shape[-1]),
+           tc.dtype, tc.device)
+
+
+def phase(tape: PhaseTape, tc, lo: int, ser=None):
     """Orders ``lo..K`` of ``tc (K+1, W, B)`` f64 in place; returns
     ``tc``.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor launches
     kernel B4 (``hy_phase_f64``) at the block shape of
-    :func:`block_shape`."""
+    :func:`block_shape`.  ``ser``: :func:`order0`'s series buffer, on a
+    tape with dense series."""
     if _device_of(tc, tape).type == "cpu":
-        return phase_plain(tape, tc, lo)
-    return _phase_cuda(tape, tc, lo)
+        return phase_plain(tape, tc, lo, ser)
+    return _phase_cuda(tape, tc, lo, ser=ser)
 
 
 def _phase_cuda(tape: PhaseTape, tc, lo: int, lanes=None, threads=None,
-                layout=None):
+                layout=None, ser=None):
     """Kernel B4 at a block shape of ``lanes`` x ``threads`` on ``layout``
     (default: :func:`block_shape`'s)."""
+    _check_ser(tape, tc, ser)
     return launch("hy_phase_f64", "phase", tape, tc, lo, _F64, lanes,
-                  threads, layout)
+                  threads, layout,
+                  series=(None if ser is None else _ptr(ser), tape.n_ser))
 
 
 def stage(tape: PhaseTape, tc, lo: int):
@@ -388,12 +447,14 @@ def stage(tape: PhaseTape, tc, lo: int):
 
 
 def launch(entry, counter, tape, tc, lo, dtype, lanes=None, threads=None,
-           layout=None):
+           layout=None, series=()):
     """One launch of kernel B4 or T2 (C entry ``entry``, counted in
     ``LAUNCHES[counter]``) on ``tc (K+1, W, B)`` of ``dtype``, in place;
     returns ``tc``.  No launch where there is no work (no lanes, or ``lo =
     K + 1``).  On the global layout the Kepler synthetic rows go to a
-    ``(K+1, n_syn, B)`` scratch buffer."""
+    ``(K+1, n_syn, B)`` scratch buffer.  ``series``: the arguments after
+    ``syn`` that kernel B4 takes (the series buffer and its rows), none
+    for T2."""
     sh, cfg, stream = _launch_args(tape, tc, lo, dtype, lanes, threads,
                                   layout)
     if sh is None:
@@ -404,7 +465,8 @@ def launch(entry, counter, tape, tc, lo, dtype, lanes=None, threads=None,
         syn = torch.empty((tape.order + 1, tape.n_syn, tc.shape[-1]),
                           dtype=dtype, device=tc.device)
     _run(entry, _ptr(tape.itab), _ptr(tape.dtab), _ptr(tc),
-         None if syn is None else _ptr(syn), *cfg, int(glob), stream)
+         None if syn is None else _ptr(syn), *series, *cfg, int(glob),
+         stream)
     LAUNCHES[counter] += 1
     return tc
 
@@ -579,12 +641,13 @@ def jet_phase(tape: PhaseTape, state, pars, t=None):
     CUDA tensor.  The jet is in place in the buffer, every op column
     written back by the kernel, so the sv-func rows (the event equations,
     the JAX kernel's ``sv_extra``) are gathered from it after the state
-    rows."""
+    rows.  On a tape with dense series, :func:`order0` launches kernel S1
+    once a series column."""
     dev = _device_of(state, tape)
     B = state.shape[1]
     _check("state", state, (tape.n_eq, B), _F64, dev)
     _check("pars", pars, (tape.n_pars, B), _F64, dev)
     tc = _seed_plain(tape, state, pars, t)
-    order0(tape, tc)
-    phase(tape, tc, 1)
+    ser = order0(tape, tc)
+    phase(tape, tc, 1, ser)
     return _rows(tape, tc), _norms(tape, tc)

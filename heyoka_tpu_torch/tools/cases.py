@@ -1,6 +1,7 @@
 """The phase route's test tapes and lanes, shared by ``chip_smoke.py``
-(phases 10-12), the tests and :mod:`.same_bits`, and the small cases of
-the batch integrator's three routes (the tests).
+(phases 10-12), the tests and :mod:`.same_bits`, the small cases of the
+batch integrator's three routes (the tests), BASELINE config 5's systems
+(phase 23) and the ephemeris tapes and random series (phase 24).
 
 The module imports numpy only and takes the package that builds the
 systems as an argument (this port, or the JAX package in the tests), so
@@ -220,3 +221,51 @@ REPORT3 = np.array([
     [720.0, 2567.56195068, -6112.50384522, 713.96397400,
      2.44024599, 0.09810869, -7.31995916],
 ])
+
+
+# -- the ephemeris tapes (ROADMAP A.14) -----------------------------------------
+
+def elp_sys(pkg, thresh=0.0, series_op=True):
+    """``benchmarks/vsop2013_cartesian.py``'s lunar ODE: ``x' = c_x 1e-10``
+    and likewise y and z, ``c`` the ELP2000 Moon position in the mean
+    ecliptic of J2000 (``elp2000_cartesian_e2000``), time in Julian
+    centuries; at ``thresh = 0`` with ``series_op`` the complete theory,
+    37,863 terms in 9 series ops."""
+    x, y, z = pkg.make_vars("x", "y", "z")
+    c = pkg.models.elp2000_cartesian_e2000(thresh=thresh,
+                                           series_op=series_op)
+    return [(x, c[0] * 1e-10), (y, c[1] * 1e-10), (z, c[2] * 1e-10)]
+
+
+def p9_sys(pkg, thresh=1e-9, series_op=True):
+    """The same benchmark's planet-9 system: ``x' = q``, ``y' = p``, the
+    VSOP2013 Pluto inclination variables (the series the data ships);
+    at ``thresh = 1e-9`` with ``series_op`` 15 series ops, 4,479 terms."""
+    x, y = pkg.make_vars("x", "y")
+    el = pkg.models.vsop2013_elliptic
+    return [(x, el(9, 5, thresh=thresh, series_op=series_op)),
+            (y, el(9, 6, thresh=thresh, series_op=series_op))]
+
+
+def series_times(B, seed=0, half=0.5):
+    """``B`` start times drawn from U(-half, half) (Julian centuries for
+    ELP2000, millennia for VSOP2013) with ``seed``."""
+    return np.random.default_rng(seed).uniform(-half, half, B)
+
+
+def random_series(rng, n, q, d):
+    """Tables of a random series (``tests/test_series_op.py``'s shape):
+    amplitudes ~1 with small higher coefficients, phases 0..6 with rates
+    0.5..3 and small higher coefficients; ``amp (n, q+1)``, ``ph (n,
+    d+1)``."""
+    amp = np.zeros((n, q + 1))
+    amp[:, 0] = rng.uniform(0.5, 2.0, n)
+    for j in range(1, q + 1):
+        amp[:, j] = rng.uniform(-0.1, 0.1, n) / 10 ** (j - 1)
+    ph = np.zeros((n, d + 1))
+    ph[:, 0] = rng.uniform(0.0, 6.0, n)
+    if d:
+        ph[:, 1] = rng.uniform(0.5, 3.0, n)
+    for j in range(2, d + 1):
+        ph[:, j] = rng.uniform(-0.2, 0.2, n) / 10 ** (j - 2)
+    return amp, ph

@@ -197,3 +197,34 @@ def rolled_traffic(tape) -> dict:
     before = (K + 1) * 4 * (4 * n_ops + tape.arrays["args"].size)
     return dict(table_bytes=int(tb), table_bytes_before=int(before),
                 coef_loads=int(cl))
+
+
+def series_flops_a_term(d: int, q: int, K: int) -> int:
+    """Operations of kernel S1 on one (lane, term) pair at orders 0..K
+    (sin and cos count one each): the Taylor shifts (``d(d+1)`` and
+    ``q(q+1)``), the powers of ``u1`` and the scaling (``max(d, q) - 1``,
+    ``d + q``), the weights ``j p_j`` (``d``), sin and cos (2), ``a_0 s_0``
+    (1), then per order m two weighted sums of ``min(m, d)`` products each
+    with their scale by ``1/m``, and the amplitude's sum of ``min(m, q) +
+    1`` products."""
+    total = d * (d + 1) + q * (q + 1) + max(max(d, q) - 1, 0) + 2 * d + q \
+        + 3
+    for m in range(1, K + 1):
+        md, mq = min(m, d), min(m, q)
+        total += 4 * md + 2 * mq + 1
+    return total
+
+
+def series_flops(n: int, d: int, q: int, K: int) -> int:
+    """Operations of one lane of kernel S1 at orders 0..K on a series of
+    ``n`` terms with phase degree ``d`` and amplitude degree ``q``: each
+    term's (:func:`series_flops_a_term`) and the adds of the terms' orders
+    into the lane's sums, ``(K+1)(n-1)``."""
+    return n * series_flops_a_term(d, q, K) + (K + 1) * max(n - 1, 0)
+
+
+def series_bytes(n: int, d: int, q: int, K: int, B: int) -> int:
+    """Bytes of one launch of kernel S1: the tables read once (``n (d + 1
+    + q + 1)`` doubles), ``u0`` and ``u1`` (``2B``) and the ``(K+1, B)``
+    output written once."""
+    return 8 * (n * (d + 1 + q + 1) + 2 * B + (K + 1) * B)

@@ -24,7 +24,9 @@ mascon-32's slice end to end (``taylor_adaptive_batch`` on the rolled
 route: 1,024 bound lanes over two orbits, its final states and times, and
 its lane-steps/s).  Then kernel B4 (``jet_phase.phase``) on every tape of
 ``cases.phase_cases`` at order 19 and 1,024 lanes, from lo = 1 and from
-lo = 9, and on 10,240 pendulum lanes; the pendulum slice end to end
+lo = 9, on 10,240 pendulum lanes, on the outer-Solar-System tape from
+lo = 9 at 10,240 lanes and on BASELINE config 5's drag tape at 1,024
+lanes; the pendulum slice end to end
 (``taylor_adaptive_batch`` on the phase route: 10,240 librating lanes over
 10 time units, its final states and times, and its lane-steps/s); and
 kernel T2 (``proto_phase.phase_f32``) on the outer-Solar-System tape from
@@ -278,6 +280,13 @@ def _phase(ht, out, dev):
         1, 0, 2).contiguous()
     out["t2_outer_ss_lo9"] = [pp.phase_f32(t2, tc.clone(), 9)]
     tc64 = tc.double()
+    out["b4_outer_ss_lo9"] = [jp.phase(t64, tc64.clone(), 9)]
+    # BASELINE config 5's drag tape (2,388 columns, the global layout)
+    drag = tape(cs.drag_sys(ht, 4))
+    Bd = 1024
+    tcd = _seeded(drag, cs.geopot_lanes(Bd, 4), cs.drag_pars(Bd, 5),
+                  np.random.default_rng(3).uniform(0.0, 86400.0, Bd), dev)
+    out["b4_config5_drag"] = [jp.phase(drag, tcd, 1)]
     timing["t2_outer_ss_lo9_ms"] = _graph_ms(lambda: pp.phase_f32(t2, tc, 9))
     timing["b4_outer_ss_lo9_ms"] = _graph_ms(lambda: jp.phase(t64, tc64, 9))
     res = _pendulum_slice(ht, cs, out)

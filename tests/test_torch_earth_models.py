@@ -200,8 +200,10 @@ def test_egm2008_getters_are_jax_s():
     assert m.get_egm2008_a() == hy.models.get_egm2008_a()
     np.testing.assert_array_equal(m.get_egm2008_CS(),
                                   hy.models.get_egm2008_CS())
+    # a file the port does not ship (vsop2013_p9.npz ships since the
+    # series slice)
     with pytest.raises(FileNotFoundError):
-        data_path("vsop2013_p9.npz")
+        data_path("no_such_table.npz")
 
 
 # -- tests/test_sh_gravity.py's oracles on the port ---------------------------

@@ -235,3 +235,40 @@ def test_port_runs_without_jax():
                        text=True, env=env, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_port_runs_the_ephemeris_models_without_jax():
+    # the same with the series slice: the ELP2000 series tape propagated
+    # on the CPU (kernel S1's and B4's twins) and iau2006 through a cfunc,
+    # JAX and the JAX package hidden; the new modules load lazily, which
+    # the 3-body case above never reaches
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["heyoka_tpu"] = None
+        import numpy as np
+        import heyoka_tpu_torch as ht
+        from heyoka_tpu_torch.models import elp2000_cartesian_e2000, iau2006
+        x, y, z = ht.make_vars("x", "y", "z")
+        c = elp2000_cartesian_e2000(thresh=1e-4, series_op=True)
+        ta = ht.taylor_adaptive_batch(
+            [(x, c[0] * 1e-10), (y, c[1] * 1e-10), (z, c[2] * 1e-10)],
+            np.zeros((2, 3)), time=np.array([-0.2, 0.3]), tol=1e-15,
+            device="cpu")
+        assert ta.engine_report()["series"] == "series_jet_plain"
+        oc, mn, mx, ns = ta.propagate_for(0.001)
+        assert all(o == ht.TaylorOutcome.time_limit for o in oc), oc
+        assert np.isfinite(ta.state).all() and (ns > 0).all()
+        cf = ht.make_cfunc(iau2006(thresh=1e-4), vars=[], device="cpu")
+        v = cf(np.zeros((3, 0)), time=np.array([-1.0, 0.0, 1.0]))
+        assert v.shape == (3, 3) and bool(v.isfinite().all())
+        mods = {m.split(".")[0] for m in sys.modules
+                if sys.modules[m] is not None}
+        assert "jax" not in mods and "heyoka_tpu" not in mods
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"

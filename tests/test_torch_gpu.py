@@ -1100,3 +1100,114 @@ def test_sgp4_on_cuda_matches_cpu(cuda, order):
     assert bool((err <= 1e-12 * scale).all())
     with pytest.raises(ValueError, match="lies on cpu"):
         pg(torch.as_tensor(tm))
+
+
+# -- the dense trig series (kernel S1) and B4's series rows ------------------
+
+def _series_tables(q, d, n, seed, dev):
+    from heyoka_tpu_torch.expr import series
+    from heyoka_tpu_torch.taylor import series_jet as sj
+    amp, ph = c5.random_series(np.random.default_rng(seed), n, q, d)
+    ph[:, 1] *= 2000.0  # phases of thousands of radians, as ELP2000's
+    return sj.tables_on(series.add(amp, ph), dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,d", [(0, 1), (0, 4), (2, 4), (1, 2), (3, 7)])
+def test_series_kernel_matches_plain(cuda, q, d):
+    # kernel S1 against its twin per order, within 1e-13 of the order's
+    # sum of absolute terms: the shifts round alike, the recurrence uses
+    # fma in the kernel and the sums over terms run in other orders; two
+    # runs of the kernel give the same bits (no atomics)
+    from heyoka_tpu_torch.taylor import series_jet as sj
+    B, K = 203, 19
+    tab = _series_tables(q, d, 3001, 10 * q + d, cuda)
+    rng = np.random.default_rng(q + d)
+    u0 = torch.as_tensor(rng.uniform(-0.5, 0.5, B), device=cuda)
+    u1 = torch.as_tensor(rng.uniform(0.5, 1.5, B), device=cuda)
+    n0 = jk.LAUNCHES["series"]
+    got = sj.series_jet(tab, u0, u1, K)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["series"] == n0 + 1
+    want, scale = sj.series_jet_plain(tab, u0, u1, K, with_scale=True)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
+    assert torch.equal(sj.series_jet(tab, u0, u1, K), got)
+
+
+@pytest.mark.gpu
+def test_series_kernel_value_and_refusals(cuda):
+    # order 0 at many points (the cfunc's rule) against the twin, and the
+    # inputs S1 refuses
+    from heyoka_tpu_torch.taylor import series_jet as sj
+    tab = _series_tables(0, 4, 500, 3, cuda)
+    u = torch.linspace(-0.5, 0.5, 70_001, dtype=torch.float64, device=cuda)
+    got = sj.series_value(tab.name, u)
+    want, scale = sj.series_jet_plain(tab, u, torch.zeros_like(u), 0,
+                                      with_scale=True)
+    want, scale = want[0], scale[0]
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
+    with pytest.raises(ValueError):
+        sj.series_jet(tab, u.float(), u.float(), 3)
+    with pytest.raises(ValueError):
+        sj.series_jet(tab, u.cpu(), u.cpu(), 3)
+    big = _series_tables(8, 4, 20, 4, cuda)
+    with pytest.raises(ValueError, match="coefficients"):
+        sj.series_jet(big, u, u, 3)
+
+
+@pytest.mark.gpu
+def test_phase_kernel_series_rows_on_both_layouts(cuda):
+    # the ELP2000 tape at order 19: order0 fills the series buffer through
+    # S1; B4 copies the series columns' rows from it bit for bit on both
+    # layouts and every block shape, and the rest agrees with the twin
+    # (1e-13 relative per order) fed the same buffer
+    B, K = 77, 19
+    arrays = ht.plan_to_arrays(build_plan(taylor_decompose_sys(
+        c5.elp_sys(ht, 1e-4)), K))
+    tape = jp.PhaseTape(arrays, cuda)
+    t = c5.series_times(B, 5)
+    tc0 = seeded_buffer(tape, np.zeros((B, 3)), np.zeros((B, 0)), t, cuda)
+    n0 = jk.LAUNCHES["series"]
+    ser = jp.order0(tape, tc0)
+    assert jk.LAUNCHES["series"] == n0 + tape.n_ser
+    cols = [c for c, _, _ in tape.series]
+    want = jp.phase_plain(tape, tc0.clone(), 1, ser)
+    assert torch.equal(want[:, cols], ser)
+    shapes = jp.sweep_shapes(tape, 8, lanes=(1, 3, 32))
+    assert {lay for lay, _, _ in shapes} == {"smem", "global"}
+    for lay, L, nt in shapes:
+        got = jp._phase_cuda(tape, tc0.clone(), 1, L, nt, lay, ser=ser)
+        assert torch.equal(got[:, cols], ser), (lay, L, nt)
+        rel = _per_order_rel(got.permute(1, 0, 2), want.permute(1, 0, 2))
+        assert float(rel.max()) <= 1e-13, (lay, L, nt)
+    with pytest.raises(ValueError, match="series buffer"):
+        jp.phase(tape, tc0.clone(), 1)
+
+
+@pytest.mark.gpu
+def test_series_batch_on_cuda_matches_cpu(cuda):
+    # the ELP2000 and planet-9 tapes through S1 and B4 against the twins:
+    # every lane lands with time_limit, states within 1e-12 relative
+    for sys_, t_end, half in ((c5.elp_sys(ht, 1e-5), 0.002, 0.5),
+                              (c5.p9_sys(ht, 1e-7), 0.05, 0.5)):
+        t0 = c5.series_times(6, 1, half)
+        kw = dict(tol=1e-15, time=t0)
+        n0 = dict(jk.LAUNCHES)
+        tg = ht.taylor_adaptive_batch(sys_, np.zeros((6, len(sys_))),
+                                      device=cuda, **kw)
+        assert tg.engine_report()["series"] == "hy_series_jet_f64"
+        rg = tg.propagate_for(t_end)
+        assert jk.LAUNCHES["series"] > n0["series"]
+        assert jk.LAUNCHES["phase"] > n0["phase"]
+        assert jk.LAUNCHES["jet"] == n0["jet"]
+        tc_ = ht.taylor_adaptive_batch(sys_, np.zeros((6, len(sys_))),
+                                       device="cpu", **kw)
+        rc = tc_.propagate_for(t_end)
+        assert all(o == ht.TaylorOutcome.time_limit for o in rg[0])
+        np.testing.assert_array_equal(tg.time, t0 + t_end)
+        scale = np.abs(tc_.state).max()
+        np.testing.assert_allclose(tg.state, tc_.state, rtol=0,
+                                   atol=1e-12 * scale)
+        # the step counts agree but for a sub-ulp landing step
+        assert int(np.abs(np.asarray(rg[3]) - np.asarray(rc[3])).max()) <= 1

@@ -20,7 +20,7 @@ import heyoka_tpu as hy
 import heyoka_tpu_torch as ht
 import heyoka_tpu_torch.models as htm
 
-A14, A15, A22 = "A.14 series", "A.15 numeric rest", "A.22 native"
+A15, A22 = "A.15 numeric rest", "A.22 native"
 
 #: top-level names of ``heyoka_tpu`` the port does not have yet
 NOT_PORTED = {
@@ -29,6 +29,7 @@ NOT_PORTED = {
     "native": A22,
 }
 
+#: the series slice's model names (ROADMAP A.14, ported)
 _A14_MODELS = (
     "vsop2013 vsop2013_cartesian vsop2013_cartesian_icrf vsop2013_elliptic "
     "get_vsop2013_mus elp2000 elp2000_cartesian elp2000_cartesian_e2000 "
@@ -43,7 +44,6 @@ _A15_MODELS = (
 
 #: names of ``heyoka_tpu.models`` the port does not have yet
 MODELS_NOT_PORTED = {
-    **{n: A14 for n in _A14_MODELS.split()},
     **{n: A15 for n in _A15_MODELS.split()},
 }
 
@@ -144,3 +144,14 @@ def test_the_earth_orbit_slice():
         assert hasattr(ht, n) and n not in NOT_PORTED
     assert hasattr(ht.utils, "parse_tle_file")
     assert hasattr(ht.utils, "jd_utc_to_tai")
+
+
+def test_the_series_slice():
+    # the ephemeris models of ROADMAP A.14 and the series op behind them
+    for n in _A14_MODELS.split():
+        assert hasattr(ht.models, n) and n not in MODELS_NOT_PORTED
+    assert callable(ht.models.iau2006)
+    for mod in (ht.models.vsop2013, ht.models.elp2000):
+        assert mod.__name__.startswith("heyoka_tpu_torch.models.")
+    from heyoka_tpu_torch.expr import series
+    assert callable(series.trig_series) and callable(series.affine_in_time)

@@ -404,3 +404,26 @@ def test_roofline_counts():
 ])
 def test_order_k_counts(op, k, count):
     assert rl._ORDER_K[op](k, 1) == count
+
+
+# -- kernel S1's bound (tools/roofline.py) -------------------------------------
+
+@pytest.mark.parametrize("d, q, per_term", [
+    # shifts d(d+1) + q(q+1), u1 powers max(d, q) - 1, scaling d + q,
+    # weights j p_j d, sin and cos 2, a_0 s_0 1; then per order m = 1..19
+    # 4 min(m, d) (two weighted sums and their 1/m) + 2 min(m, q) + 1
+    (1, 0, (2 + 0 + 0 + 1 + 0 + 1 + 3) + (4 * 19 + 0 + 19)),          # 102
+    (4, 0, (20 + 0 + 3 + 4 + 0 + 4 + 3)
+     + (4 * (1 + 2 + 3 + 4 * 16) + 0 + 19)),                          # 333
+    (1, 2, (2 + 6 + 1 + 1 + 2 + 1 + 3) + (4 * 19 + 2 * (1 + 2 * 18) + 19)),
+    (4, 2, (20 + 6 + 3 + 4 + 2 + 4 + 3)
+     + (4 * (1 + 2 + 3 + 4 * 16) + 2 * (1 + 2 * 18) + 19)),           # 415
+])
+def test_series_counts_match_a_hand_count(d, q, per_term):
+    K, n, B = 19, 1000, 256
+    assert rl.series_flops_a_term(d, q, K) == per_term
+    # the adds of the terms into the lane's K+1 sums
+    assert rl.series_flops(n, d, q, K) == n * per_term + 20 * (n - 1)
+    # the tables once, u0 and u1, the (K+1, B) output
+    assert rl.series_bytes(n, d, q, K, B) == 8 * (n * (d + q + 2) + 2 * B
+                                                  + 20 * B)
