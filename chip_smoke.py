@@ -255,6 +255,28 @@ if anything is missing or any check fails.  Phases, one line each:
     position within 1e-12 relative, on 1,024 of the points), the
     published ELP2000 vectors (thresh 1e-5, 0.05 km) and Pluto's
     inclination and node through the card.
+25. the Earth-orientation slice (ROADMAP A.15, data part;
+    ``heyoka_tpu_torch/tools/cases.py`` ``eo_sys``, ``eo_lanes``): (a)
+    every quantity of the builtin EOP and SW tables (value and slope,
+    ``eop_sw.interp0``) and ``dayfrac`` at 2^20 epochs uniform over each
+    table's range and 1% beyond it (numpy rng 0) on the card against the
+    same calls on the CPU: 1e-15 relative (1e-15 absolute for the angles),
+    NaN in the same places, and their evaluations/s; (b) the full
+    ``eo_dynamics(max_geo_degree=10, max_geo_order=10, Cb=par[0])``
+    (IAU2006 at 1e-4, thermoNET drag, the builtin tables; 5,147 ops) on
+    10,240 lanes (``geopot_lanes``, ``Cb`` uniform in 0.005-0.02 m^2/kg)
+    from 2015-06-10 00:00 UTC over 5,600 s at tol 1e-15 on kernel B4:
+    only B4 launched, every lane ``time_limit`` and finite, 2 lanes
+    against the CPU over the first 600 s (1e-10); 1,024 of the lanes over
+    a day beside phase 23 (c)'s rate on the same lanes, each ending below
+    the Keplerian energy of its ``Cb = 0`` twin; B4 against its twin on
+    the tape at 1,024 lanes (every order and the norms 1e-12), its time a
+    launch (CUDA graph) at 1,024 and 10,240 lanes and its bound; the
+    idle share and the torch kernels a step spends on order 0 (profiler,
+    a tenth of the run); W, levels, layout, build times, the buffer's
+    bytes; (c) ``tests/test_eop_sw.py``'s ``pm_x`` ODE through
+    ``taylor_adaptive`` on the card against its trapezoid integral
+    (1e-7).
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
@@ -264,11 +286,13 @@ call computes the same function, that call's time; for B1-B4 also
 and 23's paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
 rows, ``var_tape``, phase 22's time on its variational tape, and
 ``config5_tape``, phase 23's on its config-5 tape; S1's line is phase
-24's, B4's gains ``series_tapes``); the last line is
+24's, B4's gains ``series_tapes`` and ``eo_tape``, phase 25's time on
+the ``eo_dynamics`` tape); the last line is
 ``{"ok": true, "device": {...}}``.  Each phase's
 line carries ``t_s``, the seconds since the script started.
 """
 
+import importlib
 import json
 import pickle
 import re
@@ -280,6 +304,7 @@ import torch
 
 import heyoka_tpu_torch as ht
 from heyoka_tpu_torch import _build
+from heyoka_tpu_torch import eop_sw as PE
 from heyoka_tpu_torch.models import nbody
 from heyoka_tpu_torch.taylor import jet_kernels as jk
 from heyoka_tpu_torch.taylor import jet_phase as jp
@@ -294,9 +319,10 @@ from heyoka_tpu_torch.tools import (
 )
 from heyoka_tpu_torch.tools import roofline as rl
 from heyoka_tpu_torch.tools.cases import (
-    GEOPOT_IC, REPORT3, SGP4_TLE, drag_pars, drag_sys, elp_sys,
-    geopot_energy, geopot_lanes, geopot_sys, p9_sys, pendulum_lanes,
-    phase_cases, phase_lanes, series_times, sgp4_population,
+    GEOPOT_IC, REPORT3, SGP4_TLE, drag_pars, drag_sys, elp_sys, eo_epoch,
+    eo_lanes, eo_sys, geopot_energy, geopot_lanes, geopot_sys, p9_sys,
+    pendulum_lanes, phase_cases, phase_lanes, series_times,
+    sgp4_population,
 )
 
 TOL = 1e-15
@@ -757,6 +783,14 @@ def main():
     s1_row["path_launches"] = {p: n["series"] for p, n in ser_launch.items()
                                if n["series"]}
 
+    # phase 25: the Earth-orientation slice; B4's launches and time on the
+    # eo_dynamics tape
+    b4_eo, eo_launch = eo_paths(dev, smi, order)
+    phased[2]["path_launches"].update(
+        {p: n["phase"] for p, n in eo_launch.items() if n["phase"]})
+    phased[2]["eo_tape"] = b4_eo
+    phased = (phased[0], max(phased[1], b4_eo["max_abs_err"]), phased[2])
+
     rows = [("hy_series_jet_f64", ser_launch["elp2000_complete"]["series"],
              s1_err, s1_row),
             ("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
@@ -1176,8 +1210,10 @@ def phase_tapes(dev, order, smi):
         res[name] = dict(W=tape.width, shape=jp.layout_report(tape, PHASE_B),
                          shapes_equal=len(shapes), **r)
     # the series opcode's rows come from kernel S1's buffer: phase 24 (b)
-    # holds B4 with them against its twin
-    missing = sorted(set(ht.PHASE_OPS) - ops - {"trigseries"})
+    # holds B4 with them against its twin; the data-driven ops read
+    # tables and side rows: phase 25 (b) holds B4 with them
+    missing = sorted(set(ht.PHASE_OPS) - ops - {
+        "trigseries", "interp", "interp_p", "dayfrac"})
     check(not missing, f"phase 10 ran no tape with {missing}")
     say(10, B=PHASE_B, order=order, lo=[1, PHASE_LO], tol=JET_RTOL,
         opcodes=sorted(ops, key=ht.OPCODES.index), max_rel_per_order=max(
@@ -3316,12 +3352,18 @@ def profiled(make, t_end, kernel, run=None):
     dev_ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e6
-    kern = sum(e.time_range.elapsed_us() for e in dev_ev
-               if kernel in e.name) / 1e6
+    kern_ev = [e for e in dev_ev if kernel in e.name]
+    kern = sum(e.time_range.elapsed_us() for e in kern_ev) / 1e6
     return dict(t_end=t_end, wall_s=wall, device_events=len(dev_ev),
+                kernel_events=len(kern_ev),
                 device_busy_s=busy if dev_ev else None,
                 device_idle_share=1.0 - busy / wall if dev_ev else None,
                 kernel_share_of_busy=kern / busy if dev_ev else None)
+
+
+#: lane-steps/s of the paths a later phase compares with (phase 23 (c)'s
+#: drag ODE beside phase 25's full model)
+RATES = {}
 
 
 def only(launches, *keys):
@@ -3536,6 +3578,7 @@ def drag_ode(dev, smi, order):
         sys_, ics, pars=pars, device=dev, **kw), C5_PROFILE_T,
         "phase_kernel")
     steps = int(first.sum() + nsteps.sum())
+    RATES["config5_drag"] = steps / wall
     line = dict(B=C5_B_SMALL, t_end=C5_T, W=tape.width, n_eq=tape.n_eq,
                 n_ops=len(ta.decomposition.ops), n_pars=tape.n_pars,
                 wall_s=wall, lane_steps=steps, steps_per_s=steps / wall,
@@ -3939,6 +3982,264 @@ def series_paths(dev, smi, order):
     say("24c", **line_c)
     say("24d", **series_cfuncs(dev, smi))
     return s1_row, s1_err, b4, paths
+
+
+# -- phase 25: the Earth-orientation slice -------------------------------------
+
+EO_B = C5_B  # the full model's lanes
+EO_B_DAY = C5_B_SMALL  # its lanes over a day, beside phase 23 (c)
+EO_T = C5_REF_T  # about one orbit
+EO_DAY = C5_T
+EO_REF_T = 600.0  # the CPU reference's span
+EO_REF_LANES = 2
+EO_WARM_T = 60.0
+EO_PROFILE_T = EO_T / 10
+EOP_N = 2 ** 20
+EOP_RTOL = 1e-15
+DAYFRAC_ATOL = 1e-12  # days
+PMX_RTOL = 1e-7  # tests/test_eop_sw.py:119-141
+EARTH_MU = 3986004.415e8 / 1e9  # km^3/s^2, EGM2008's
+
+
+def eop_ops(dev, smi):
+    """Phase 25 (a): every quantity of the builtin EOP and SW tables
+    (value and slope) and ``dayfrac`` at ``EOP_N`` epochs on the card
+    against the CPU."""
+    dayfrac_mod = importlib.import_module("heyoka_tpu_torch.models.dayfrac")
+    rng = np.random.default_rng(0)
+    out, worst, n_nan = {}, 0.0, 0
+    calls = []
+    for data in (ht.EOPData(), ht.SWData()):
+        arrs = PE._prepare(data)
+        lo, hi = arrs["date"][0], arrs["date"][-1]
+        pad = 0.01 * (hi - lo)
+        u = rng.uniform(lo - pad, hi + pad, EOP_N)
+        ug = torch.as_tensor(u, device=dev)
+        for qty in (q for q in arrs if q != "date"):
+            name = PE._op_name(data.data_key, qty, False)
+            vg, sg = PE.interp0(name, ug)
+            vc, sc = PE.interp0(name, torch.as_tensor(u))
+            ang = arrs[qty]["angular"]
+            errs = []
+            for g, c, a in ((vg, vc, ang), (sg, sc, False)):
+                g = g.cpu()
+                nan = torch.isnan(c)
+                check(torch.equal(torch.isnan(g), nan),
+                      f"phase 25 (a) {qty}: NaN in other places")
+                d = (g - c).abs()[~nan]
+                lim = EOP_RTOL if a else EOP_RTOL * c.abs()[~nan]
+                check(bool((d <= lim).all()),
+                      f"phase 25 (a) {qty}: {float((d / lim).max())}")
+                errs.append(float((d / (1.0 if a else c.abs()[~nan]
+                                        .clamp_min(1e-300))).max()))
+                n_nan += int(nan.sum())
+            worst = max(worst, *errs)
+            out[qty] = dict(value_err=errs[0], slope_err=errs[1],
+                            angular=ang)
+            calls.append(lambda n=name, x=ug: PE.interp0(n, x))
+    days = rng.uniform(-9700, 10400, EOP_N)  # 1973-2028 in TT days
+    dg = dayfrac_mod.ev_dayfrac(torch.as_tensor(days, device=dev)).cpu()
+    dc = dayfrac_mod.ev_dayfrac(torch.as_tensor(days))
+    dfe = float((dg - dc).abs().max())
+    check(dfe <= DAYFRAC_ATOL, f"phase 25 (a) dayfrac: {dfe} days")
+    dd = torch.as_tensor(days, device=dev)
+    calls.append(lambda: dayfrac_mod.ev_dayfrac(dd))
+
+    def every():
+        for c in calls:
+            c()
+    ms = cuda_ms(every, 3)
+    # an interpolant's call gives its value and its slope
+    return dict(n=EOP_N, quantities=out, max_err=worst, nan_values=n_nan,
+                dayfrac_max_abs_days=dfe, ms_all=ms, calls=len(calls),
+                epochs_per_s=len(calls) * EOP_N / (ms / 1e3),
+                nvidia_smi=smi)
+
+
+def kepler_energy(st):
+    """The Keplerian specific energy ``0.5 |v|^2 - mu / |r|`` per lane."""
+    st = np.asarray(st)
+    return 0.5 * (st[:, 3:] ** 2).sum(1) - EARTH_MU / np.linalg.norm(
+        st[:, :3], axis=1)
+
+
+def eo_full(dev, smi, order):
+    """Phase 25 (b): the full ``eo_dynamics`` at degree 10 with drag on
+    ``EO_B`` lanes over ``EO_T`` and ``EO_B_DAY`` of them over a day (and
+    their ``Cb = 0`` twins), B4 against its twin on the tape and its
+    times, the profile."""
+    torch.cuda.empty_cache()
+    w0 = time.perf_counter()
+    sys_ = eo_sys(ht, 10, True)
+    build_s = time.perf_counter() - w0
+    st, pars, t0 = eo_lanes(ht, EO_B)
+    epoch = eo_epoch(ht)
+    kw = dict(tol=TOL, high_accuracy=True)
+    w0 = time.perf_counter()
+    ta = ht.taylor_adaptive_batch(sys_, st, pars=pars, time=t0, device=dev,
+                                  **kw)
+    construct_s = time.perf_counter() - w0
+    ta.assert_engine(jet="hy_phase_f64", propagate_engine="flat")
+    tape = ta._jtape
+    W, K = tape.width, tape.order
+    buf = 8 * (K + 1) * W * EO_B
+    free, total = torch.cuda.mem_get_info(dev)
+    check(2 * buf < free, f"phase 25 (b): B4's buffer {buf} B, {free} free")
+
+    def lanes(n, zero_cb=False):
+        return ht.TaylorAdaptiveBatch._sharing(
+            ta, st[:n], pars=0.0 * pars[:n] if zero_cb else pars[:n],
+            time=t0[:n])
+
+    lanes(64).propagate_until(epoch + EO_WARM_T)
+    torch.cuda.synchronize()
+    zero_launches()
+    w0 = time.perf_counter()
+    first = ta.propagate_until(epoch + EO_REF_T)[3]
+    st_ref = ta.state[:EO_REF_LANES]
+    oc, _, _, nsteps = ta.propagate_until(epoch + EO_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "phase"), f"phase 25 (b): kernels {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == epoch + EO_T).all()),
+          "phase 25 (b): a lane did not land with time_limit")
+    check(bool(np.isfinite(ta.state).all()), "phase 25 (b): bad state")
+    steps = int(first.sum() + nsteps.sum())
+    ref = ht.TaylorAdaptiveBatch._sharing(
+        ta, st[:EO_REF_LANES], pars=pars[:EO_REF_LANES],
+        time=t0[:EO_REF_LANES], device="cpu")
+    ref.propagate_until(epoch + EO_REF_T)
+    ref_rel = rel_max(st_ref, ref.state)
+    check(ref_rel <= REF_RTOL, f"phase 25 (b) vs the CPU run: {ref_rel}")
+    prof = profiled(lambda: lanes(EO_B), epoch + EO_PROFILE_T,
+                    "phase_kernel")
+    # B4 launches once a step: the other device kernels of the window
+    # are the driver's and order 0's
+    prof["other_kernels_a_step"] = (
+        (prof["device_events"] - prof["kernel_events"])
+        / max(prof["kernel_events"], 1))
+    del ref
+
+    # 1,024 lanes over a day, and their Cb = 0 twins
+    zero_launches()
+    day, dres, dwall = timed_call(lambda: lanes(EO_B_DAY),
+                                  lambda t: t.propagate_until(epoch + EO_DAY))
+    day_launches = dict(jk.LAUNCHES)
+    check(only(day_launches, "phase"), f"phase 25 (b) day: {day_launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in dres[0]),
+          "phase 25 (b) day: a lane did not end with time_limit")
+    free_run = lanes(EO_B_DAY, zero_cb=True)
+    free_run.propagate_until(epoch + EO_DAY)
+    de = kepler_energy(day.state) - kepler_energy(free_run.state)
+    check(bool(np.isfinite(de).all() and (de < 0).all()),
+          f"phase 25 (b): a lane's energy is not below its Cb = 0 twin's "
+          f"(max difference {float(np.max(de))})")
+    day_steps = int(np.asarray(dres[3]).sum())
+    del day, free_run
+
+    # B4 against its twin on the tape at 1,024 lanes, its times
+    tc0 = seeded_buffer(tape, st[:EO_B_DAY], pars[:EO_B_DAY],
+                        t0[:EO_B_DAY], dev)
+    side = jp.order0(tape, tc0)
+    tck = jp.phase(tape, tc0.clone(), 1, side)
+    tcp = jp.phase_plain(tape, tc0.clone(), 1, side)
+    rel = float(per_order_rel(tck.permute(1, 0, 2),
+                              tcp.permute(1, 0, 2)).max())
+    nk, npl = jk._norms(tape, tck), jk._norms(tape, tcp)
+    nrel = float(((nk - npl).abs().amax(1) / npl.abs().amax(1)).max())
+    check(rel <= C5_JET_RTOL and nrel <= C5_JET_RTOL,
+          f"B4 vs phase_plain on eo_dynamics: {rel}, norms {nrel}")
+    err = float((tck - tcp).abs().max())
+    a, b = tc0.clone(), tc0.clone()
+    t = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(graph_ms(lambda: jp.phase(tape, a, 1, side), 5)
+                        if which == "kernel" else
+                        cuda_ms(lambda: jp.phase_plain(tape, b, 1, side), 1))
+
+    def bound(n):
+        return rl.bound(rl.phase_flops(tape.arrays, 1) * n,
+                        rl.phase_bytes(tape.arrays, n, 1, 8)
+                        + rl.nbytes(tape.itab, tape.dtab), torch.float64)
+    bnd = bound(EO_B_DAY)
+    kern = dict(timed(t["kernel"], t["plain"], bnd), ms_runs=t["kernel"],
+                plain_ms_runs=t["plain"], max_rel_per_order=rel,
+                norms_max_rel=nrel, max_abs_err=err, lanes=EO_B_DAY,
+                shape=jp.layout_report(tape, EO_B_DAY))
+    del tc0, tck, tcp, a, b
+    big = seeded_buffer(tape, st, pars, t0, dev)
+    bside = jp.order0(tape, big)
+    bnd_big = bound(EO_B)
+    big_ms = graph_ms(lambda: jp.phase(tape, big, 1, bside), 2)
+    kern["b10240"] = dict(ms=big_ms, bound_ms=bnd_big["bound_ms"],
+                          bound_by=bnd_big["bound_by"],
+                          x_bound=big_ms / bnd_big["bound_ms"],
+                          shape=jp.layout_report(tape, EO_B))
+    del big, bside
+    line = dict(
+        B=EO_B, t_span=EO_T, order=K, W=W,
+        n_ops=int(tape.arrays["arg_ptr"].size - 1),
+        levels=int(tape.lvl.size - 1), groups=len(tape.pgroups),
+        n_slope_rows=tape.n_slope, buffer_bytes=buf, free_bytes=free,
+        build_s=build_s, construct_s=construct_s, wall_s=wall,
+        lane_steps=steps, mean_steps_per_lane=steps / EO_B,
+        lane_steps_per_s=steps / wall, launches=launches,
+        cpu_ref=dict(lanes=EO_REF_LANES, t=EO_REF_T, max_rel=ref_rel),
+        day=dict(B=EO_B_DAY, t_span=EO_DAY, wall_s=dwall,
+                 lane_steps=day_steps, lane_steps_per_s=day_steps / dwall,
+                 mean_steps_per_lane=day_steps / EO_B_DAY,
+                 energy_below_cb0=dict(min=float(de.min()),
+                                       max=float(de.max())),
+                 config5_drag_lane_steps_per_s=RATES.get("config5_drag")),
+        b4=kern, bound=bnd, profile=prof, nvidia_smi=smi)
+    kern_row = dict(ms=kern["ms"], plain_ms=kern["plain_ms"],
+                    bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                    max_abs_err=err, lanes=EO_B_DAY,
+                    ms_b10240=big_ms, bound_ms_b10240=bnd_big["bound_ms"],
+                    tape="eo_dynamics degree 10 + thermoNET drag")
+    return line, {"eo_dynamics_b10240": launches,
+                  "eo_dynamics_day_b1024": day_launches}, kern_row
+
+
+def pm_x_ode(dev, smi):
+    """Phase 25 (c): ``tests/test_eop_sw.py``'s ``pm_x`` ODE (two days
+    from 2020-01-01, steps capped at 0.02 days) on the card, against the
+    trapezoid integral of the interpolant."""
+    x = ht.make_vars("x")
+    t1, t2 = ht.utils.jd_utc_to_tt(ht.utils.cal_to_jd(2020, 1, 1), 0.0)
+    t0 = float(((t1 - 2451545.0) + t2) / 36525.0)
+    ta = ht.taylor_adaptive([(x, ht.models.pm_x() * 1e6)], [0.0], time=t0,
+                            tol=1e-12, device=dev)
+    zero_launches()
+    ta.propagate_until(t0 + 2.0 / 36525.0, max_delta_t=0.02 / 36525.0)
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "phase"), f"phase 25 (c): kernels {launches}")
+    eop = ht.EOPData()
+    mjd0 = ht.utils.cal_to_jd(2020, 1, 1) - 2400000.5
+    i = int(np.searchsorted(eop.table[:, 0], mjd0))
+    dates = PE._date_tt_cy(eop.table[i:i + 3, 0])
+    vals = eop.table[i:i + 3, 2] * (np.pi / (180.0 * 3600.0)) * 1e6
+    want = float(np.sum(0.5 * (vals[1:] + vals[:-1]) * np.diff(dates)))
+    got = float(ta.state[0])
+    rel = abs(got - want) / abs(want)
+    check(rel <= PMX_RTOL, f"phase 25 (c): {got} vs {want}")
+    return dict(got=got, want=want, rel=rel, tol=PMX_RTOL,
+                launches=launches, nvidia_smi=smi)
+
+
+def eo_paths(dev, smi, order):
+    """Phase 25: the Earth-orientation slice on the card.  Returns B4's
+    row additions (its error and times on the eo_dynamics tape) and the
+    launches on each of the phase's paths."""
+    say("25a", **eop_ops(dev, smi))
+    line_b, paths, b4 = eo_full(dev, smi, order)
+    say("25b", **line_b)
+    line_c = pm_x_ode(dev, smi)
+    paths["pm_x_ode"] = line_c["launches"]
+    say("25c", **line_c)
+    return b4, paths
 
 
 if __name__ == "__main__":

@@ -28,7 +28,12 @@ and the batched ``SGP4Propagator`` over a compiled function) and
 of the JAX package's, and so are the ephemeris models (``vsop2013``,
 ``elp2000``, ``iau2006``) and the dense trig-series op behind them
 (``expr.series``), whose Taylor jet is kernel S1 (``csrc/series_jet.cu``)
-before B4 runs the rest of such a tape.
+before B4 runs the rest of such a tape.  The Earth-orientation and
+space-weather tables (``eop_sw``: ``EOPData``, ``SWData`` on the port's
+copies of the builtin snapshots) give data-driven interpolation ops whose
+order 0 runs in torch and whose higher orders are kernel B4 rules; on
+them stand the frame rotations of the IAU2006 chain and the full
+``models.eo_dynamics``.
 """
 
 from .expr.core import (  # noqa: F401
@@ -65,6 +70,8 @@ from . import lagham, varsys  # noqa: F401
 from .lagham import hamiltonian, lagrangian  # noqa: F401
 from .varsys import VarArgs, var_ode_sys  # noqa: F401
 from .taylor.stepper import taylor_order_from_tol  # noqa: F401
+from . import eop_sw  # noqa: F401
+from .eop_sw import EOPData, SWData, eop_data, sw_data  # noqa: F401
 from . import models  # noqa: F401
 from . import gp, logging, utils  # noqa: F401
 from .logging import (  # noqa: F401

@@ -37,7 +37,15 @@ Array layout (all int32 unless noted):
   and that series' tables, flattened in ``ser_amp`` / ``ser_ph`` (f64)
   with ``ser_shape`` ((n_names, 3): terms, amplitude and phase
   coefficients a term), so that the arrays carry everything the jets need
-  and ``plan_from_arrays`` can restore the store.
+  and ``plan_from_arrays`` can restore the store;
+- the dataset interpolants (``eop_sw.py``; opcode ``"interp"`` for a
+  value op ``<qty>%<key>``, ``"interp_p"`` for its slope ``<qty>_p%<key>``,
+  each group named by the op's full name): ``itp`` ((n_ops,)) the index
+  of each such column's op name in ``itp_names`` (str, one per distinct
+  op: the name holds the quantity and the dataset key), -1 elsewhere.
+  The tables are not carried: ``plan_from_arrays`` restores a builtin
+  dataset from the packaged snapshot, and a custom one must be in this
+  process's store (rebuild its expressions first).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import eop_sw
 from .expr import series
 from .taylor.compact import _Group, _Plan
 
@@ -52,8 +61,9 @@ from .taylor.compact import _Group, _Plan
 #: CUDA kernels switch on (csrc/taylor_common.cuh ``enum Op``).  The first
 #: five are kernels B1/B2/B3's rule set (``JET_OPS``); the phase kernel B4
 #: takes them all (``PHASE_OPS``, ``heyoka_tpu/taylor/pallas_phase.py``
-#: ``_SUPPORTED``, and the dense series, whose rows kernel S1 computes and
-#: B4 copies in).
+#: ``_SUPPORTED``, the dense series, whose rows kernel S1 computes and B4
+#: copies in, and the data-driven ops of ``eop_sw.py`` and
+#: ``models/dayfrac.py``, which the JAX package runs outside Pallas).
 OPCODES = (
     "sum", "mul", "div", "sqrt", "pow",
     "exp", "log", "sin", "cos", "sinh", "cosh", "tan", "tanh", "sigmoid",
@@ -61,6 +71,7 @@ OPCODES = (
     "kepE", "kepF", "kepDE", "relu", "relup", "select",
     "lt", "le", "gt", "ge", "eq", "ne",
     "logical_and", "logical_or", "logical_not", "trigseries",
+    "interp", "interp_p", "dayfrac",
 )
 JET_OPS = OPCODES[:5]
 PHASE_OPS = OPCODES
@@ -75,12 +86,20 @@ AUX_KEYS = {
 
 
 SERIES = "trigseries"
+INTERP, INTERP_P = "interp", "interp_p"
 
 
 def op_kind(name: str) -> str:
     """The ``OPCODES`` entry of op ``name``: ``"trigseries"`` for every
-    dense series op (``trigseries%<key>``), the name itself otherwise."""
-    return SERIES if series.is_series(name) else name
+    dense series op (``trigseries%<key>``), ``"interp"`` for every dataset
+    interpolant (``pm_x%eop:...``), ``"interp_p"`` for its slope
+    (``pm_x_p%eop:...``), the name itself otherwise."""
+    if series.is_series(name):
+        return SERIES
+    itp = eop_sw.parse_op(name)
+    if itp is not None:
+        return INTERP_P if itp[2] else INTERP
+    return name
 
 
 class UnsupportedKernelOp(Exception):
@@ -112,17 +131,24 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
     aux = np.full((n_ops, 2), -1, np.int64)
     ser = np.full(n_ops, -1, np.int64)
     ser_names: list[str] = []
+    itp = np.full(n_ops, -1, np.int64)
+    itp_names: list[str] = []
     for li, lv in enumerate(plan.levels):
         for g in lv:
             in_cols = np.asarray(g.in_cols, np.int64)
             m, nargs = in_cols.shape
             start = int(g.out_start)
             g_level.append(li)
-            g_op.append(OPCODES.index(op_kind(g.name)))
-            if op_kind(g.name) == SERIES:
+            kind = op_kind(g.name)
+            g_op.append(OPCODES.index(kind))
+            if kind == SERIES:
                 if g.name not in ser_names:
                     ser_names.append(g.name)
                 ser[start - n_eq:start - n_eq + m] = ser_names.index(g.name)
+            elif kind in (INTERP, INTERP_P):
+                if g.name not in itp_names:
+                    itp_names.append(g.name)
+                itp[start - n_eq:start - n_eq + m] = itp_names.index(g.name)
             g_start.append(start)
             g_m.append(m)
             g_nargs.append(nargs)
@@ -179,6 +205,8 @@ def plan_to_arrays(plan) -> dict[str, np.ndarray]:
         ser_amp=np.concatenate([a.ravel() for a, _ in tabs]
                                + [np.zeros(0)]),
         ser_ph=np.concatenate([p.ravel() for _, p in tabs] + [np.zeros(0)]),
+        itp=itp.astype(i32),
+        itp_names=np.array(itp_names, dtype=str),
     )
 
 
@@ -205,6 +233,17 @@ def series_names(d: dict) -> list[str]:
     return [names[int(k)] for k in d["ser_key"]]
 
 
+def interp_name(d: dict, o: int) -> str:
+    """The op name of op column ``n_eq + o`` of ``d`` (plan arrays), a
+    dataset interpolant or slope, with its dataset prepared where this
+    process's store lacks a builtin one; KeyError for a custom dataset
+    the store does not hold."""
+    name = str(d["itp_names"][int(d["itp"][o])])
+    key = eop_sw.parse_op(name)[0]
+    eop_sw.prepared(key)
+    return name
+
+
 def plan_from_arrays(d: dict) -> _Plan:
     """Rebuild a :class:`~.taylor.compact._Plan` from :func:`plan_to_arrays`
     output.  Every field the jets read, the aux columns included,
@@ -222,6 +261,8 @@ def plan_from_arrays(d: dict) -> _Plan:
         name = OPCODES[int(op)]
         if name == SERIES:
             name = ser_rows[int(d["ser"][start - n_eq])]
+        elif name in (INTERP, INTERP_P):
+            name = interp_name(d, start - n_eq)
         in_cols = np.full((m, nargs), zero_col, np.int64)
         for r in range(m):
             o = start - n_eq + r

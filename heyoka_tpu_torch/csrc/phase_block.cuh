@@ -9,14 +9,15 @@
 //                                                     synthetic row of c
 //
 // with J and S one lane's views of the coefficients and synthetic rows
-// (`at(k, c)`), Q its view of the dense-series rows (`at(k, r)`: the
-// read-only (K+1, n_ser, B) buffer kernel S1 filled before the launch; B4
-// copies order k of a series column from it, on both layouts, since the
-// smem layout stages only orders below lo of an op column and writes
-// orders lo..K of it back).  The tables are those of taylor/jet_phase.py
-// (`enum Hdr` of taylor_common.cuh), with the level table; `syn[o]` is
-// the synthetic row of a Kepler column and the series row of a series
-// column.
+// (`at(k, c)`), Q its view of the side rows (`at(k, r)`: the read-only
+// (K+1, n_ser, B) buffer written before the launch: the dense-series rows
+// kernel S1 filled, B4 copying order k of a series column from it, on
+// both layouts, since the smem layout stages only orders below lo of an op
+// column and writes orders lo..K of it back; then a dataset interpolant's
+// slope at u_0, at order 0 of its row, which jet_phase.order0 wrote).  The
+// tables are those of taylor/jet_phase.py (`enum Hdr` of
+// taylor_common.cuh), with the level table; `syn[o]` is the synthetic row
+// of a Kepler column and the side row of a series or interpolant column.
 //
 // Layout.  A block owns L consecutive lanes.  On the smem layout its
 // dynamic shared memory holds, in this order: the f64 tables (dtab) where
@@ -131,8 +132,8 @@ __device__ void stage_out(T* g, const T* s, const StageRange& R, int L,
   }
 }
 
-// One lane's view of the dense-series rows: row (k, r) of a (K+1, n, B)
-// buffer in global memory, read only.
+// One lane's view of the side rows (the dense series, the interpolants'
+// slopes): row (k, r) of a (K+1, n, B) buffer in global memory, read only.
 template <typename T>
 struct SeriesRows {
   const T* p;  // at the lane

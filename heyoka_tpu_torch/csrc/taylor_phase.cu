@@ -21,6 +21,13 @@
 // layout (the same passes in place in the caller's buffer, 32 lanes a
 // block) where a block's shared memory holds fewer than four lanes.
 //
+// The data-driven ops, which the JAX package runs outside Pallas (its
+// scalar-rule fallback, heyoka_tpu/taylor/compact.py _fallback_rule):
+// a dataset interpolant's order k is its lane's slope at u_0, which
+// jet_phase.order0 wrote to order 0 of the column's side row, times u_k
+// (heyoka_tpu/eop_sw.py:512-521; NaN out of the table stays NaN); its
+// slope's is 0 and dayfrac's is u_k (models/dayfrac.py:87).
+//
 // Order of operations, as in the plain twin (jet_phase.phase_plain): per
 // order k, the state rows from the right-hand sides at k-1 over k, then
 // the groups in level order, then the synthetic rows.  Every rule reads
@@ -222,7 +229,11 @@ __device__ double phase_k(const Tape& T, const int* aux, const int* syn,
       return L.at(0, a[0]) != 0.0 ? L.at(k, a[1]) : L.at(k, a[2]);
     case OP_SERIES:  // a dense series: order k of its row from kernel S1
       return Q.at(k, syn[o]);
-    default:  // relup, the relational and the logical ops
+    case OP_INTERP:  // S u_k, S the lane's slope at u_0 (its side row)
+      return Q.at(0, syn[o]) * L.at(k, a[0]);
+    case OP_DAYFRAC:  // d dayfrac / dt = 1
+      return L.at(k, a[0]);
+    default:  // relup, the relational and logical ops, OP_INTERP_P
       return 0.0;
   }
 }
@@ -257,8 +268,9 @@ phase_kernel(const int* __restrict__ it, const double* __restrict__ dt,
 
 // `global` 0: the lanes staged in shared memory (`syn` unused); 1: in
 // place in `tc`, the synthetic rows in `syn`, a (K+1, n_syn, B) scratch
-// buffer.  `ser`: the dense-series rows, a (K+1, n_ser, B) buffer that
-// kernel S1 filled (null where n_ser is 0).  `lanes`, `threads`, `smem`,
+// buffer.  `ser`: the side rows, a (K+1, n_ser, B) buffer: the
+// dense-series rows that kernel S1 filled, then the interpolants' slopes
+// at order 0 (null where n_ser is 0).  `lanes`, `threads`, `smem`,
 // `n_it`, `n_dt`: jet_phase.block_shape's.
 extern "C" int hy_phase_f64(const int* itab, const double* dtab, double* tc,
                             double* syn, const double* ser, int n_ser, int B,

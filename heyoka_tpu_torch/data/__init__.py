@@ -1,7 +1,9 @@
 """Packaged data of the port: byte-identical copies of ``heyoka_tpu/data``'s
 EGM2008 coefficients (``egm2008.npz``), thermoNET weights
-(``nrlmsise00_tn.npz``, ``jb08_tn.npz``) and ephemeris series tables
-(``vsop2013_p9.npz``, ``elp2000.npz``, ``iau2006.npz``).
+(``nrlmsise00_tn.npz``, ``jb08_tn.npz``), ephemeris series tables
+(``vsop2013_p9.npz``, ``elp2000.npz``, ``iau2006.npz``) and the builtin
+Earth-orientation and space-weather snapshots (``eop_builtin.npz``,
+``sw_builtin.npz``).
 
 The JAX models read these through ``importlib.resources`` of
 ``heyoka_tpu.data``, which imports the JAX package; the port reads its

@@ -227,15 +227,23 @@ def postorder(e: Expr):
 
 
 def _compute_hash(e: Expr) -> int:
-    """Compute (and cache) structural hashes bottom-up, iteratively."""
-    memo: dict[int, int] = {}
-    for node in postorder(e):
-        h = node._hash
-        if h is None:
-            child_hashes = tuple(memo.get(id(c), hash(c)) for c in node.args)
-            h = hash((node._key(), child_hashes))
-            node._hash = h
-        memo[id(node)] = h
+    """Compute (and cache) structural hashes bottom-up, iteratively.
+
+    The JAX package's values (``hash((key, child hashes))``), but the walk
+    stops at a node whose hash is cached: a node built over hashed
+    children (every node ``subs`` and ``diff`` make) costs its own hash,
+    not a walk of its whole subtree."""
+    stack = [(e, False)]
+    while stack:
+        node, expanded = stack.pop()
+        if node._hash is not None:
+            continue
+        if expanded:
+            node._hash = hash((node._key(),
+                               tuple(c._hash for c in node.args)))
+            continue
+        stack.append((node, True))
+        stack.extend((c, False) for c in node.args if c._hash is None)
     return e._hash
 
 

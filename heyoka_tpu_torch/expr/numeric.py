@@ -18,7 +18,10 @@ lane's last bit no longer depends on its batch-mates.
 The port's compiled functions (``cfunc.tape_eval``) evaluate their tapes
 with the same rules.  A dense trig-series op (``trigseries%<key>``,
 ``series.py``) resolves through its store: kernel S1 at order 0 on a CUDA
-tensor, its twin on a CPU one.
+tensor, its twin on a CPU one.  A dataset interpolant or its slope
+(``<qty>%<key>``, ``<qty>_p%<key>``) resolves through ``eop_sw.evaluate``
+(a ``searchsorted`` and the linear interpolation on tables on the
+tensor's device), ``dayfrac`` through ``models.dayfrac.ev_dayfrac``.
 """
 
 from __future__ import annotations
@@ -172,7 +175,9 @@ EVALUATE = {
 def evaluate(name: str, *args):
     """The value of op ``name`` on f64 tensors ``args`` (pow has its own
     rule with the exponent, ``taylor.jet_kernels._pow0_plain``); a dense
-    series op (``trigseries%<key>``) goes to ``series_jet.series_value``."""
+    series op (``trigseries%<key>``) goes to ``series_jet.series_value``,
+    a dataset op to ``eop_sw.evaluate``, ``dayfrac`` to
+    ``models.dayfrac.ev_dayfrac``."""
     if name not in EVALUATE:
         from .series import is_series
 
@@ -180,4 +185,12 @@ def evaluate(name: str, *args):
             from ..taylor.series_jet import series_value
 
             return series_value(name, args[0])
+        from .. import eop_sw
+
+        if eop_sw.is_interp(name):
+            return eop_sw.evaluate(name, args[0])
+        if name == "dayfrac":
+            from ..models.dayfrac import ev_dayfrac
+
+            return ev_dayfrac(args[0])
     return EVALUATE[name](*args[:EVAL_ARITY.get(name, len(args))])

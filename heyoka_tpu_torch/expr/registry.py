@@ -22,6 +22,14 @@ class OpDef:
 
 
 _REGISTRY: dict[str, OpDef] = {}
+#: lazy resolvers for dynamically registered ops (the dataset-backed
+#: interpolants of ``eop_sw.py`` after unpickling): each gets the missing
+#: name and may register it
+_RESOLVERS: list = []
+
+
+def register_resolver(fn):
+    _RESOLVERS.append(fn)
 
 
 def register(op: OpDef):
@@ -32,7 +40,11 @@ def register(op: OpDef):
 def opdef(name: str) -> OpDef:
     od = _REGISTRY.get(name)
     if od is None:
-        raise KeyError(f"unknown op {name!r}")
+        for r in _RESOLVERS:
+            r(name)
+        od = _REGISTRY.get(name)
+        if od is None:
+            raise KeyError(f"unknown op {name!r}")
     return od
 
 

@@ -1,6 +1,7 @@
 """Model library of the port: the models of the slices ported so far (the
 ephemeris models ``vsop2013``, ``elp2000`` and ``iau2006`` since ROADMAP
-A.14)."""
+A.14; the EOP and space-weather interpolants, ``dayfrac``, the frame
+rotations and ``eo_dynamics`` since A.15)."""
 
 from .nbody import (  # noqa: F401
     nbody,
@@ -57,3 +58,18 @@ from .vsop2013 import (  # noqa: F401
     vsop2013_cartesian_icrf,
     get_vsop2013_mus,
 )
+from . import eop  # noqa: F401
+from . import sw  # noqa: F401
+from .eop import (  # noqa: F401
+    era, erap, gmst82, gmst82p, pm_x, pm_xp, pm_y, pm_yp, dX, dXp, dY, dYp,
+)
+from .sw import (  # noqa: F401
+    Ap_avg, Ap_avgp, f107, f107p, f107a_center81, f107a_center81p,
+)
+from .frames import (  # noqa: F401
+    rot_fk5j2000_icrs, rot_icrs_fk5j2000, rot_itrs_icrs, rot_icrs_itrs,
+    rot_itrs_teme, rot_teme_itrs,
+    state_to_rsw, state_to_rsw_inertial, state_from_rsw, state_from_rsw_inertial,
+)
+from .dayfrac import dayfrac  # noqa: F401
+from .eo_dynamics import eo_dynamics  # noqa: F401

@@ -11,9 +11,9 @@ exponential-altitude density profile.  Trained weights ship as packaged data,
 the port's byte-identical copies (``heyoka_tpu_torch/data/*_tn.npz``).
 
 Inputs: ``geodetic = [h, lat, lon]`` with h in km; ``time_expr`` is the
-fractional number of days since Jan 1 00:00:00 UTC (the JAX
-package's ``models.dayfrac``); space-weather indices as expressions (the
-JAX package's ``models.sw`` interpolants, not ported yet, or parameters).  Output: density in
+fractional number of days since Jan 1 00:00:00 UTC (``models.dayfrac``);
+space-weather indices as expressions (the ``models.sw`` interpolants, as
+``models.eo_dynamics`` gives them, or parameters).  Output: density in
 kg/m^3.
 """
 

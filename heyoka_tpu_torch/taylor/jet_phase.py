@@ -37,6 +37,18 @@ column's orders ``0..K`` when it reaches the column's level, through
 column's order 0 and ``u1`` its rate (``series_jet.AffineInput``), into a
 read-only ``(K+1, n_ser, B)`` buffer ``ser`` that it returns; the twin and
 kernel B4 copy order k of the column from it.
+
+Dataset interpolants (``eop_sw.py``: opcode ``interp``, their slopes
+``interp_p``) and ``dayfrac``: :func:`order0` gives an interpolant
+column its value and writes the lane's slope at the input, ``S =
+slope(u_0)``, into a side row after the series rows (order 0 of row
+``n_ser + j`` of the same buffer, which it then returns, now ``(K+1,
+n_side, B)``: the other orders of a slope row are never read); above
+order 0 the reference's recurrences run in the twin and in kernel B4:
+``a_k = S u_k`` for an interpolant (``eop_sw.py:512-521`` of the JAX
+package, for any input), ``0`` for a slope and ``a_k = u_k`` for
+``dayfrac`` (``models/dayfrac.py:87``).  NaN out of a table's range
+stays NaN: ``S`` is NaN there.
 """
 
 from __future__ import annotations
@@ -48,7 +60,10 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..convert import AUX_KEYS, PHASE_OPS, SERIES, op_kind, series_names
+from .. import eop_sw
+from ..convert import (
+    AUX_KEYS, INTERP, PHASE_OPS, SERIES, op_kind, series_names,
+)
 from ..expr.numeric import evaluate
 from .jet_kernels import (
     BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, SMEM_MAX, JetTape, _F64,
@@ -63,8 +78,8 @@ from .series_jet import AffineInput, series_jet, tables_on
 #: opcode of each op column, the op column of each synthetic row, the aux
 #: table (two slots per op column, -1 where unused) and the side-row
 #: table (one per op column: a Kepler column's synthetic row, a series
-#: column's row of the series buffer, -1 elsewhere), and the numbers of
-#: synthetic rows and of levels
+#: column's or an interpolant's row of the side buffer, -1 elsewhere), and
+#: the numbers of synthetic rows and of levels
 _PHDR = _HDR + ("lvl", "cop", "syncol", "aux", "syn", "n_syn", "n_lv")
 assert len(_PHDR) == _HDR_LEN
 
@@ -76,11 +91,14 @@ _TWO_SQRTPI = 2.0 / _pymath.sqrt(_pymath.pi)
 
 class PhaseTape(JetTape):
     """A :class:`JetTape` over the whole rule set ``convert.PHASE_OPS``,
-    with the aux columns, the Kepler synthetic rows and the dense series:
-    the twin's groups ``pgroups``, kernel B4's packed tables (``itab``,
-    ``dtab``, header ``_PHDR``) and, per series row in column order,
-    ``series`` ``(column, AffineInput, SeriesTables)``.  Raises
-    ValueError where a series op's input is not affine in time."""
+    with the aux columns, the Kepler synthetic rows, the dense series and
+    the interpolants' slope rows: the twin's groups ``pgroups``, kernel
+    B4's packed tables (``itab``, ``dtab``, header ``_PHDR``), per series
+    row in column order ``series`` ``(column, AffineInput,
+    SeriesTables)``, and the side buffer's rows ``n_side = n_ser +
+    n_slope`` (the series', then one for each interpolant column, in
+    column order).  Raises ValueError where a series op's input is not
+    affine in time."""
 
     RULES = PHASE_OPS
 
@@ -88,6 +106,7 @@ class PhaseTape(JetTape):
         super().__init__(arrays, device)
         aux, syn = arrays["aux"], self._syn_rows(arrays)
         ser = np.asarray(arrays["ser"], np.int64)
+        side = side_rows(arrays)
         n_eq = self.n_eq
         self.n_syn = int(syn.max(initial=-1)) + 1
         self.lvl = level_table(arrays)
@@ -98,26 +117,25 @@ class PhaseTape(JetTape):
              tables_on(names[int(ser[o])], self.device))
             for o in np.flatnonzero(ser >= 0)]
         self.n_ser = len(self.series)
+        self.n_slope = int(
+            (op_codes(arrays) == PHASE_OPS.index(INTERP)).sum())
+        self.n_side = self.n_ser + self.n_slope
 
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
         # per group, in level order: (op name, first column, rows, operand
         # columns, pow exponents, aux key -> columns, synthetic rows or,
-        # for a series, its rows of the series buffer)
+        # for a series or an interpolant, its rows of the side buffer)
         self.pgroups = []
         for name, s, m, cols, alpha in self.groups:
             o = slice(s - n_eq, s - n_eq + m)
-            side = syn if name in SYNTH else \
-                ser if op_kind(name) == SERIES else None
+            r0 = int(side[o][0])
             self.pgroups.append((
                 name, s, m, cols, alpha,
                 {key: idx(aux[o, slot])
                  for slot, key in enumerate(AUX_KEYS.get(name, ()))},
-                None if side is None else
-                (int(side[o][0]), int(side[o][0]) + m)))
-
-
+                None if r0 < 0 else (r0, r0 + m)))
 
     @staticmethod
     def _syn_rows(a):
@@ -134,15 +152,27 @@ class PhaseTape(JetTape):
 
     def _pack(self, a, norm):
         syn = self._syn_rows(a)
-        ser = np.asarray(a["ser"], np.int64)
         lvl = level_table(a)
         check_levels(a, lvl)
-        side = np.where(ser >= 0, ser, syn)
+        side = side_rows(a)
         return super()._pack(
             a, norm, {"lvl": lvl, "cop": op_codes(a),
                       "syncol": np.flatnonzero(syn >= 0),
                       "aux": np.asarray(a["aux"]).reshape(-1), "syn": side},
             {"n_syn": int(syn.max(initial=-1)) + 1, "n_lv": lvl.size - 1})
+
+
+def side_rows(a) -> np.ndarray:
+    """The row of every op column of plan arrays ``a`` in its side rows,
+    -1 for none: a Kepler column's synthetic row, a series column's row of
+    the side buffer (its series, in column order), an interpolant's row
+    ``n_ser + j`` there (the ``j``-th interpolant column)."""
+    syn = PhaseTape._syn_rows(a)
+    ser = np.asarray(a["ser"], np.int64)
+    side = np.where(ser >= 0, ser, syn)
+    itp = np.flatnonzero(op_codes(a) == PHASE_OPS.index(INTERP))
+    side[itp] = int((ser >= 0).sum()) + np.arange(itp.size)
+    return side
 
 
 def level_table(a) -> np.ndarray:
@@ -200,16 +230,18 @@ def check_levels(a, lvl) -> None:
 # plain twin
 # ---------------------------------------------------------------------------
 
-def _hist(tc, syn, s, m, cols, aux, srows):
+def _hist(tc, syn, s, m, cols, aux, srows, side=None):
     """``hist(q, j0, j1)``: orders ``j0..j1-1`` of one group's operand set
     ``q`` as ``(j1 - j0, m, B)`` — an int is an operand (``in_cols[:,
     q]``), -1 the group's own columns, a string an aux key, ``"syn"`` the
-    group's synthetic rows."""
+    group's synthetic rows, ``"side"`` its rows of the side buffer."""
     def hist(q, j0, j1):
         if q == -1:
             return tc[j0:j1, s:s + m]
         if q == "syn":
             return syn[j0:j1, srows[0]:srows[1]]
+        if q == "side":
+            return side[j0:j1, srows[0]:srows[1]]
         c = aux[q] if isinstance(q, str) else cols[:, q]
         return tc[j0:j1].index_select(1, c)
     return hist
@@ -233,6 +265,12 @@ def _phase_k(name, alpha, k: int, hist, nargs: int, dev):
     Every rule reads aux and synthetic rows below order ``k`` only."""
     if name in ("sum", "mul", "div", "sqrt", "pow"):
         return _eval_k(name, alpha, k, hist, nargs)
+    kind = op_kind(name)
+    if kind == INTERP:
+        # a_k = S u_k, S the lane's slope at u_0 (order 0 of its side row)
+        return hist("side", 0, 1)[0] * hist(0, k, k + 1)[0]
+    if kind == "dayfrac":
+        return hist(0, k, k + 1)[0]
     up = _wts(1, k + 1, dev)    # j = 1..k
     dn = _wts(k, 0, dev)        # k - m for m = 0..k-1
     dn1 = _wts(k - 1, 0, dev)   # k - m for m = 1..k-1
@@ -309,7 +347,8 @@ def _phase_k(name, alpha, k: int, hist, nargs: int, dev):
     if name == "select":
         return torch.where(hist(0, 0, 1)[0] != 0.0, hist(1, k, k + 1)[0],
                            hist(2, k, k + 1)[0])
-    # relup, the relational and the logical ops: zero above order 0
+    # relup, the relational and the logical ops and an interpolant's
+    # slope (``interp_p``): zero above order 0
     return torch.zeros_like(hist(0, 0, 1)[0])
 
 
@@ -327,13 +366,20 @@ def _synth_j(name, j: int, hist):
 def order0(tape: PhaseTape, tc):
     """Order 0 of every group column, in level order, in place on the
     ``(K+1, W, B)`` buffer whose order-0 state and virtual columns are
-    set.  Returns the series buffer ``ser (K+1, n_ser, B)``, orders
-    ``0..K`` of every series column (None without series): each made when
-    its level is reached, by kernel S1 on the card."""
-    ser = tc.new_empty((tape.order + 1, tape.n_ser, tc.shape[2])) \
-        if tape.n_ser else None
+    set.  Returns the side buffer ``ser (K+1, n_side, B)`` (None where
+    ``n_side`` is 0): orders ``0..K`` of every series column, each made
+    when its level is reached, by kernel S1 on the card, then at order 0
+    each interpolant column's slope at its input (``eop_sw.interp0``,
+    which also gives the column's value)."""
+    ser = tc.new_empty((tape.order + 1, tape.n_side, tc.shape[2])) \
+        if tape.n_side else None
     for name, s, m, cols, alpha, aux, srows in tape.pgroups:
-        if op_kind(name) == SERIES:
+        kind = op_kind(name)
+        if kind == INTERP:
+            tc[0, s:s + m], ser[0, srows[0]:srows[1]] = eop_sw.interp0(
+                name, tc[0].index_select(0, cols[:, 0]))
+            continue
+        if kind == SERIES:
             for r in range(srows[0], srows[1]):
                 _, aff, tab = tape.series[r]
                 ser[:, r] = series_jet(tab, tc[0, aff.in_col].contiguous(),
@@ -362,7 +408,8 @@ def phase_plain(tape: PhaseTape, tc, lo: int, ser=None):
     B)`` in place, from its orders below ``lo``; returns ``tc``.  Each
     order: the state rows from the right-hand sides at ``k-1`` over ``k``,
     then the groups in level order (a series column's row copied from
-    ``ser``, :func:`order0`'s buffer), then the synthetic rows."""
+    ``ser``, :func:`order0`'s side buffer, where an interpolant also finds
+    its slope), then the synthetic rows."""
     K, n_eq = tape.order, tape.n_eq
     _check_lo(lo, K)
     _check_ser(tape, tc, ser)
@@ -378,7 +425,7 @@ def phase_plain(tape: PhaseTape, tc, lo: int, ser=None):
                 tc[k, s:s + m] = ser[k, srows[0]:srows[1]]
                 continue
             tc[k, s:s + m] = _phase_k(
-                name, alpha, k, _hist(tc, syn, s, m, cols, aux, srows),
+                name, alpha, k, _hist(tc, syn, s, m, cols, aux, srows, ser),
                 cols.shape[1], dev)
         if k < K:
             _synth(tape, tc, syn, k)
@@ -395,16 +442,17 @@ def _check_lo(lo, K):
 
 
 def _check_ser(tape: PhaseTape, tc, ser):
-    """``ser`` must be :func:`order0`'s buffer on a tape with series, None
-    on one without."""
-    if not tape.n_ser:
+    """``ser`` must be :func:`order0`'s side buffer on a tape with series
+    or interpolants, None on one without."""
+    if not tape.n_side:
         if ser is not None:
-            raise ValueError("a series buffer for a tape without series")
+            raise ValueError("a side buffer for a tape without series or "
+                             "interpolants")
         return
     if ser is None:
-        raise ValueError("the tape has dense series: pass order0's series "
-                         "buffer")
-    _check("ser", ser, (tape.order + 1, tape.n_ser, tc.shape[-1]),
+        raise ValueError("the tape has dense series or interpolants: pass "
+                         "order0's series buffer (its side rows)")
+    _check("ser", ser, (tape.order + 1, tape.n_side, tc.shape[-1]),
            tc.dtype, tc.device)
 
 
@@ -412,8 +460,8 @@ def phase(tape: PhaseTape, tc, lo: int, ser=None):
     """Orders ``lo..K`` of ``tc (K+1, W, B)`` f64 in place; returns
     ``tc``.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor launches
     kernel B4 (``hy_phase_f64``) at the block shape of
-    :func:`block_shape`.  ``ser``: :func:`order0`'s series buffer, on a
-    tape with dense series."""
+    :func:`block_shape`.  ``ser``: :func:`order0`'s side buffer, on a
+    tape with dense series or interpolants."""
     if _device_of(tc, tape).type == "cpu":
         return phase_plain(tape, tc, lo, ser)
     return _phase_cuda(tape, tc, lo, ser=ser)
@@ -426,7 +474,7 @@ def _phase_cuda(tape: PhaseTape, tc, lo: int, lanes=None, threads=None,
     _check_ser(tape, tc, ser)
     return launch("hy_phase_f64", "phase", tape, tc, lo, _F64, lanes,
                   threads, layout,
-                  series=(None if ser is None else _ptr(ser), tape.n_ser))
+                  series=(None if ser is None else _ptr(ser), tape.n_side))
 
 
 def stage(tape: PhaseTape, tc, lo: int):
@@ -453,7 +501,7 @@ def launch(entry, counter, tape, tc, lo, dtype, lanes=None, threads=None,
     returns ``tc``.  No launch where there is no work (no lanes, or ``lo =
     K + 1``).  On the global layout the Kepler synthetic rows go to a
     ``(K+1, n_syn, B)`` scratch buffer.  ``series``: the arguments after
-    ``syn`` that kernel B4 takes (the series buffer and its rows), none
+    ``syn`` that kernel B4 takes (the side buffer and its rows), none
     for T2."""
     sh, cfg, stream = _launch_args(tape, tc, lo, dtype, lanes, threads,
                                   layout)

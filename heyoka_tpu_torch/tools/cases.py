@@ -1,7 +1,8 @@
 """The phase route's test tapes and lanes, shared by ``chip_smoke.py``
 (phases 10-12), the tests and :mod:`.same_bits`, the small cases of the
 batch integrator's three routes (the tests), BASELINE config 5's systems
-(phase 23) and the ephemeris tapes and random series (phase 24).
+(phase 23), the ephemeris tapes and random series (phase 24) and the
+Earth-orientation systems (phase 25).
 
 The module imports numpy only and takes the package that builds the
 systems as an argument (this port, or the JAX package in the tests), so
@@ -167,7 +168,8 @@ def drag_sys(pkg, deg=4):
     coordinates are ``cart2geo`` of the position with ``R_eq = A_EARTH /
     1e3``, the density ``nrlmsise00_tn`` with ``f107 = par[0]``, ``f107a
     = par[1]``, ``ap = par[2]`` and ``time / 86400`` days since Jan 1,
-    times 1e9 (kg/km^3); ``Cb = par[3]`` in m^2/kg."""
+    times 1e9 (kg/km^3); ``Cb = par[3]`` in m^2/kg.  :func:`eo_sys` is
+    the uncut model."""
     m, par = pkg.models, pkg.par
     sys_ = geopot_sys(pkg, deg)
     (x, _), (y, _), (z, _) = sys_[:3]
@@ -269,3 +271,48 @@ def random_series(rng, n, q, d):
     for j in range(2, d + 1):
         ph[:, j] = rng.uniform(-0.2, 0.2, n) / 10 ** (j - 2)
     return amp, ph
+
+
+# -- the Earth-orientation systems (ROADMAP A.15, data part) --------------------
+
+def eo_epoch(pkg):
+    """Phase 25's start, 2015-06-10 00:00 UTC, in TT seconds since J2000
+    (``tests/test_ephemeris.py:97-100``), with ``pkg``'s time scales."""
+    t1, t2 = pkg.utils.jd_utc_to_tt(pkg.utils.cal_to_jd(2015, 6, 10), 0.0)
+    return float(((t1 - 2451545.0) + t2) * 86400.0)
+
+
+def eo_sys(pkg, deg=10, drag=True, thresh=1e-4):
+    """Phase 25's system, built with ``pkg``: ``eo_dynamics`` with the
+    EGM2008 geopotential to degree and order ``deg`` in the ITRS through
+    the IAU2006 chain at ``iau2006_thresh = thresh`` (the default 1e-4)
+    and, with ``drag``, NRLMSISE-00 thermoNET drag with ``Cb = par[0]``
+    [m^2/kg]; the builtin EOP and SW tables, km, km/s, TT seconds since
+    J2000."""
+    return pkg.models.eo_dynamics(
+        max_geo_degree=deg, max_geo_order=deg, iau2006_thresh=thresh,
+        Cb=pkg.par[0] if drag else None)
+
+
+def eo_lanes(pkg, B):
+    """``B`` lanes of :func:`eo_sys` at :func:`eo_epoch`: ``(state (B,
+    6), pars (B, 1), t0 (B,))``, the states ``geopot_lanes(B, 0)`` and
+    ``Cb`` the fourth column of ``drag_pars(B, 1)`` (uniform in
+    ``DRAG_PAR_RANGES[3]``), so that the first 1,024 lanes are phase 23
+    (c)'s in state and ballistic coefficient."""
+    return (geopot_lanes(B, 0), drag_pars(B, 1)[:, 3:4],
+            np.full(B, eo_epoch(pkg)))
+
+
+def eop_ode_sys(pkg):
+    """A small ODE over every kind of data-driven op, time in days since
+    J2000 (TT): ``x' = 1e6 pm_x + 1e-3 sin(era) + 1e-3 pm_xp`` and ``y' =
+    1e-3 f107 + 1e-2 dayfrac - 0.1 y``, the interpolants at ``t / 36525``
+    centuries (the builtin tables)."""
+    m = pkg.models
+    x, y = pkg.make_vars("x", "y")
+    tcy = pkg.time / 36525.0
+    return [(x, m.pm_x(time_expr=tcy) * 1e6
+             + pkg.sin(m.era(time_expr=tcy)) * 1e-3
+             + m.pm_xp(time_expr=tcy) * 1e-3),
+            (y, m.f107(time_expr=tcy) * 1e-3 + m.dayfrac() * 1e-2 - 0.1 * y)]

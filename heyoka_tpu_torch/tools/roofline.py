@@ -49,10 +49,14 @@ def nbytes(*tensors) -> int:
 def phase_bytes(arrays: dict, n_lanes: int, lo: int, itemsize: int) -> int:
     """Bytes of a phase run in place (kernels B4 and T2) on ``n_lanes``
     lanes: the whole buffer read once, orders ``lo..K`` of the state and op
-    columns written once."""
+    columns written once, and the side rows kernel B4 reads once: orders
+    ``lo..K`` of each dense-series row and order 0 of each interpolant's
+    slope row (``taylor/jet_phase.py`` ``order0``'s buffer)."""
     W, n_eq, K = (int(x) for x in arrays["meta"][:3])
     n_w = n_eq + int(arrays["arg_ptr"].size) - 1
-    return itemsize * n_lanes * (W * (K + 1) + n_w * (K + 1 - lo))
+    ops = [op for op, _ in op_columns(arrays)]
+    side = ops.count("trigseries") * (K + 1 - lo) + ops.count("interp")
+    return itemsize * n_lanes * (W * (K + 1) + n_w * (K + 1 - lo) + side)
 
 
 def op_columns(arrays: dict):
@@ -95,6 +99,10 @@ _ORDER_K = {
                           + (k > 1) + 3),
     "kepDE": lambda k, n: (4 + _dot(k, 2) + 2 * _dot(k - 1, 2) + 2
                            + 2 * (k > 1) + 3),
+    # a dataset interpolant: S u_k; its slope (0) and dayfrac (u_k) none
+    "interp": lambda k, n: 1,
+    "interp_p": lambda k, n: 0,
+    "dayfrac": lambda k, n: 0,
 }
 #: operations of order j of a Kepler column's synthetic series (B4's
 #: ``synth``): one Cauchy product, or two and their sum

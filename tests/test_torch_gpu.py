@@ -1211,3 +1211,57 @@ def test_series_batch_on_cuda_matches_cpu(cuda):
                                    atol=1e-12 * scale)
         # the step counts agree but for a sub-ulp landing step
         assert int(np.abs(np.asarray(rg[3]) - np.asarray(rc[3])).max()) <= 1
+
+
+# -- the Earth-orientation data (B4's interp, interp_p and dayfrac rules) ----
+
+@pytest.mark.gpu
+def test_phase_kernel_interp_rows_on_both_layouts(cuda):
+    # the small ODE over every data-driven op (tools/cases.py eop_ode_sys)
+    # at order 19: order0 writes the slopes into the side rows; B4 on both
+    # layouts and every block shape against the twin fed the same buffer,
+    # 1e-13 relative per order, with a lane out of the tables (NaN from
+    # order 1 in the same places)
+    B, K = 77, 19
+    tape = jp.PhaseTape(ht.plan_to_arrays(build_plan(taylor_decompose_sys(
+        c5.eop_ode_sys(ht)), K)), cuda)
+    assert (tape.n_ser, tape.n_slope) == (0, 3)
+    rng = np.random.default_rng(11)
+    t = 5478.0 + rng.uniform(0, 3000, B)
+    t[-1] = 40_000.0  # past the tables
+    tc0 = seeded_buffer(tape, rng.uniform(-1, 1, (B, 2)), np.zeros((B, 0)),
+                        t, cuda)
+    side = jp.order0(tape, tc0)
+    want = jp.phase_plain(tape, tc0.clone(), 1, side)
+    ok = slice(0, B - 1)
+    for lay, L, nt in jp.sweep_shapes(tape, 8, lanes=(1, 3, 32)):
+        got = jp._phase_cuda(tape, tc0.clone(), 1, L, nt, lay, ser=side)
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), (lay, L)
+        rel = _per_order_rel(got[:, :, ok].permute(1, 0, 2),
+                             want[:, :, ok].permute(1, 0, 2))
+        assert float(rel.max()) <= 1e-13, (lay, L, nt)
+    assert bool(torch.isnan(want[1:, 0, -1]).all())
+    with pytest.raises(ValueError, match="series buffer"):
+        jp.phase(tape, tc0.clone(), 1)
+
+
+@pytest.mark.gpu
+def test_eop_batch_on_cuda_matches_cpu(cuda):
+    # the same ODE through B4 on the card and the twin: every outcome
+    # equal (the out-of-range lane err_nf_state), states within 1e-12
+    t = np.array([5478.0, 5478.3, 5478.7, 9727.5])
+    kw = dict(tol=1e-15, time=t)
+    n0 = dict(jk.LAUNCHES)
+    tg = ht.taylor_adaptive_batch(c5.eop_ode_sys(ht), np.zeros((4, 2)),
+                                  device=cuda, **kw)
+    tg.assert_engine(jet="hy_phase_f64", propagate_engine="flat")
+    rg = tg.propagate_for(3.0, max_delta_t=0.02)
+    assert jk.LAUNCHES["phase"] > n0["phase"]
+    assert jk.LAUNCHES["jet"] == n0["jet"]
+    tc_ = ht.taylor_adaptive_batch(c5.eop_ode_sys(ht), np.zeros((4, 2)),
+                                   device="cpu", **kw)
+    rc = tc_.propagate_for(3.0, max_delta_t=0.02)
+    assert [o.name for o in rg[0]] == [o.name for o in rc[0]] == [
+        "time_limit"] * 3 + ["err_nf_state"]
+    np.testing.assert_allclose(tg.state[:3], tc_.state[:3], rtol=0,
+                               atol=1e-12 * np.abs(tc_.state[:3]).max())

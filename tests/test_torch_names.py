@@ -24,8 +24,7 @@ A15, A22 = "A.15 numeric rest", "A.22 native"
 
 #: top-level names of ``heyoka_tpu`` the port does not have yet
 NOT_PORTED = {
-    "EOPData": A15, "SWData": A15, "eop_data": A15, "sw_data": A15,
-    "eop_sw": A15, "multiprec": A15, "s11n": A15,
+    "multiprec": A15, "s11n": A15,
     "native": A22,
 }
 
@@ -34,6 +33,8 @@ _A14_MODELS = (
     "vsop2013 vsop2013_cartesian vsop2013_cartesian_icrf vsop2013_elliptic "
     "get_vsop2013_mus elp2000 elp2000_cartesian elp2000_cartesian_e2000 "
     "elp2000_cartesian_fk5 elp2000_spherical get_elp2000_mus iau2006")
+#: the Earth-orientation slice's model names (ROADMAP A.15, data part,
+#: ported)
 _A15_MODELS = (
     "eo_dynamics eop "
     "sw frames dayfrac era erap gmst82 gmst82p pm_x pm_xp pm_y pm_yp dX dXp "
@@ -43,9 +44,7 @@ _A15_MODELS = (
     "state_to_rsw state_to_rsw_inertial")
 
 #: names of ``heyoka_tpu.models`` the port does not have yet
-MODELS_NOT_PORTED = {
-    **{n: A15 for n in _A15_MODELS.split()},
-}
+MODELS_NOT_PORTED: dict = {}
 
 
 @pytest.fixture(scope="module")
@@ -155,3 +154,13 @@ def test_the_series_slice():
         assert mod.__name__.startswith("heyoka_tpu_torch.models.")
     from heyoka_tpu_torch.expr import series
     assert callable(series.trig_series) and callable(series.affine_in_time)
+
+
+def test_the_earth_orientation_slice():
+    # the EOP/SW data and the models on it (ROADMAP A.15, data part)
+    for n in _A15_MODELS.split():
+        assert hasattr(ht.models, n) and n not in MODELS_NOT_PORTED
+    for n in ("EOPData", "SWData", "eop_data", "sw_data", "eop_sw"):
+        assert hasattr(ht, n) and n not in NOT_PORTED
+    assert ht.eop_sw.__name__ == "heyoka_tpu_torch.eop_sw"
+    assert set(NOT_PORTED) == {"multiprec", "s11n", "native"}

@@ -199,9 +199,10 @@ def _acc(terms, like):
     return s
 
 
-def _b4_item(T, L, S, c, k):
+def _b4_item(T, L, S, c, k, Q=None):
     """csrc/taylor_phase.cu ``phase_k``: order k of column c, L(k, c) and
-    S(j, row) the lanes' coefficients and synthetic rows."""
+    S(j, row) the lanes' coefficients and synthetic rows, Q(k, row) their
+    side rows (the dense series, the interpolants' slopes)."""
     o = c - T.n_eq
     op = ht.OPCODES[T.cop[o]]
     a = T.args[T.argptr[o]:T.argptr[o + 1]]
@@ -282,7 +283,14 @@ def _b4_item(T, L, S, c, k):
         return torch.where(L(0, a[0]) > 0.0, L(k, a[0]), torch.zeros_like(z))
     if op == "select":
         return torch.where(L(0, a[0]) != 0.0, L(k, a[1]), L(k, a[2]))
-    return torch.zeros_like(z)  # relup, the relational and logical ops
+    if op == "trigseries":
+        return Q(k, T.syn[o])
+    if op == "interp":
+        return Q(0, T.syn[o]) * L(k, a[0])
+    if op == "dayfrac":
+        return L(k, a[0])
+    # relup, the relational and logical ops, interp_p
+    return torch.zeros_like(z)
 
 
 def _sum_in_order(vals):
@@ -329,13 +337,14 @@ def _t2_item(T, L, S, c, k):
     return v / (float(k) * L(0, a[0]))
 
 
-def _walk(tape, tc, lo, item, synth=None):
+def _walk(tape, tc, lo, item, synth=None, side=None):
     """Orders lo..K of ``tc (K+1, W, B)`` in place by the packed tables, as
     a block of the engine runs them: a pass for the synthetic rows below
     lo and the state rows of order lo, then per order one pass per level
     and one for the synthetic rows of the order with the state rows of the
     next.  A pass computes all its items from what the earlier passes
-    wrote, then stores them."""
+    wrote, then stores them.  ``side``: ``order0``'s side rows, which the
+    items read as ``Q``."""
     T = _tables(tape)
     K = T.K
     S = tc.new_zeros((K + 1, T.n_syn, tc.shape[-1]))
@@ -358,7 +367,9 @@ def _walk(tape, tc, lo, item, synth=None):
     for k in range(lo, K + 1):
         for v in range(len(T.lvl) - 1):
             cols = range(T.lvl[v], T.lvl[v + 1])
-            vals = [item(T, L, Sr, c, k) for c in cols]
+            vals = [item(T, L, Sr, c, k) if side is None else
+                    item(T, L, Sr, c, k, Q=lambda j, r: side[j, r])
+                    for c in cols]
             for c, val in zip(cols, vals):
                 tc[k, c] = val
         if k < K:
@@ -459,3 +470,25 @@ def test_t2_walk_equals_the_plain_body(order, lo, n_lanes):
     got = _walk(tape, tc.permute(1, 0, 2).contiguous(), lo, _t2_item)
     assert got.dtype == _F32
     assert torch.equal(got.permute(1, 0, 2), ref)
+
+
+@pytest.mark.parametrize("lo", [1, 9])
+def test_tables_walk_to_the_twin_with_interpolants(lo):
+    # the data-driven ops (tools/cases.py eop_ode_sys): an interpolant's
+    # order k is its side row's slope times its input's order k, its
+    # slope's zero, dayfrac's its input's; the walk by the packed tables
+    # equals the twin bit for bit
+    from heyoka_tpu_torch.tools.cases import eop_ode_sys
+
+    K, B = 12, 5
+    tape = jp.PhaseTape(ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(eop_ode_sys(ht)), K)), "cpu")
+    rng = np.random.default_rng(4)
+    tc0 = seeded_buffer(tape, rng.uniform(-1, 1, (B, 2)), np.zeros((B, 0)),
+                        5478.0 + rng.uniform(0, 900, B), "cpu")
+    side = jp.order0(tape, tc0)
+    ref = jp.phase_plain(tape, tc0.clone(), 1, side)
+    start = ref.clone()
+    start[lo:, :int(tape.lvl[-1])] = float("nan")
+    got = _walk(tape, start, lo, _b4_item, _b4_synth, side)
+    assert torch.equal(got, ref)
