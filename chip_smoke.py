@@ -277,6 +277,29 @@ if anything is missing or any check fails.  Phases, one line each:
     bytes; (c) ``tests/test_eop_sw.py``'s ``pm_x`` ODE through
     ``taylor_adaptive`` on the card against its trapezoid integral
     (1e-7).
+26. float32 (ROADMAP C.4; kernel B4's f32 entry ``hy_phase_f32``): (a)
+    B4-f32 against its f32 twin on every tape of phase 10 at order 8 (the
+    order of tol 1e-6) on 1,024 lanes from lo = 1 and lo = 5, on phase
+    11's 10,240 pendulum lanes (every forced block shape bit for bit) and
+    on 10,240 outer-SS lanes at the f32 order, and on T2's outer-SS buffer
+    at order 19 from lo = 9: each order within 1e-5 of its largest
+    magnitude, two runs bit for bit, and B4-f32 against B4-f64 on the same
+    inputs; B4-f32's and B4-f64's times in turns (CUDA graphs), the twin's,
+    the bound; (b) the pendulum in f32 on phase 11's 10,240 lanes at tol
+    1e-6 to t = 10 and then t = 100: only B4-f32 launched, f32 state, time
+    and coefficients, every lane ``time_limit`` on t = 100 and finite,
+    within 5e-4 of the f64 run at the same tol at t = 10
+    (``test_float32_mode``'s bar) and 5e-3 at t = 100, the energy drift,
+    16 lanes against the port's f32 CPU run, lane-steps/s beside the f64
+    run's and phase 11's, the idle share (profiler over t < 10), and
+    ``taylor_adaptive(..., dtype=float32)`` on one lane with the same
+    checks; (c) the f32 cfunc at 2^20 points and SGP4 in f32 on phase 23
+    (d)'s 16,384 satellites at 32 epochs against the CPU in f32 and the
+    card in f64, their rates and SGP4's km and km/s from f64; (d)
+    ``s11n``'s cache in a child process with no ``nvcc``: the built
+    library packed, unpacked into a fresh directory, that directory
+    enabled, B4 (f32 and f64) launched from the unpacked library and held
+    to its twin.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
@@ -287,7 +310,9 @@ and 23's paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
 rows, ``var_tape``, phase 22's time on its variational tape, and
 ``config5_tape``, phase 23's on its config-5 tape; S1's line is phase
 24's, B4's gains ``series_tapes`` and ``eo_tape``, phase 25's time on
-the ``eo_dynamics`` tape); the last line is
+the ``eo_dynamics`` tape; B4-f32's row is phase 26's: its launches on the
+f32 pendulum, its time at 10,240 pendulum lanes at order 8 beside
+B4-f64's); the last line is
 ``{"ok": true, "device": {...}}``.  Each phase's
 line carries ``t_s``, the seconds since the script started.
 """
@@ -372,6 +397,7 @@ SOURCES = {"hy_series_jet_f64": "heyoka_tpu_torch/csrc/series_jet.cu",
            "hy_prop_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_jet_rolled_f64": "heyoka_tpu_torch/csrc/taylor_jet_rolled.cu",
            "hy_phase_f64": "heyoka_tpu_torch/csrc/taylor_phase.cu",
+           "hy_phase_f32": "heyoka_tpu_torch/csrc/taylor_phase.cu",
            "hy_conv_f32": "heyoka_tpu_torch/csrc/conv_microbench.cu",
            "hy_conv_dd": "heyoka_tpu_torch/csrc/conv_microbench.cu",
            "hy_proto_phase_f32": "heyoka_tpu_torch/csrc/proto_phase.cu"}
@@ -381,6 +407,7 @@ REPLACES = {"hy_series_jet_f64": "heyoka_tpu/expr/series.py:427",
             "hy_prop_f64": "heyoka_tpu/taylor/pallas_phase.py:2454",
             "hy_jet_rolled_f64": "heyoka_tpu/taylor/pallas_phase.py:1842",
             "hy_phase_f64": "heyoka_tpu/taylor/pallas_phase.py:899",
+            "hy_phase_f32": "heyoka_tpu/taylor/pallas_phase.py:899",
             "hy_conv_f32": "tools/microbench_pallas_conv.py:48",
             "hy_conv_dd": "tools/microbench_pallas_conv.py:92",
             "hy_proto_phase_f32": "tools/proto_pallas_phase.py:240"}
@@ -397,8 +424,8 @@ SWEEP_THREADS = (128, 256)
 
 def ptxas_name(line):
     """A kernel's name in a ptxas line, with its template arguments
-    (``jet_kernel<3,smem>``, ``phase_kernel<global>``, the staging alone
-    ``phase_kernel<smem,stage>``, T1-dd's trace instance
+    (``jet_kernel<3,smem>``, ``phase_kernel<f32,global>``, the staging
+    alone ``phase_kernel<f64,smem,stage>``, T1-dd's trace instance
     ``conv_dd_ring<trace>``) where it has them."""
     fn = next(w for w in PTXAS_NAMES if w in line)
     if fn == "conv_dd_ring":
@@ -406,10 +433,11 @@ def ptxas_name(line):
     m = re.search(fn + r"ILi(\d+)ELb([01])E", line)
     if m:
         fn += f"<{m.group(1)},{'smem' if m.group(2) == '1' else 'global'}>"
-    m = re.search(fn + r"I((?:Lb[01]E)+)E", line)
+    m = re.search(fn + r"I([fd]?)((?:Lb[01]E)+)E", line)
     if m:
-        flags = re.findall(r"Lb([01])E", m.group(1))
-        fn += "<" + ("smem" if flags[0] == "1" else "global") + (
+        flags = re.findall(r"Lb([01])E", m.group(2))
+        fn += "<" + {"f": "f32,", "d": "f64,"}.get(m.group(1), "") + (
+            "smem" if flags[0] == "1" else "global") + (
             ",stage" if flags[1:] == ["0"] else "") + ">"
     return fn
 
@@ -791,12 +819,16 @@ def main():
     phased[2]["eo_tape"] = b4_eo
     phased = (phased[0], max(phased[1], b4_eo["max_abs_err"]), phased[2])
 
+    # phase 26: float32; B4-f32's row, its launches on the f32 pendulum
+    f32_row = f32_paths(dev, smi, order, pend_until)
+
     rows = [("hy_series_jet_f64", ser_launch["elp2000_complete"]["series"],
              s1_err, s1_row),
             ("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
             ("hy_jet_rolled_f64", *rolled),
             ("hy_phase_f64", *phased),
+            ("hy_phase_f32", *f32_row),
             *convs, proto]
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],
@@ -1145,18 +1177,18 @@ def pendulum_energy(st):
     return 0.5 * st[:, 1] * st[:, 1] + 9.8 * (1.0 - torch.cos(st[:, 0]))
 
 
-def lane_tensors(st, pars, t, dev):
+def lane_tensors(st, pars, t, dev, dtype=torch.float64):
     """Lanes as :func:`phase_lanes` gives them -> the jets' arguments
-    ``(state (n, B), pars (n_pars, B), t (B,))`` on ``dev``."""
-    f = dict(dtype=torch.float64, device=dev)
+    ``(state (n, B), pars (n_pars, B), t (B,))`` of ``dtype`` on ``dev``."""
+    f = dict(dtype=dtype, device=dev)
     return (torch.as_tensor(st.T.copy(), **f),
             torch.as_tensor(pars.T.copy(), **f), torch.as_tensor(t, **f))
 
 
-def seeded_buffer(tape, st, pars, t, dev):
-    """The ``(K+1, W, B)`` buffer with order 0 of every column and the
-    virtual columns seeded: what kernel B4 starts from."""
-    tc = jk._seed_plain(tape, *lane_tensors(st, pars, t, dev))
+def seeded_buffer(tape, st, pars, t, dev, dtype=torch.float64):
+    """The ``(K+1, W, B)`` buffer of ``dtype`` with order 0 of every column
+    and the virtual columns seeded: what kernel B4 starts from."""
+    tc = jk._seed_plain(tape, *lane_tensors(st, pars, t, dev, dtype))
     jp.order0(tape, tc)
     return tc
 
@@ -4240,6 +4272,439 @@ def eo_paths(dev, smi, order):
     paths["pm_x_ode"] = line_c["launches"]
     say("25c", **line_c)
     return b4, paths
+
+
+# -- phase 26: float32 (ROADMAP C.4) ------------------------------------------
+
+F32_TOL = 1e-6  # test_float32_mode's tolerance: order 8
+#: B4-f32 against its f32 twin: every order within this share of its
+#: largest magnitude (T2's bar, PERF.md section 2)
+F32_RTOL = 1e-5
+F32_LO = 5  # (a)'s second start on the every-opcode tapes
+#: test_float32_mode's horizon and bar: f32 against f64 at the same tol
+F32_MODE_T, F32_MODE_BAR = 10.0, 5e-4
+#: the f32 pendulum against f64 at t = 100: f32's own error grows with the
+#: ~1,250 steps (7.3e-4 on 256 of the lanes on the CPU, measured), so
+#: ten times that; the CPU's f32 runs of 16 and of 256 lanes part by
+#: 1.8e-5 at t = 10 and 6.4e-4 at t = 100 (torch's f32 sin/cos take other
+#: code paths by width), hence the bars against the CPU run
+F32_T100_BAR = 5e-3
+F32_CPU_T10, F32_CPU_T100 = 1e-4, 5e-3
+F32_DRIFT_MAX = 1e-4  # the relative energy drift at t = 100 (5.2e-6 CPU)
+F32_REF_LANES = 16
+F32_CF_N = 2 ** 20
+F32_CF_RTOL = 1e-5  # f32 rounding, relative to the largest value
+F32_SGP4_KM = 2.0  # SGP4 in f32 against f64: f32's rounding over a day
+F32_SGP4_RTOL = 1e-5  # against the CPU's f32 run, relative
+
+
+def f32_parity(dev, order):
+    """Phase 26 (a): B4-f32 against its f32 twin on the card: every tape
+    of ``cases.phase_cases`` at order 8 on 1,024 lanes from lo = 1 and
+    lo = 5, the pendulum on phase 11's 10,240 lanes, the outer SS on
+    10,240 lanes at the f32 order and at order 19 from lo = 9 (T2's
+    buffer); two runs bit for bit, every forced block shape on the
+    pendulum, and B4-f32 against B4-f64 on the same inputs.  Returns the
+    line, the largest abs error, and the pendulum's times."""
+    K = taylor_order_from_tol(F32_TOL)
+    f32 = torch.float32
+
+    def rel(a, b):
+        return per_order_rel(a.permute(1, 0, 2).double(),
+                             b.permute(1, 0, 2).double())
+
+    def tape_of(sys_, k):
+        plan = build_plan(ht.taylor_decompose_sys(sys_), k)
+        return jp.PhaseTape(ht.plan_to_arrays(plan), dev)
+
+    res, err, ops = {}, 0.0, set()
+
+    def hold(name, tape, tc0, lo):
+        nonlocal err
+        tc_k = jp.phase(tape, tc0.clone(), lo)
+        twice = jp.phase(tape, tc0.clone(), lo)
+        tc_p = jp.phase_plain(tape, tc0.clone(), lo)
+        tc64 = jp.phase(tape, tc0.double(), lo)
+        torch.cuda.synchronize()
+        check(tc_k.dtype == f32 and bool(torch.isfinite(tc_k).all()),
+              f"B4-f32 on {name}: dtype or non-finite")
+        check(torch.equal(tc_k, twice), f"B4-f32 on {name}: two runs differ")
+        r = float(rel(tc_k, tc_p).max())
+        check(r <= F32_RTOL, f"B4-f32 vs its twin on {name} from {lo}: {r}")
+        err = max(err, float((tc_k - tc_p).abs().max()))
+        return dict(max_rel_per_order=r,
+                    vs_f64_rel_per_order=rel(tc_k, tc64).tolist())
+
+    cases = phase_cases(ht)
+    for i, (name, (sys_, st0, pars)) in enumerate(cases.items()):
+        tape = tape_of(sys_, K)
+        ops |= {g[0] for g in tape.groups}
+        tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, PHASE_B, 20 + i),
+                            dev, f32)
+        n_w = int(tape.lvl[-1])
+        r1 = hold(name, tape, tc0, 1)
+        tc5 = jp.phase_plain(tape, tc0.clone(), 1)
+        tc5[F32_LO:, :n_w] = float("nan")
+        r5 = float(rel(jp.phase(tape, tc5, F32_LO),
+                       jp.phase_plain(tape, tc0.clone(), 1)).max())
+        check(r5 <= F32_RTOL, f"B4-f32 on {name} from lo = {F32_LO}: {r5}")
+        res[name] = dict(r1, lo5_max_rel_per_order=r5,
+                         shape=jp.layout_report(tape, PHASE_B, 4))
+    missing = sorted(set(ht.PHASE_OPS) - ops - {
+        "trigseries", "interp", "interp_p", "dayfrac"})
+    check(not missing, f"phase 26 (a) ran no tape with {missing}")
+    # the pendulum at phase 11's width, every forced shape bit for bit
+    pend = tape_of(ht.models.pendulum(), K)
+    pl = (pendulum_lanes(PEND_B, 0), np.zeros((PEND_B, 0)), np.zeros(PEND_B))
+    tc0 = seeded_buffer(pend, *pl, dev, f32)
+    res["pendulum_10240"] = hold("the pendulum", pend, tc0, 1)
+    ref = jp.phase(pend, tc0.clone(), 1)
+    shapes = jp.sweep_shapes(pend, 4)
+    for lay, L, nt in shapes:
+        check(torch.equal(jp._phase_cuda(pend, tc0.clone(), 1, L, nt, lay),
+                          ref), f"B4-f32 on the pendulum with {L} lanes x "
+              f"{nt} threads on {lay} differs from the default")
+    res["pendulum_10240"].update(shapes_equal=len(shapes),
+                                 shape=jp.layout_report(pend, PEND_B, 4))
+    # the outer SS at the f32 order from lo = 1
+    ss_sys = nbody(6, masses=MASSES, Gconst=GCONST)
+    ss = tape_of(ss_sys, taylor_order_from_tol(np.finfo(np.float32).eps))
+    ss_lanes = (lanes(IC, B_MAIN, 0), np.zeros((B_MAIN, 0)), np.zeros(B_MAIN))
+    res["outer_ss"] = dict(hold("the outer SS", ss, seeded_buffer(
+        ss, *ss_lanes, dev, f32), 1), K=ss.order,
+        shape=jp.layout_report(ss, B_MAIN, 4))
+    # and at order 19 from lo = 9 on T2's buffer (phase 14), for B.7
+    ss_plan = proto_phase.outer_ss_plan(order)
+    ss19 = jp.PhaseTape(ht.plan_to_arrays(ss_plan), dev)
+    tc19 = proto_phase.realistic_buffer(ss_plan, IC, B_MAIN, PHASE_LO, dev,
+                                        0).permute(1, 0, 2).contiguous()
+    res["outer_ss_o19_lo9"] = hold("the outer SS at order 19", ss19, tc19,
+                                   PHASE_LO)
+    # times, f64 and f32 in turns (CUDA graphs), the f32 twin beside
+    times = {}
+    for key, tape, tc, lo in (("pendulum", pend, tc0, 1),
+                              ("outer_ss_o19_lo9", ss19, tc19, PHASE_LO)):
+        b32, b64, bp = tc.clone(), tc.double(), tc.clone()
+        t = {"f64": [], "f32": []}
+        for which in ("f64", "f32", "f32", "f64"):
+            buf = b32 if which == "f32" else b64
+            t[which].append(graph_ms(lambda: jp.phase(tape, buf, lo), 10))
+        plain = [cuda_ms(lambda: jp.phase_plain(tape, bp, lo), 1)
+                 for _ in range(2)]
+        ms32, ms64 = sum(t["f32"]) / 2, sum(t["f64"]) / 2
+        bnd = rl.phase_bound(tape, tc.shape[-1], lo, f32)
+        times[key] = dict(
+            B=tc.shape[-1], K=tape.order, lo=lo, ms_runs=t["f32"],
+            f64_ms_runs=t["f64"], ratio_f32_to_f64=ms32 / ms64,
+            plain_ms_runs=plain, x_bound=ms32 / bnd["bound_ms"],
+            f64_bound=rl.phase_bound(tape, tc.shape[-1], lo,
+                                     torch.float64), **bnd)
+    line = dict(K=K, B=PHASE_B, tol=F32_RTOL, opcodes=sorted(
+        ops, key=ht.OPCODES.index), max_abs_err=err, tapes=res, times=times)
+    return line, err, times["pendulum"]
+
+
+def f32_pendulum(dev, smi, f64_until):
+    """Phase 26 (b): the pendulum in f32 at 10,240 lanes (phase 11's) at
+    tol 1e-6 to t = 100 on kernel B4-f32, held to the f64 run of the same
+    lanes at the same tolerance and to the port's f32 CPU run; the scalar
+    likewise.  Returns the line and the launches on the path."""
+    from torch.profiler import ProfilerActivity, profile
+    sys_ = ht.models.pendulum()
+    ics = pendulum_lanes(PEND_B, 0)
+    kw32 = dict(tol=F32_TOL, dtype=np.float32)
+    warm = ht.taylor_adaptive_batch(sys_, ics[:CHUNK], device=dev, **kw32)
+    warm.propagate_until(1.0)
+    # the f64 run at the same tolerance (order 8), then the f32 run
+    r64, st64 = {}, {}
+    t64 = ht.taylor_adaptive_batch(sys_, ics, device=dev, tol=F32_TOL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t_end in (F32_MODE_T, PEND_T):
+        r64[t_end] = t64.propagate_until(t_end)
+        st64[t_end] = t64.state
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    steps64 = int(sum(int(r[3].sum()) for r in r64.values()))
+    ta = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw32)
+    eng = ta.engine_report()
+    check(eng["jet"] == "hy_phase_f32" and eng["propagate_engine"] == "flat",
+          f"f32 pendulum: not B4-f32's route: {eng}")
+    res, st32 = {}, {}
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for t_end in (F32_MODE_T, PEND_T):
+        res[t_end] = ta.propagate_until(t_end)
+        st32[t_end] = ta.state
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(launches["phase_f32"] > 0 and all(
+        n == 0 for k, n in launches.items() if k != "phase_f32"),
+        f"f32 pendulum: kernels launched {launches}")
+    check(ta._state.dtype == ta._tc.dtype == ta._t_hi.dtype
+          == ta._last_h.dtype == torch.float32, "f32 pendulum: not f32")
+    for t_end, r in res.items():
+        check(all(o == ht.TaylorOutcome.time_limit for o in r[0]),
+              f"f32 pendulum: an outcome at {t_end} is not time_limit")
+    check(bool((ta.dtime[0] == PEND_T).all()),
+          "f32 pendulum: a lane did not land on t = 100")
+    check(bool(np.isfinite(st32[PEND_T]).all()), "f32 pendulum: non-finite")
+    d10 = float(np.abs(st32[F32_MODE_T] - st64[F32_MODE_T]).max())
+    d100 = float(np.abs(st32[PEND_T] - st64[PEND_T]).max())
+    check(d10 <= F32_MODE_BAR, f"f32 vs f64 at t = 10: {d10}")
+    check(d100 <= F32_T100_BAR, f"f32 vs f64 at t = 100: {d100}")
+    e0 = pendulum_energy(torch.as_tensor(ics, device=dev))
+    e1 = pendulum_energy(torch.as_tensor(st32[PEND_T], device=dev).double())
+    drift = float(((e1 - e0).abs() / e0.abs()).max())
+    check(drift <= F32_DRIFT_MAX, f"f32 pendulum: energy drift {drift}")
+    cpu = ht.taylor_adaptive_batch(sys_, ics[:F32_REF_LANES], device="cpu",
+                                   **kw32)
+    cpu_d = {}
+    for t_end in (F32_MODE_T, PEND_T):
+        cpu.propagate_until(t_end)
+        cpu_d[t_end] = float(np.abs(
+            st32[t_end][:F32_REF_LANES] - cpu.state).max())
+    check(cpu_d[F32_MODE_T] <= F32_CPU_T10 and cpu_d[PEND_T] <= F32_CPU_T100,
+          f"f32 pendulum vs the CPU run: {cpu_d}")
+    steps = int(sum(int(r[3].sum()) for r in res.values()))
+    # the first 10 time units under the profiler: the idle share
+    tp = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw32)
+    tw = ht.taylor_adaptive_batch(sys_, ics, device=dev, **kw32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tw.propagate_until(PROFILE_T)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp.propagate_until(PROFILE_T)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e6
+    b4 = sum(e.time_range.elapsed_us() for e in ev
+             if "phase_kernel" in e.name) / 1e6
+    # the scalar on the card, against its CPU run and its f64 run
+    sc, sc_d = {}, {}
+    for name, d, kw in (("f32", dev, kw32), ("f64", dev, dict(tol=F32_TOL)),
+                        ("cpu_f32", "cpu", kw32)):
+        s = ht.taylor_adaptive(sys_, [0.05, 0.025], device=d, **kw)
+        if name == "f32":
+            check(s.engine_report()["jet"] == "hy_phase_f32",
+                  "f32 scalar: not B4-f32")
+            zero_launches()
+        for t_end in (F32_MODE_T, PEND_T):
+            oc = s.propagate_until(t_end)[0]
+            check(oc == ht.TaylorOutcome.time_limit and s.time == t_end,
+                  f"{name} scalar: {oc} at {s.time}")
+            sc[(name, t_end)] = s.state
+        if name == "f32":
+            sc_launch = dict(jk.LAUNCHES)
+            check(sc_launch["phase_f32"] > 0 and all(
+                n == 0 for k, n in sc_launch.items() if k != "phase_f32"),
+                f"f32 scalar: kernels launched {sc_launch}")
+            check(s.state.dtype == np.float32, "f32 scalar: not f32")
+    for t_end, bar64, barc in ((F32_MODE_T, F32_MODE_BAR, F32_CPU_T10),
+                               (PEND_T, F32_T100_BAR, F32_CPU_T100)):
+        sc_d[t_end] = dict(
+            vs_f64=float(np.abs(sc[("f32", t_end)]
+                                - sc[("f64", t_end)]).max()),
+            vs_cpu=float(np.abs(sc[("f32", t_end)]
+                                - sc[("cpu_f32", t_end)]).max()))
+        check(sc_d[t_end]["vs_f64"] <= bar64
+              and sc_d[t_end]["vs_cpu"] <= barc,
+              f"f32 scalar at {t_end}: {sc_d[t_end]}")
+    line = dict(
+        B=PEND_B, tol=F32_TOL, order=ta.order, t_end=PEND_T, engine=eng,
+        launches=launches, wall_s=wall, lane_steps=steps,
+        steps_per_s=steps / wall, mean_steps_per_lane=steps / PEND_B,
+        f64_same_tol=dict(wall_s=wall64, lane_steps=steps64,
+                          steps_per_s=steps64 / wall64),
+        f64_phase11=f64_until, rate_vs_f64_same_tol=(steps / wall)
+        / (steps64 / wall64), rate_vs_phase11=(steps / wall)
+        / f64_until["steps_per_s"],
+        vs_f64_max_abs={"t10": d10, "t100": d100},
+        bars={"t10": F32_MODE_BAR, "t100": F32_T100_BAR,
+              "cpu_t10": F32_CPU_T10, "cpu_t100": F32_CPU_T100},
+        cpu_ref_lanes=F32_REF_LANES,
+        cpu_ref_max_abs={"t10": cpu_d[F32_MODE_T], "t100": cpu_d[PEND_T]},
+        energy_drift_max_rel=drift, profile_t_end=PROFILE_T,
+        profile_wall_s=wall_w, device_events=len(ev),
+        device_busy_s=busy if ev else None,
+        device_idle_share=1.0 - busy / wall_w if ev else None,
+        b4_share_of_busy=b4 / busy if ev else None,
+        scalar=dict(launches=sc_launch, **{
+            f"t{int(t)}": v for t, v in sc_d.items()}), nvidia_smi=smi)
+    return line, dict(f32_pendulum=launches, f32_scalar=sc_launch)
+
+
+def f32_evals(dev, smi):
+    """Phase 26 (c): the f32 cfunc at 2^20 points and SGP4 in f32 on
+    16,384 satellites at 32 epochs (phase 23 (d)'s), each against the
+    CPU's f32 run and the card's f64 run, with their rates."""
+    from heyoka_tpu_torch.utils import cal_to_jd
+    rng = np.random.default_rng(26)
+    x, y = ht.make_vars("x", "y")
+    t = ht.time
+    cases = {
+        "jacobi": ([ht.models.cr3bp_jacobi(mu=VAR_MU)],
+                   ["x", "y", "z", "px", "py", "pz"],
+                   rng.uniform(-1.0, 1.0, (F32_CF_N, 6)), {}),
+        "inertial_time": ([x * ht.cos(t) - y * ht.sin(t),
+                           x * ht.sin(t) + y * ht.cos(t)], ["x", "y"],
+                          rng.uniform(-1.0, 1.0, (F32_CF_N, 2)),
+                          {"time": rng.uniform(0.0, 100.0, F32_CF_N)}),
+    }
+    out = {}
+    for name, (fns, vars_, pts, kw) in cases.items():
+        r = {}
+        for dt in (np.float32, np.float64):
+            cf = ht.make_cfunc(fns, vars=vars_, device=dev, dtype=dt)
+            args = {k: torch.as_tensor(v.astype(dt), device=dev)
+                    for k, v in kw.items()}
+            pts_d = torch.as_tensor(pts.astype(dt), device=dev)
+            r[dt] = cf(pts_d, **args)
+            ms = [cuda_ms(lambda: cf(pts_d, **args), 3) for _ in range(2)]
+            r[(dt, "rate")] = F32_CF_N / (min(ms) / 1e3)
+        cpu = ht.make_cfunc(fns, vars=vars_, device="cpu", dtype=np.float32)
+        want = cpu(pts.astype(np.float32), **{
+            k: v.astype(np.float32) for k, v in kw.items()})
+        got = r[np.float32]
+        check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+              f"f32 cfunc {name}: output")
+        vs_cpu = rel_max(got.cpu(), want)
+        vs_f64 = rel_max(got.double().cpu(), r[np.float64].cpu())
+        check(vs_cpu <= F32_CF_RTOL and vs_f64 <= F32_CF_RTOL,
+              f"f32 cfunc {name}: {vs_cpu} vs the CPU, {vs_f64} vs f64")
+        out[name] = dict(n=F32_CF_N, vs_cpu_f32_rel=vs_cpu,
+                         vs_f64_rel=vs_f64,
+                         evals_per_s_f32=r[(np.float32, "rate")],
+                         evals_per_s_f64=r[(np.float64, "rate")])
+    g = sgp4_population(SGP4_N)
+    g[7], g[8] = cal_to_jd(2024, 3, 1), 0.25
+    tm = np.broadcast_to(np.linspace(0.0, 1440.0, SGP4_EPOCHS)[:, None],
+                         (SGP4_EPOCHS, SGP4_N)).copy()
+    res, rate = {}, {}
+    for dt in (np.float32, np.float64):
+        prop = ht.models.SGP4Propagator(g, device=dev, dtype=dt)
+        tm_d = torch.as_tensor(tm.astype(dt), device=dev)
+        res[dt] = prop(tm_d)
+        ms = [cuda_ms(lambda: prop(tm_d), 3) for _ in range(2)]
+        rate[dt] = SGP4_N * SGP4_EPOCHS / (min(ms) / 1e3)
+    s32, s64 = res[np.float32], res[np.float64]
+    check(s32.dtype == torch.float32 and bool(torch.isfinite(s32).all()),
+          "f32 sgp4: output")
+    km = float((s32[..., :3].double() - s64[..., :3]).abs().amax())
+    kms = float((s32[..., 3:6].double() - s64[..., 3:6]).abs().amax())
+    check(km <= F32_SGP4_KM, f"f32 sgp4 vs f64: {km} km")
+    cpu = ht.models.SGP4Propagator(g[:, :SGP4_REF_SATS].copy(), device="cpu",
+                                   dtype=np.float32)
+    want = cpu(tm[:, :SGP4_REF_SATS].astype(np.float32))
+    vs_cpu = rel_max(s32[:, :SGP4_REF_SATS, :6].cpu(), want[..., :6])
+    check(vs_cpu <= F32_SGP4_RTOL, f"f32 sgp4 vs the CPU: {vs_cpu}")
+    out["sgp4"] = dict(sats=SGP4_N, epochs=SGP4_EPOCHS,
+                       vs_f64_max_km=km, vs_f64_max_km_s=kms,
+                       cpu_ref_sats=SGP4_REF_SATS, vs_cpu_f32_rel=vs_cpu,
+                       sat_epochs_per_s_f32=rate[np.float32],
+                       sat_epochs_per_s_f64=rate[np.float64])
+    out["nvidia_smi"] = smi
+    return out
+
+
+#: phase 26 (d)'s child process: from a process that has loaded no
+#: library, pack the checkout's built library (``s11n.pack_cache``), unpack
+#: it into a fresh directory, ``enable_compilation_cache`` there, and launch
+#: B4-f32 and B4-f64 with no ``nvcc`` to be found; one JSON line
+S11N_CHILD = r"""
+import json, shutil, sys
+import numpy as np, torch
+import heyoka_tpu_torch as ht
+from heyoka_tpu_torch import _build, s11n
+from heyoka_tpu_torch.taylor import jet_phase as jp
+from heyoka_tpu_torch.taylor.compact import build_plan
+from chip_smoke import F32_RTOL, pendulum_lanes, per_order_rel, seeded_buffer
+dest, archive = sys.argv[1:3]
+assert _build.loaded_path() is None and shutil.which("nvcc") is None
+built = s11n.cache_entries()
+n_packed = s11n.pack_cache(archive)
+n_unpacked = s11n.unpack_cache(archive, dest)
+s11n.enable_compilation_cache(dest)
+dev = torch.device("cuda")
+tape = jp.PhaseTape(ht.plan_to_arrays(build_plan(
+    ht.taylor_decompose_sys(ht.models.pendulum()), 8)), dev)
+B = 1024
+rel = {}
+for dt in (torch.float32, torch.float64):
+    tc0 = seeded_buffer(tape, pendulum_lanes(B, 1), np.zeros((B, 0)),
+                        np.zeros(B), dev, dt)
+    k = jp.phase(tape, tc0.clone(), 1)
+    p = jp.phase_plain(tape, tc0.clone(), 1)
+    torch.cuda.synchronize()
+    rel[str(dt)] = float(per_order_rel(k.permute(1, 0, 2).double(),
+                                       p.permute(1, 0, 2).double()).max())
+loaded = _build.loaded_path()
+ok = (loaded is not None and str(loaded.parent) == str(
+    _build.build_dir()) and loaded.name == _build.library_path().name
+      and n_packed == n_unpacked == len(built) >= 1
+      and rel["torch.float32"] <= F32_RTOL and rel["torch.float64"] <= 1e-13)
+print(json.dumps(dict(ok=ok, packed=n_packed, unpacked=n_unpacked,
+                      loaded=loaded.name, loaded_from=s11n.cache_path(),
+                      nvcc=shutil.which("nvcc"), max_rel_per_order=rel,
+                      cache_size=s11n.cache_size())))
+"""
+
+
+def s11n_cache(dev):
+    """Phase 26 (d): the s11n cache on the card, in a child process (so
+    that no library is already loaded) whose PATH holds no ``nvcc`` and
+    whose ``CUDA_HOME`` names no toolkit: the unpacked library loads and
+    B4 matches its twin."""
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "s11n_phase26"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, CUDA_HOME=str(work / "no_cuda"),
+               PYTHONPATH=str(root))
+    env.pop("CUDA_PATH", None)
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", S11N_CHILD, str(work / "cache"),
+             str(work / "kernels.tar.gz")], capture_output=True, text=True,
+            cwd=root, env=env, timeout=300)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(r.returncode == 0, f"s11n child failed: {r.stderr[-2000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    check(line["ok"], f"s11n cache: {line}")
+    return line
+
+
+def f32_paths(dev, smi, order, pend_until):
+    """Phase 26: float32 on the card (ROADMAP C.4).  Returns B4-f32's
+    kernel row and the launches on each of the phase's paths."""
+    line_a, err, tm = f32_parity(dev, order)
+    say("26a", nvidia_smi=smi, **line_a)
+    line_b, paths = f32_pendulum(dev, smi, pend_until)
+    say("26b", **line_b)
+    say("26c", **f32_evals(dev, smi))
+    say("26d", **s11n_cache(dev))
+    row = dict(ms=sum(tm["ms_runs"]) / 2,
+               plain_ms=sum(tm["plain_ms_runs"]) / 2, library_ms=None,
+               bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+               x_bound=tm["x_bound"], f64_ms=sum(tm["f64_ms_runs"]) / 2,
+               ratio_f32_to_f64=tm["ratio_f32_to_f64"], K=tm["K"],
+               B=tm["B"], path_launches={k: v["phase_f32"]
+                                         for k, v in paths.items()})
+    return paths["f32_pendulum"]["phase_f32"], err, row
 
 
 if __name__ == "__main__":

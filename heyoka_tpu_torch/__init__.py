@@ -2,9 +2,10 @@
 
 Imports torch and numpy, never JAX: the expression layer and the tape
 planner are copies of ``heyoka_tpu``'s pure-Python modules, held against
-the originals by the tests.  Everything runs in f64 on an explicit
-``device``: a CPU tensor runs the plain torch versions, a CUDA tensor the
-hand-written CUDA kernels of ``csrc/`` (built with ``nvcc`` at first use).
+the originals by the tests.  Everything runs in f64 (or f32 where the
+caller asks) on an explicit ``device``: a CPU tensor runs the plain torch
+versions, a CUDA tensor the hand-written CUDA kernels of ``csrc/`` (built
+with ``nvcc`` at first use).
 
 The port covers the scalar and batch integrators and the ensembles
 (``taylor_adaptive``, ``taylor_adaptive_batch``,
@@ -34,6 +35,13 @@ copies of the builtin snapshots) give data-driven interpolation ops whose
 order 0 runs in torch and whose higher orders are kernel B4 rules; on
 them stand the frame rotations of the IAU2006 chain and the full
 ``models.eo_dynamics``.
+
+Integrators, cfuncs and the SGP4 propagator take ``dtype=float64`` (the
+default) or ``float32``: a float32 integrator runs every tape through
+kernel B4's f32 entry.  ``s11n`` pickles every object and manages the
+kernel library's directory as the JAX package's cache API manages its
+compilation cache; ``multiprec`` is the host-side mpmath integrator at any
+number of digits (it imports mpmath at first use).
 """
 
 from .expr.core import (  # noqa: F401
@@ -102,6 +110,7 @@ from .ensemble import (  # noqa: F401
     ensemble_propagate_grid_batch,
 )
 from .taylor.jet_kernels import LAUNCHES  # noqa: F401
+from . import multiprec, s11n  # noqa: F401
 from .taylor.jet_phase import PhaseTape, jet_phase, phase  # noqa: F401
 
 taylor_outcome = TaylorOutcome

@@ -2,11 +2,15 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` file, one process per source, all
 started together, and links the objects into one shared library with a
-plain C interface, at first use, into ``build/heyoka_tpu_torch/`` at the
-root of the checkout (listed in ``.gitignore``).  The library's file name
+plain C interface, at first use, into the build directory: by default
+``build/heyoka_tpu_torch/`` at the root of the checkout (listed in
+``.gitignore``), elsewhere after :func:`set_build_dir` (which
+``s11n.enable_compilation_cache`` calls).  The library's file name
 carries a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses the last build.  ``ctypes`` loads it; every entry
-point returns ``cudaGetLastError()`` after its launch.
+unchanged tree reuses the last build, wherever it was built: a library
+unpacked into the directory (``s11n.unpack_cache``) loads without
+``nvcc``.  ``ctypes`` loads it; every entry point returns
+``cudaGetLastError()`` after its launch.
 
 There is no fallback: without ``nvcc`` or with a failing build, ``load``
 raises.
@@ -20,11 +24,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "heyoka_tpu_torch"
+#: the build directory in the checkout, the default of :func:`build_dir`
+DEFAULT_BUILD_DIR = _PKG.parent / "build" / "heyoka_tpu_torch"
+_build_dir = DEFAULT_BUILD_DIR
+#: the library this process loaded (None before :func:`load`)
+_loaded: Path | None = None
+#: the file name of a library: its prefix, then the hash, then ``.so``
+LIB_PREFIX = "libhy_kernels_"
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: compile flags: ``-fmad=false`` keeps nvcc from contracting ``a*b - c``
@@ -50,8 +61,10 @@ SIGNATURES = {
     # threads, smem, lane_dbl, blocks, stream
     "hy_jet_rolled_f64": (_P,) * 10 + (_I,) * 5 + (_P,),
     # itab, dtab, tc, syn, ser, n_ser, B, lo, lanes, threads, smem, n_it,
-    # n_dt, global layout, stream (csrc/phase_block.cuh)
+    # n_dt, global layout, stream (csrc/phase_block.cuh); the f32 entry
+    # takes the same on float buffers
     "hy_phase_f64": (_P,) * 5 + (_I,) * 9 + (_P,),
+    "hy_phase_f32": (_P,) * 5 + (_I,) * 9 + (_P,),
     # itab, dtab, tc, B, lo, lanes, threads, smem, n_it, n_dt, stream
     "hy_phase_stage_f64": (_P,) * 3 + (_I,) * 7 + (_P,),
     # a, b, c, N, K, stream
@@ -88,13 +101,31 @@ def _nvcc() -> str:
     return exe
 
 
+def build_dir() -> Path:
+    """The directory the library is built into and loaded from."""
+    return _build_dir
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from ``path`` from now on (a library this
+    process has loaded stays loaded); returns it."""
+    global _build_dir
+    _build_dir = Path(path)
+    return _build_dir
+
+
+def loaded_path() -> Path | None:
+    """The library this process loaded, None before :func:`load`."""
+    return _loaded
+
+
 def library_path() -> Path:
     """Where the library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libhy_kernels_{h.hexdigest()[:16]}.so"
+    return _build_dir / f"{LIB_PREFIX}{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -104,13 +135,13 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.name}.{os.getpid()}"
-    tmp = BUILD_DIR / f"{tag}.tmp"
+    tmp = out.parent / f"{tag}.tmp"
     objs, jobs = [], []
     for src in sorted(CSRC.glob("*.cu")):
-        objs.append(BUILD_DIR / f"{tag}.{src.stem}.o")
+        objs.append(out.parent / f"{tag}.{src.stem}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[-1]), str(src)]
         jobs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -139,7 +170,12 @@ def build() -> Path:
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
-    lib = ctypes.CDLL(str(build()))
+    global _loaded
+    path = build()
+    # a use: the access time orders s11n.trim_cache's evictions
+    os.utime(path, (time.time(), path.stat().st_mtime))
+    lib = ctypes.CDLL(str(path))
+    _loaded = path
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -1,13 +1,15 @@
 """Compiled functions (cfunc): a vector function of expressions evaluated
-in f64 torch on a device.
+in torch on a device, in float64 or float32.
 
 The counterpart of ``heyoka_tpu/cfunc.py`` (reference: heyoka ``cfunc<T>``,
 ``include/heyoka/expression.hpp:734-965``, ``src/cfunc_class.cpp``).  The
 expressions are decomposed once (``expr.decompose.function_decompose``,
-the same tape as the JAX package's) and evaluated row by row with the f64
+the same tape as the JAX package's) and evaluated row by row with the
 rules of :mod:`.expr.numeric` (``pow`` with the JAX package's special
-cases, ``taylor.jet_kernels._pow0_plain``): one torch op per tape row over
-all the evaluations at once.  Where the JAX class jits the tape and
+cases, ``taylor.jet_kernels._pow0_plain``) in the cfunc's dtype, float64
+or float32, as the JAX class evaluates its tape in its own
+(``cfunc.py:70-73``): one torch op per tape row over all the evaluations
+at once.  Where the JAX class jits the tape and
 ``vmap``s it over the evaluations (``cfunc.py:109-146``), the rows here
 broadcast over a leading evaluation axis: ``inputs`` (n_evals, n_vars),
 ``pars`` (n_pars,) shared or (n_evals, n_pars) per evaluation, ``time`` a
@@ -31,7 +33,7 @@ import numbers
 import numpy as np
 import torch
 
-from .convert import check_dtype, resolve_device
+from .convert import check_dtype, numpy_dtype, resolve_device
 from .expr.decompose import Tape, function_decompose
 from .expr.numeric import evaluate
 from .taylor.jet_kernels import _pow0_plain
@@ -39,10 +41,10 @@ from .taylor.jet_kernels import _pow0_plain
 
 def tape_eval(tape: Tape, inputs, pars, t):
     """Order 0 of a decomposed tape (the JAX ``tape_eval``, ``cfunc.py:
-    27``): ``inputs`` (..., n_vars) and ``pars`` (..., n_pars) f64
-    tensors, ``t`` a tensor broadcastable against their leading axes;
-    returns the tape's outputs, one tensor each (a literal output a 0-d
-    tensor)."""
+    27``): ``inputs`` (..., n_vars) and ``pars`` (..., n_pars) tensors of
+    one dtype (f64 or f32), which every row keeps, ``t`` a tensor
+    broadcastable against their leading axes; returns the tape's outputs,
+    one tensor each (a literal output a 0-d tensor)."""
     n_eq = tape.n_eq
     vals = [inputs[..., i] for i in range(n_eq)]
 
@@ -76,15 +78,15 @@ class cfunc:
     ``inputs`` (n_vars,) gives (n_outs,); multi evaluation with (n_evals,
     n_vars) gives (n_evals, n_outs), ``pars`` (n_pars,) or (n_evals,
     n_pars), ``time`` a scalar or (n_evals,).  ``vars`` fixes the input
-    order (default: the sorted variable names); ``dtype`` takes float64
-    only.
+    order (default: the sorted variable names); ``dtype``: float64 (the
+    default) or float32, the dtype of the evaluation and of its results.
     """
 
     def __init__(self, fns, vars=None, *, dtype=np.float64, device="cuda"):
-        check_dtype(dtype)
+        self._tdtype = check_dtype(dtype)
         self.tape = function_decompose(fns, vars)
         self.fns = list(fns)
-        self.dtype = np.dtype(np.float64)
+        self.dtype = numpy_dtype(self._tdtype)
         self.device = resolve_device(device)
 
     @property
@@ -115,16 +117,16 @@ class cfunc:
         return self.tape.n_pars
 
     def _tensor(self, x, what):
-        """``x`` as an f64 tensor on the cfunc's device; a tensor elsewhere
-        raises."""
+        """``x`` as a tensor of the cfunc's dtype on its device; a tensor
+        elsewhere raises."""
         if isinstance(x, torch.Tensor):
             dev = self.device
             if x.device.type != dev.type or dev.index not in (
                     None, x.device.index):
                 raise ValueError(
                     f"{what} lies on {x.device}, the cfunc on {self.device}")
-            return x.to(torch.float64)
-        return torch.as_tensor(np.array(x, np.float64), device=self.device)
+            return x.to(self._tdtype)
+        return torch.as_tensor(np.array(x, self.dtype), device=self.device)
 
     def __call__(self, inputs, pars=None, time=0.0):
         inputs = self._tensor(inputs, "inputs")

@@ -302,36 +302,51 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_dtype(dtype) -> None:
-    """Accept float64 (numpy's, torch's or their names), the one precision
-    the port integrates in; raise ``ValueError`` for any other ``dtype``
-    (the JAX package's integrators also take float32)."""
+#: the precisions the port integrates and evaluates in
+DTYPES = (torch.float64, torch.float32)
+
+
+def check_dtype(dtype) -> torch.dtype:
+    """``dtype`` as a torch dtype: float64 or float32, numpy's, torch's or
+    named by string, the JAX package's two precisions; raise
+    ``ValueError`` for any other (float16, ints, ...)."""
     if isinstance(dtype, torch.dtype):
-        ok = dtype == torch.float64
+        td = dtype
     else:
         try:
-            ok = np.dtype(dtype) == np.float64
+            td = {np.dtype(np.float64): torch.float64,
+                  np.dtype(np.float32): torch.float32}.get(np.dtype(dtype))
         except TypeError:
-            ok = False
-    if not ok:
+            td = None
+    if td not in DTYPES:
         raise ValueError(f"dtype {dtype!r} is not supported: the port "
-                         "integrates in float64 only (pass float64)")
+                         "integrates in float64 or float32")
+    return td
 
 
-def state_from_numpy(state, pars, t_hi, t_lo, device) -> dict:
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of one of ``DTYPES``."""
+    return np.dtype(np.float64 if dtype == torch.float64 else np.float32)
+
+
+def state_from_numpy(state, pars, t_hi, t_lo, device,
+                     dtype=torch.float64) -> dict:
     """The port's lane state from the arrays of a JAX
     ``TaylorAdaptiveBatch`` (``state`` (B, n), ``pars`` (B, p), and the
-    double-length time ``dtime`` pair, each (B,)): f64 tensors on
-    ``device``, under the keys the port's integrator keeps."""
-    def f64(a):
-        return torch.as_tensor(np.array(a, np.float64), device=device)
+    double-length time ``dtime`` pair, each (B,)): ``dtype`` tensors on
+    ``device`` (float64 or float32, ``check_dtype``), under the keys the
+    port's integrator keeps."""
+    npd = numpy_dtype(check_dtype(dtype))
 
-    state = f64(state)
+    def cast(a):
+        return torch.as_tensor(np.array(a, npd), device=device)
+
+    state = cast(state)
     if state.ndim != 2:
         raise ValueError(f"state must be (batch, n); got {tuple(state.shape)}")
     B = state.shape[0]
-    pars = f64(pars).reshape(B, -1)
-    t_hi = f64(t_hi).reshape(-1).expand(B).contiguous()
-    t_lo = f64(t_lo).reshape(-1).expand(B).contiguous()
+    pars = cast(pars).reshape(B, -1)
+    t_hi = cast(t_hi).reshape(-1).expand(B).contiguous()
+    t_lo = cast(t_lo).reshape(-1).expand(B).contiguous()
     return dict(state=state.contiguous(), pars=pars.contiguous(),
                 t_hi=t_hi, t_lo=t_lo)

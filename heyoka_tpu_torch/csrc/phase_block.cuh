@@ -1,5 +1,6 @@
-// The block engine of the phase kernels: kernel B4 (taylor_phase.cu, f64,
-// the whole rule set) and kernel T2 (proto_phase.cu, f32, sum/mul/pow).
+// The block engine of the phase kernels: kernel B4 (taylor_phase.cu, f64
+// and f32, the whole rule set) and kernel T2 (proto_phase.cu, f32,
+// sum/mul/pow).
 // Both run Taylor orders lo..K of every column of a tape plan, in place on
 // the caller's (K+1, W, B) buffer, lane index minor; they differ in their
 // scalar type and their rules only, which a kernel passes as a functor:

@@ -72,30 +72,45 @@ __device__ Tape load_tape(const int* __restrict__ it,
   return T;
 }
 
+// The math functions in the scalar's own precision: the f64 functions in
+// a double instantiation, the f32 ones (sqrtf, ...) in a float one, never
+// an f64 call with a cast.
+__device__ inline double msqrt(double x) { return sqrt(x); }
+__device__ inline float msqrt(float x) { return sqrtf(x); }
+__device__ inline double mfloor(double x) { return floor(x); }
+__device__ inline float mfloor(float x) { return floorf(x); }
+__device__ inline double mfabs(double x) { return fabs(x); }
+__device__ inline float mfabs(float x) { return fabsf(x); }
+__device__ inline double mpow(double x, double y) { return pow(x, y); }
+__device__ inline float mpow(float x, float y) { return powf(x, y); }
+
 // min / max that propagate NaN, like torch.minimum / torch.maximum
-__device__ inline double nmin(double a, double b) {
+template <typename F>
+__device__ inline F nmin(F a, F b) {
   return (a < b || isnan(a)) ? a : b;
 }
-__device__ inline double nmax(double a, double b) {
+template <typename F>
+__device__ inline F nmax(F a, F b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
 // order-0 power with the JAX package's special cases (jet.py _pow0)
-__device__ double pow0(double b, double a) {
-  if (a == -1.0) return 1.0 / b;
-  if (a == 0.5) return sqrt(b);
-  if (a == -0.5) return 1.0 / sqrt(b);
-  if (a == -1.5) {
-    const double r = 1.0 / sqrt(b);
+template <typename F>
+__device__ F pow0(F b, F a) {
+  if (a == F(-1)) return F(1) / b;
+  if (a == F(0.5)) return msqrt(b);
+  if (a == F(-0.5)) return F(1) / msqrt(b);
+  if (a == F(-1.5)) {
+    const F r = F(1) / msqrt(b);
     return r * r * r;
   }
-  if (a == 1.5) return b * sqrt(b);
-  if (a == floor(a) && fabs(a) <= 512.0) {
+  if (a == F(1.5)) return b * msqrt(b);
+  if (a == mfloor(a) && mfabs(a) <= F(512)) {
     int n = (int)a;
-    double x = n > 0 ? b : 1.0 / b;
+    F x = n > 0 ? b : F(1) / b;
     n = n < 0 ? -n : n;
-    if (n == 0) return 1.0;
-    double r = 0.0;
+    if (n == 0) return F(1);
+    F r = F(0);
     bool have = false;
     while (n) {
       if (n & 1) {
@@ -107,7 +122,7 @@ __device__ double pow0(double b, double a) {
     }
     return r;
   }
-  return pow(b, a);
+  return mpow(b, a);
 }
 
 }  // namespace

@@ -1,9 +1,12 @@
-"""Double-length ("double-double") arithmetic on f64 tensors.
+"""Double-length arithmetic on pairs of tensors of one dtype: f64 pairs
+("double-double") for a float64 integrator, f32 pairs for a float32 one,
+as the JAX f32 batch keeps ``dtime``.
 
 The counterpart of ``heyoka_tpu.dfloat`` (reference: heyoka's dfloat,
 ``src/detail/dfloat.cpp``): error-free two-sum accumulation of the
 integrator time, so that accuracy holds over very many steps.  Works on
-torch tensors and Python floats alike.
+torch tensors of either dtype and Python floats alike; the sums keep
+their operands' dtype.
 """
 
 from __future__ import annotations

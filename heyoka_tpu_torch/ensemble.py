@@ -102,24 +102,25 @@ def _build_inputs(ta, n_iter, gen):
     zeros, ``time`` the template's), or ``gen(i) -> dict`` overriding the
     template's ``state``, ``pars`` and ``time`` for instance ``i``."""
     dim, n_pars = ta.dim, ta._tb.decomposition.n_pars
+    npd = ta._tb.dtype
     if isinstance(gen, dict):
-        states = np.asarray(gen.get("state"), dtype=np.float64)
+        states = np.asarray(gen.get("state"), dtype=npd)
         pars = gen.get("pars")
-        pars = np.zeros((n_iter, n_pars)) if pars is None else \
-            np.asarray(pars, np.float64).reshape(n_iter, n_pars)
+        pars = np.zeros((n_iter, n_pars), npd) if pars is None else \
+            np.asarray(pars, npd).reshape(n_iter, n_pars)
         times = gen.get("time")
-        times = np.full((n_iter,), ta.time) if times is None else \
-            np.array(np.broadcast_to(np.asarray(times, np.float64),
+        times = np.full((n_iter,), ta.time, npd) if times is None else \
+            np.array(np.broadcast_to(np.asarray(times, npd),
                                      (n_iter,)))
         return states, pars, times
-    states = np.empty((n_iter, dim))
-    pars = np.empty((n_iter, n_pars))
-    times = np.empty((n_iter,))
+    states = np.empty((n_iter, dim), npd)
+    pars = np.empty((n_iter, n_pars), npd)
+    times = np.empty((n_iter,), npd)
     for i in range(n_iter):
         over = gen(i) or {}
-        states[i] = np.asarray(over.get("state", ta.state), np.float64)
+        states[i] = np.asarray(over.get("state", ta.state), npd)
         pars[i] = np.asarray(over.get("pars", ta.pars),
-                             np.float64).reshape(n_pars)
+                             npd).reshape(n_pars)
         times[i] = float(over.get("time", ta.time))
     return states, pars, times
 
@@ -257,7 +258,7 @@ def ensemble_propagate_until(ta, t, n_iter: int, gen, *, max_delta_t=None,
     states, pars, times = _build_inputs(ta, n_iter, gen)
     if max_delta_t is None:
         max_delta_t = _pymath.inf
-    t_all = np.array(np.broadcast_to(np.asarray(t, np.float64), (n_iter,)))
+    t_all = np.array(np.broadcast_to(np.asarray(t, ta._tb.dtype), (n_iter,)))
     if _te_callbacks(ta):
         return _host_fallback(ta, n_iter, states, pars, times, t_all,
                               max_delta_t, int(max_steps))
@@ -368,15 +369,15 @@ def _flatten_batch_gen(tab, n_iter, gen):
     b = tab.batch_size
     if not isinstance(gen, dict):
         raise TypeError("batch ensembles take a dict of stacked arrays")
-    states = np.asarray(gen["state"], dtype=np.float64)
+    states = np.asarray(gen["state"], dtype=tab.dtype)
     if states.shape[:2] != (n_iter, b):
         raise ValueError(f"state must have shape ({n_iter}, {b}, dim)")
     out = {"state": states.reshape(n_iter * b, -1)}
     if gen.get("pars") is not None:
-        out["pars"] = np.asarray(gen["pars"], np.float64).reshape(
+        out["pars"] = np.asarray(gen["pars"], tab.dtype).reshape(
             n_iter * b, -1)
     if gen.get("time") is not None:
-        out["time"] = np.broadcast_to(np.asarray(gen["time"], np.float64),
+        out["time"] = np.broadcast_to(np.asarray(gen["time"], tab.dtype),
                                       (n_iter, b)).reshape(n_iter * b)
     return out
 

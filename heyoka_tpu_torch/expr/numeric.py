@@ -1,4 +1,5 @@
-"""Numeric rules of the tape ops in f64 torch: the values the Taylor jet
+"""Numeric rules of the tape ops in torch, in their operands' dtype (f64,
+or f32 for the float32 integrators and cfuncs): the values the Taylor jet
 needs at order 0.
 
 The counterpart of the ``evaluate`` rules of ``heyoka_tpu/expr/registry.py``
@@ -9,7 +10,8 @@ carry an auxiliary operand for their recurrence that order 0 does not
 read.  Relational and logical ops give 0/1 in the working dtype.
 
 The Kepler solvers run Newton's method from the JAX package's start values
-with its 1e-15 stop and 50-iteration cap.  The JAX loop iterates every lane
+with its 1e-15 stop and 50-iteration cap (in f32 the stop is never met
+and every lane runs the 50 iterations).  The JAX loop iterates every lane
 until all have converged; here a converged lane is frozen with
 ``torch.where`` and the loop always runs to the cap (a test of
 convergence would be a host sync per iteration on a CUDA tensor), so a
@@ -22,6 +24,7 @@ tensor, its twin on a CPU one.  A dataset interpolant or its slope
 (``<qty>%<key>``, ``<qty>_p%<key>``) resolves through ``eop_sw.evaluate``
 (a ``searchsorted`` and the linear interpolation on tables on the
 tensor's device), ``dayfrac`` through ``models.dayfrac.ev_dayfrac``.
+Their tables are f64: an f32 operand gets its value rounded to f32.
 """
 
 from __future__ import annotations
@@ -131,7 +134,7 @@ def kepDE(s0, c0, DM):
     return _newton(D0, fdf) + (DM - Dr)
 
 
-#: op name -> f64 torch rule over the operands' values
+#: op name -> torch rule over the operands' values
 EVALUATE = {
     "sum": _sum,
     "mul": lambda a, b: a * b,
@@ -173,24 +176,26 @@ EVALUATE = {
 
 
 def evaluate(name: str, *args):
-    """The value of op ``name`` on f64 tensors ``args`` (pow has its own
-    rule with the exponent, ``taylor.jet_kernels._pow0_plain``); a dense
-    series op (``trigseries%<key>``) goes to ``series_jet.series_value``,
-    a dataset op to ``eop_sw.evaluate``, ``dayfrac`` to
-    ``models.dayfrac.ev_dayfrac``."""
+    """The value of op ``name`` on tensors ``args`` of one dtype, which it
+    keeps (pow has its own rule with the exponent,
+    ``taylor.jet_kernels._pow0_plain``); a dense series op
+    (``trigseries%<key>``) goes to ``series_jet.series_value``, a dataset
+    op to ``eop_sw.evaluate``, ``dayfrac`` to
+    ``models.dayfrac.ev_dayfrac``, each computed in f64 and rounded to the
+    operand's dtype."""
     if name not in EVALUATE:
         from .series import is_series
 
         if is_series(name):
             from ..taylor.series_jet import series_value
 
-            return series_value(name, args[0])
+            return series_value(name, args[0]).to(args[0].dtype)
         from .. import eop_sw
 
         if eop_sw.is_interp(name):
-            return eop_sw.evaluate(name, args[0])
+            return eop_sw.evaluate(name, args[0]).to(args[0].dtype)
         if name == "dayfrac":
             from ..models.dayfrac import ev_dayfrac
 
-            return ev_dayfrac(args[0])
+            return ev_dayfrac(args[0]).to(args[0].dtype)
     return EVALUATE[name](*args[:EVAL_ARITY.get(name, len(args))])

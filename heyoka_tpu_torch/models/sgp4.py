@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..cfunc import make_cfunc, tape_eval
-from ..convert import check_dtype
+from ..convert import check_dtype, numpy_dtype
 from ..expr.core import expr, make_vars
 from ..expr.math import (
     sin, cos, sqrt, atan2, kepF, select, gt, lt, eq, logical_or, pi,
@@ -372,8 +372,9 @@ class SGP4Propagator:
     :mod:`heyoka_tpu_torch.utils.tle`).  One compiled function of the
     symbolic SGP4 (:func:`sgp4`) on ``device`` (CUDA unless the caller
     asks for the CPU) is evaluated over the flattened (n_evals x n_sats)
-    points at once; results are f64 tensors on that device, as the port's
-    ``cfunc`` returns them.
+    points at once; results are tensors of ``dtype`` (float64 or float32,
+    the JAX class's two) on that device, as the port's ``cfunc`` returns
+    them.
 
     ``diff_order > 0`` adds derivatives of the Cartesian state w.r.t.
     ``[n0, e0, i0, node0, omega0, m0, bstar]``: ``diff_order`` nested
@@ -386,11 +387,10 @@ class SGP4Propagator:
 
     def __init__(self, sat_data, *, diff_order: int = 0, dtype=np.float64,
                  device="cuda"):
-        check_dtype(dtype)
-        self._dtype = np.dtype(np.float64)
+        self._dtype = numpy_dtype(check_dtype(dtype))
         self._diff_order = int(diff_order)
         self._cf = make_cfunc(sgp4(), vars=list(self._VARS) + ["tsince"],
-                              device=device)
+                              device=device, dtype=self._dtype)
         self.replace_sat_data(sat_data)
         self._mindex = _dtens_flat_indices(7, 7, self._diff_order)
         self._nouts = len(self._mindex)
@@ -422,7 +422,7 @@ class SGP4Propagator:
                 f"{bad.tolist()}: not propagatable with SGP4"
             )
         self._sat_data = sat_data
-        self._els = torch.as_tensor(sat_data[:7].T.copy(),
+        self._els = torch.as_tensor(sat_data[:7].T.astype(self._dtype),
                                     device=self.device)  # (n_sats, 7)
         self._epoch_jd = sat_data[7]
         self._epoch_frac = sat_data[8]

@@ -31,7 +31,10 @@ callables ``cb(ta) -> bool`` (given this integrator) or in-graph ones
 pure-stop terminal events ``propagate_until`` dispatches the non-terminal
 callbacks after the propagation, in time order.
 
-Knobs: ``dtype=`` takes float64 only.  ``backend="jax"`` and ``"auto"``
+Knobs: ``dtype=`` takes float64 (the default) or float32, as the batch
+does (a float32 integrator runs kernel B4's f32 entry on every tape and
+refuses events and variational systems, ROADMAP C.4).  ``backend="jax"``
+and ``"auto"``
 run the port's one engine (JAX's ``"auto"`` falls back to ``"jax"`` where
 the native runtime is absent, ``adaptive.py:151-177``) and
 :attr:`backend` is ``"device"``; ``backend="native"``, the JAX package's
@@ -48,7 +51,7 @@ import math as _pymath
 
 import numpy as np
 
-from ..convert import check_dtype
+from ..convert import check_dtype, numpy_dtype
 from ..dfloat import dd_add_d, dd_add_dd
 from ..callback import is_in_graph
 from .batch import TaylorAdaptiveBatch
@@ -98,7 +101,7 @@ class _LaneCallback:
 
 class TaylorAdaptive:
     """Adaptive Taylor integrator of one trajectory (heyoka
-    ``taylor_adaptive``): ``tol`` (default the f64 epsilon),
+    ``taylor_adaptive``): ``tol`` (default the dtype's epsilon),
     ``high_accuracy``, ``pars``, ``time``, ``t_events``/``nt_events``,
     ``device``; ``dtype``, ``compact_mode`` and ``backend`` as in the
     module's docstring."""
@@ -106,7 +109,7 @@ class TaylorAdaptive:
     def __init__(self, sys, state, *, time=0.0, pars=None, tol=None,
                  high_accuracy=False, compact_mode=False, dtype=np.float64,
                  t_events=(), nt_events=(), backend="jax", device="cuda"):
-        check_dtype(dtype)
+        npd = numpy_dtype(check_dtype(dtype))
         if backend not in ("jax", "native", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "native":
@@ -117,7 +120,7 @@ class TaylorAdaptive:
         # a var_ode_sys integrates its augmented system; given the original
         # initial conditions only, the variational ones are filled in
         # (``heyoka_tpu/taylor/adaptive.py:69-82``)
-        state = np.asarray(state, dtype=np.float64)
+        state = np.asarray(state, dtype=npd)
         if isinstance(sys, var_ode_sys):
             if state.shape == (sys.n_orig,):
                 state = sys.initial_state(state, pars=pars, t0=float(time))
@@ -135,8 +138,8 @@ class TaylorAdaptive:
         self._tb = TaylorAdaptiveBatch(
             sys, state[None], device=device, time=float(time),
             pars=None if pars is None else np.asarray(
-                pars, np.float64).reshape(1, -1),
-            tol=tol, high_accuracy=high_accuracy,
+                pars, npd).reshape(1, -1),
+            tol=tol, high_accuracy=high_accuracy, dtype=npd,
             t_events=self._lane_events(self._t_events),
             nt_events=self._lane_events(self._nt_events))
 
@@ -199,7 +202,7 @@ class TaylorAdaptive:
         ``eval_taylor_map``, ``taylor_adaptive.cpp:2013``); returns the
         (n_orig,) mapped state."""
         self._check_variational("eval_taylor_map")
-        s = np.asarray(s, dtype=np.float64)
+        s = np.asarray(s, dtype=self.dtype)
         K = len(self._tb.get_vargs())
         if s.shape != (K,):
             raise ValueError(f"expected {K} deviation values, got {s.shape}")
@@ -210,7 +213,7 @@ class TaylorAdaptive:
         """The last :meth:`eval_taylor_map` result, zeros before it."""
         self._check_variational("get_tstate")
         if getattr(self, "_tstate", None) is None:
-            self._tstate = np.zeros((self.get_n_orig_sv(),))
+            self._tstate = np.zeros((self.get_n_orig_sv(),), self.dtype)
         return self._tstate
 
     def get_n_orig_sv(self) -> int:
@@ -257,8 +260,8 @@ class TaylorAdaptive:
         return "device"
 
     @property
-    def dtype(self):
-        return np.dtype(np.float64)
+    def dtype(self) -> np.dtype:
+        return self._tb.dtype
 
     @property
     def device(self):
@@ -270,7 +273,7 @@ class TaylorAdaptive:
 
     @state.setter
     def state(self, v):
-        v = np.asarray(v, dtype=np.float64)
+        v = np.asarray(v, dtype=self.dtype)
         if v.shape != (self.dim,):
             raise ValueError("bad state shape")
         self._tb.state = v[None]
@@ -281,7 +284,7 @@ class TaylorAdaptive:
 
     @pars.setter
     def pars(self, v):
-        self._tb.pars = np.asarray(v, np.float64).reshape(1, -1)
+        self._tb.pars = np.asarray(v, self.dtype).reshape(1, -1)
 
     @property
     def time(self) -> float:
@@ -415,7 +418,7 @@ class TaylorAdaptive:
         returns ``(outcome, min_h, max_h, nsteps, out (len(grid), dim))``.
         Rows not reached are zeros, or NaN with events or a callback, as in
         the JAX class."""
-        grid = np.asarray(grid, dtype=np.float64)
+        grid = np.asarray(grid, dtype=self.dtype)
         if grid.ndim != 1 or grid.size == 0:
             raise ValueError("grid must be a non-empty 1-D array")
         d = np.diff(grid)
@@ -447,7 +450,7 @@ class TaylorAdaptive:
         """The last dense output computed by :meth:`update_d_output`
         (zeros before the first call)."""
         if not hasattr(self, "_d_output"):
-            self._d_output = np.zeros((self.dim,))
+            self._d_output = np.zeros((self.dim,), self.dtype)
         return self._d_output
 
     # -- pickling -------------------------------------------------------------
@@ -461,7 +464,7 @@ class TaylorAdaptive:
         hi, lo = self.dtime
         return {
             "vsys": tb._vsys, "sys": tb.sys, "tol": tb.tol,
-            "high_accuracy": tb.high_accuracy,
+            "high_accuracy": tb.high_accuracy, "dtype": self.dtype.name,
             "compact_mode": self._compact_mode, "device": str(tb._device),
             "t_events": self._t_events, "nt_events": self._nt_events,
             "state": self.state, "pars": self.pars, "t_hi": hi, "t_lo": lo,
@@ -475,7 +478,8 @@ class TaylorAdaptive:
                       pars=st["pars"], tol=st["tol"],
                       high_accuracy=st["high_accuracy"],
                       compact_mode=st["compact_mode"], device=st["device"],
-                      t_events=st["t_events"], nt_events=st["nt_events"])
+                      t_events=st["t_events"], nt_events=st["nt_events"],
+                      dtype=st.get("dtype", "float64"))
         self._tb._load_carry(dict(
             t_hi=[st["t_hi"]], t_lo=[st["t_lo"]], last_h=[st["last_h"]],
             tc=np.asarray(st["tc"])[None],
@@ -484,7 +488,8 @@ class TaylorAdaptive:
 
     def __repr__(self):
         return (f"TaylorAdaptive(order={self.order}, tol={self.tol}, "
-                f"dim={self.dim}, time={self.time}, dtype=float64, "
+                f"dim={self.dim}, time={self.time}, "
+                f"dtype={self.dtype.name}, "
                 f"high_accuracy={self.high_accuracy}, "
                 f"device={self.device})")
 

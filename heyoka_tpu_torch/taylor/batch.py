@@ -22,8 +22,15 @@ an in-graph one runs in the per-step driver, a host one in the
 host-driven driver (``events.propagate_stepwise``).
 
 Every tensor lives on the ``device`` given to the constructor, CUDA unless
-the caller asks for the CPU, in f64: the constructor's ``dtype=`` takes
-float64 and refuses any other.  On a CUDA device ``step`` launches kernel B2
+the caller asks for the CPU, in the constructor's ``dtype``: float64 (the
+default) or float32, whose default tolerance is the f32 epsilon, as in the
+JAX batch.  A float32 batch takes the phase jet, kernel B4's f32 entry
+(``hy_phase_f32``), and the per-step driver on every tape, its state,
+parameters, coefficients, steps and double-length time (an f32 pair) in
+f32; it refuses (``ValueError`` naming ROADMAP C.4, the f32 work still to
+do) a tape with dense series or dataset interpolants (kernel S1 and the
+EOP/SW tables are f64), event equations and variational systems, all of
+which the JAX package runs in f32.  On a CUDA device ``step`` launches kernel B2
 and ``propagate_until`` kernel B1 (with B2 for the exact landing steps);
 on the CPU the plain twins run.  ``propagate_grid`` and
 ``propagate_until(c_output=True)`` take the per-step driver over the
@@ -53,8 +60,9 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..convert import (JET_OPS, check_dtype, plan_to_arrays,
-                       resolve_device, state_from_numpy)
+from ..convert import (INTERP, INTERP_P, JET_OPS, SERIES, check_dtype,
+                       numpy_dtype, op_kind, plan_to_arrays, resolve_device,
+                       state_from_numpy)
 from ..expr.core import Variable, expr
 from ..expr.decompose import Tape, taylor_decompose_sys
 from ..dfloat import dd_add_d, dd_normalize
@@ -87,6 +95,14 @@ CHUNK_STEPS = 64
 #: (PERF.md).
 ROLLED_MIN_WIDTH = 512
 
+#: the ops whose tables are f64 data: a float32 batch refuses them (C.4)
+_F64_DATA_OPS = (SERIES, INTERP, INTERP_P)
+
+
+def _refuse_f32(what: str):
+    raise ValueError(f"dtype=float32 does not take {what} yet (ROADMAP C.4: "
+                     "the JAX package runs it in f32; pass float64)")
+
 
 def _normalize_sys(sys_):
     out = []
@@ -103,11 +119,16 @@ class TaylorAdaptiveBatch:
     def __init__(self, sys, state, *, device="cuda", time=None, pars=None,
                  tol=None, high_accuracy=False, t_events=(), nt_events=(),
                  dtype=np.float64):
-        check_dtype(dtype)
+        self._dtype = check_dtype(dtype)
+        f32 = self._dtype == torch.float32
         # a var_ode_sys integrates its augmented system; lanes given by
         # their original initial conditions get the variational ones
         # (``heyoka_tpu/taylor/batch.py:54-75``), all lanes in one call
         self._vsys = sys if isinstance(sys, var_ode_sys) else None
+        if f32 and self._vsys is not None:
+            _refuse_f32("variational systems")
+        if f32 and (t_events or nt_events):
+            _refuse_f32("events")
         if self._vsys is not None:
             state = np.asarray(state, dtype=np.float64)
             if state.ndim == 2 and state.shape[1] == self._vsys.n_orig:
@@ -115,7 +136,7 @@ class TaylorAdaptiveBatch:
                     state, pars=pars, t0=0.0 if time is None else time)
             sys = self._vsys.sys
         self._sys = sys = _normalize_sys(sys)
-        self._tol = tol = float(np.finfo(np.float64).eps if tol is None
+        self._tol = tol = float(np.finfo(self.dtype).eps if tol is None
                                 else tol)
         self._order = _st.taylor_order_from_tol(tol)
         self._high_accuracy = bool(high_accuracy)
@@ -125,10 +146,14 @@ class TaylorAdaptiveBatch:
             sys, extra_outputs=[ev.expression for ev in
                                 (*self._t_events, *self._nt_events)])
         plan = build_plan(self._tape, self._order)
-        # the route: B4 for ops outside JET_OPS, else B3 for huge tapes,
-        # else B1/B2; UnsupportedKernelOp for ops without any rule
-        self._phase = any(g.name not in JET_OPS
-                          for lv in plan.levels for g in lv)
+        # the route: B4 for ops outside JET_OPS and for every f32 tape,
+        # else B3 for huge tapes, else B1/B2; UnsupportedKernelOp for ops
+        # without any rule
+        if f32 and any(op_kind(g.name) in _F64_DATA_OPS
+                       for lv in plan.levels for g in lv):
+            _refuse_f32("dense trig series or dataset interpolants")
+        self._phase = f32 or any(g.name not in JET_OPS
+                                 for lv in plan.levels for g in lv)
         self._rolled = not self._phase and plan.width >= ROLLED_MIN_WIDTH
         self._arrays = plan_to_arrays(plan)
         self._build_engine(resolve_device(device))
@@ -196,7 +221,8 @@ class TaylorAdaptiveBatch:
         """The lanes (state (B, n), pars (B, p), time (B,) or a scalar),
         with zero last steps, coefficients and cooldowns."""
         n_eq = self._tape.n_eq
-        state = np.asarray(state, dtype=np.float64)
+        npd, dt = self.dtype, self._dtype
+        state = np.asarray(state, dtype=npd)
         if state.ndim != 2 or state.shape[1] != n_eq:
             raise ValueError(
                 f"batch state must have shape (batch, {n_eq}); got "
@@ -207,25 +233,24 @@ class TaylorAdaptiveBatch:
         if n_pars and pars.shape != (B, n_pars):
             raise ValueError(f"batch pars must have shape ({B}, {n_pars})")
         time = np.broadcast_to(
-            np.asarray(0.0 if time is None else time, np.float64), (B,))
+            np.asarray(0.0 if time is None else time, npd), (B,))
         lanes = state_from_numpy(state, pars.reshape(B, n_pars), time,
-                                 np.zeros(B), self._device)
+                                 np.zeros(B), self._device, dt)
         self._batch = B
         self._state, self._pars = lanes["state"], lanes["pars"]
         self._t_hi, self._t_lo = lanes["t_hi"], lanes["t_lo"]
-        self._last_h = torch.zeros(B, dtype=torch.float64, device=self._device)
-        self._tc = torch.zeros((B, self._order + 1, n_eq), dtype=torch.float64,
+        self._last_h = torch.zeros(B, dtype=dt, device=self._device)
+        self._tc = torch.zeros((B, self._order + 1, n_eq), dtype=dt,
                                device=self._device)
         self._last_res = [(TaylorOutcome.success, 0.0)] * B
         self._last_prop_res = None
-        self._d_output = np.zeros((B, n_eq))
+        self._d_output = np.zeros((B, n_eq), npd)
         # the lanes whose last step a terminal event stopped for good (no
         # callback, or one that returned False): the host-driven driver
         # ends them
         self._event_stop = np.zeros(B, bool)
         self._tstate = None
-        self._te_cooldowns = torch.zeros((B, len(self._t_events)),
-                                         dtype=torch.float64,
+        self._te_cooldowns = torch.zeros((B, len(self._t_events)), dtype=dt,
                                          device=self._device)
 
     # -- introspection ---------------------------------------------------------
@@ -247,13 +272,15 @@ class TaylorAdaptiveBatch:
         ``layout``, the block layout of kernels B1/B2 on this tape
         (``jet_kernels.layout_report``) or of kernel B3 on a huge one
         (``jet_rolled.layout_report``; the CPU names the one the card would
-        run), None on the B4 route, and, on a tape with dense trig series
-        only, ``series``, their jet (kernel S1 ``hy_series_jet_f64`` /
-        ``series_jet_plain``)."""
+        run), None on the B4 route (a float32 batch's route on every tape,
+        its ``jet`` ``hy_phase_f32`` on the card), and, on a tape with
+        dense trig series only, ``series``, their jet (kernel S1
+        ``hy_series_jet_f64`` / ``series_jet_plain``)."""
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
         if self._phase:
-            jet_name = "hy_phase_f64" if cuda else "phase_plain"
+            jet_name = ("hy_phase_f32" if self._dtype == torch.float32
+                        else "hy_phase_f64") if cuda else "phase_plain"
         elif self._rolled:
             jet_name = "hy_jet_rolled_f64" if cuda else "jet_rolled_plain"
         else:
@@ -357,6 +384,11 @@ class TaylorAdaptiveBatch:
         return self._batch
 
     @property
+    def dtype(self) -> np.dtype:
+        """The integrator's precision, float64 or float32."""
+        return numpy_dtype(self._dtype)
+
+    @property
     def order(self) -> int:
         return self._order
 
@@ -387,7 +419,7 @@ class TaylorAdaptiveBatch:
 
     @state.setter
     def state(self, v):
-        v = np.asarray(v, dtype=np.float64)
+        v = np.asarray(v, dtype=self.dtype)
         if v.shape != (self._batch, self.dim):
             raise ValueError("bad state shape")
         self._state = torch.as_tensor(v.copy(), device=self._device)
@@ -399,7 +431,7 @@ class TaylorAdaptiveBatch:
     @pars.setter
     def pars(self, v):
         self._pars = torch.as_tensor(
-            np.asarray(v, np.float64).reshape(self._pars.shape).copy(),
+            np.asarray(v, self.dtype).reshape(self._pars.shape).copy(),
             device=self._device)
 
     @property
@@ -473,7 +505,7 @@ class TaylorAdaptiveBatch:
 
     def _lanes(self, x):
         return torch.as_tensor(
-            np.array(np.broadcast_to(np.asarray(x, np.float64),
+            np.array(np.broadcast_to(np.asarray(x, self.dtype),
                                      (self._batch,))),
             device=self._device)
 
@@ -629,11 +661,11 @@ class TaylorAdaptiveBatch:
         bool`` (or an in-graph one with events) runs after every lockstep
         step of :func:`.events.propagate_stepwise`, and False stops every
         lane still running."""
-        t_np = np.array(np.broadcast_to(np.asarray(t, np.float64),
+        t_np = np.array(np.broadcast_to(np.asarray(t, self.dtype),
                                         (self._batch,)))
         mdt_np = np.array(np.broadcast_to(np.asarray(
             _pymath.inf if max_delta_t is None else max_delta_t,
-            np.float64), (self._batch,)))
+            self.dtype), (self._batch,)))
         max_steps = int(max_steps)
         stepwise = callback is not None and (
             self._ev is not None or not is_in_graph(callback))
@@ -675,7 +707,7 @@ class TaylorAdaptiveBatch:
 
     def propagate_for(self, delta_t, **kw):
         target = self.time + np.broadcast_to(
-            np.asarray(delta_t, dtype=np.float64), (self._batch,))
+            np.asarray(delta_t, dtype=self.dtype), (self._batch,))
         return self.propagate_until(target, **kw)
 
     def propagate_grid(self, grid, *, max_delta_t=None, max_steps=0,
@@ -697,10 +729,10 @@ class TaylorAdaptiveBatch:
         """:meth:`propagate_grid` with the rows as the driver gives them: a
         tensor on the device from the device driver (the ensembles keep
         it there), a numpy array from the host-driven one."""
-        grid_np = check_grid(grid)
+        grid_np = check_grid(grid, self.dtype)
         mdt_np = np.array(np.broadcast_to(np.asarray(
             _pymath.inf if max_delta_t is None else max_delta_t,
-            np.float64), (self._batch,)))
+            self.dtype), (self._batch,)))
         if callback is not None or self._te_callbacks():
             oc, mn, mx, ns, out = _ev.propagate_stepwise(
                 self, None, mdt_np, int(max_steps), callback, grid=grid_np)
@@ -752,13 +784,13 @@ class TaylorAdaptiveBatch:
 
     def __getstate__(self):
         """The system (and the ``var_ode_sys``, None without one), tolerance,
-        ``high_accuracy``, the device's name, the events (their callbacks
-        pickled with them, or the pickling fails as the JAX class's does)
-        and numpy copies of the lanes (state, parameters, time, last step
-        and its coefficients, cooldowns)."""
+        ``high_accuracy``, the dtype's and the device's names, the events
+        (their callbacks pickled with them, or the pickling fails as the
+        JAX class's does) and numpy copies of the lanes (state, parameters,
+        time, last step and its coefficients, cooldowns)."""
         return {
             "vsys": self._vsys, "sys": self._sys, "tol": self._tol,
-            "high_accuracy": self._high_accuracy,
+            "high_accuracy": self._high_accuracy, "dtype": self.dtype.name,
             "device": str(self._device),
             "t_events": self._t_events, "nt_events": self._nt_events,
             "state": self.state, "pars": self.pars,
@@ -773,19 +805,20 @@ class TaylorAdaptiveBatch:
         self.__init__(sys_, st["state"], pars=st["pars"], tol=st["tol"],
                       high_accuracy=st["high_accuracy"], device=st["device"],
                       t_events=st.get("t_events", ()),
-                      nt_events=st.get("nt_events", ()))
+                      nt_events=st.get("nt_events", ()),
+                      dtype=st.get("dtype", "float64"))
         self._load_carry(st)
 
     def _load_carry(self, st):
         """The lanes' double-length time, last step, coefficients and
         cooldowns from :meth:`__getstate__`'s arrays."""
-        dev = self._device
+        dev, npd = self._device, self.dtype
         self._t_hi, self._t_lo, self._last_h, self._tc = (
-            torch.as_tensor(np.array(st[k], np.float64), device=dev)
+            torch.as_tensor(np.array(st[k], npd), device=dev)
             for k in ("t_hi", "t_lo", "last_h", "tc"))
         if "cooldowns" in st:
             self._te_cooldowns = torch.as_tensor(
-                np.array(st["cooldowns"], np.float64), device=dev)
+                np.array(st["cooldowns"], npd), device=dev)
 
 
 def taylor_adaptive_batch(sys, state, **kw) -> TaylorAdaptiveBatch:

@@ -9,7 +9,9 @@ jet in XLA (or in a Pallas kernel) and then the step size and the state
 update; here the jet is the one passed in — ``jet_kernels.jet`` (kernel
 B2) or, for huge tapes, ``jet_rolled.jet_rolled`` (kernel B3), each
 launching its kernel on a CUDA tensor and running its plain twin on a CPU
-tensor — and the rest is plain f64 torch on the same device.  There is one engine: the TPU layouts, the staged buffers,
+tensor — and the rest is plain torch on the same device, in the lane
+state's dtype (f64, or f32 for a float32 integrator, whose double-length
+time is an f32 pair).  There is one engine: the TPU layouts, the staged buffers,
 the mixed-precision phase and the coefficient scaling have no
 counterpart.
 """
@@ -355,11 +357,12 @@ def make_propagate_grid_flat(tape: JetTape, *, high_accuracy: bool = True,
     return pg
 
 
-def check_grid(grid):
-    """``grid`` as a non-empty 1-D f64 numpy array, monotonic
-    (non-decreasing or non-increasing): the grid driver finds each lane's
-    next point by binary search.  Raises ``ValueError`` otherwise."""
-    grid = np.asarray(grid, dtype=np.float64)
+def check_grid(grid, dtype=np.float64):
+    """``grid`` as a non-empty 1-D numpy array of ``dtype`` (the lanes'),
+    monotonic (non-decreasing or non-increasing): the grid driver finds
+    each lane's next point by binary search.  Raises ``ValueError``
+    otherwise."""
+    grid = np.asarray(grid, dtype=dtype)
     if grid.ndim != 1 or grid.size == 0:
         raise ValueError("the grid must be a non-empty 1-D array")
     if not np.isfinite(grid).all():

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import resolve_device
+from ..convert import DTYPES, numpy_dtype, resolve_device
 from .compact_flat import make_propagate_until_flat
 from .jet_kernels import JetTape, jet
 from .outcome import TaylorOutcome
@@ -75,12 +75,12 @@ def _pad_records(rec, n_rec, fwd, t_hi, t_lo, order, n_eq):
         tl = torch.stack([r[2] for r in rec], 1)
         rec.clear()  # the stacks hold the only copy from here on
     else:
-        tcs = torch.zeros((B, 1, order + 1, n_eq), dtype=torch.float64,
+        tcs = torch.zeros((B, 1, order + 1, n_eq), dtype=t_hi.dtype,
                           device=dev)
-        th = tl = torch.zeros((B, 1), dtype=torch.float64, device=dev)
+        th = tl = torch.zeros((B, 1), dtype=t_hi.dtype, device=dev)
     live = torch.arange(cap, device=dev)[None, :] < n_rec[:, None]
     tcs.masked_fill_(~live[:, :, None, None], 0.0)
-    inf = torch.full((B,), float("inf"), dtype=torch.float64, device=dev)
+    inf = torch.full((B,), float("inf"), dtype=t_hi.dtype, device=dev)
     pad = torch.where(fwd, inf, -inf)
     times_hi = torch.cat([torch.where(live, th, pad[:, None]), pad[:, None]],
                          1)
@@ -104,12 +104,16 @@ def _step_index(bnd, t, fwd):
                               right=True) - 1
 
 
-def _tensor(a, device, dtype=torch.float64):
-    """``a`` as a ``dtype`` tensor on ``device``: a tensor moved (no copy
-    where it is there already), anything else copied through numpy."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+def _tensor(a, device, dtype=None):
+    """``a`` as a ``dtype`` tensor on ``device`` (default: ``a``'s own
+    dtype where it is float32 or float64, else float64): a tensor moved
+    (no copy where it is there already), anything else copied through
+    numpy."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.array(a))
+    if dtype is None:
+        dtype = a.dtype if a.dtype in DTYPES else torch.float64
+    return a.to(device=device, dtype=dtype)
 
 
 class ContinuousOutput:
@@ -157,7 +161,7 @@ class ContinuousOutput:
 
     def __call__(self, t):
         scalar = np.ndim(t) == 0
-        ts = _tensor(np.atleast_1d(t), self._device)
+        ts = _tensor(np.atleast_1d(t), self._device, self._tcs.dtype)
         out = self._eval(ts).cpu().numpy()
         self._output = out[0] if scalar else out
         return self._output
@@ -166,7 +170,8 @@ class ContinuousOutput:
     def output(self):
         """The result of the last evaluation (reference ``get_output``)."""
         if not hasattr(self, "_output"):
-            self._output = np.zeros((self._tcs.shape[-1],))
+            self._output = np.zeros((self._tcs.shape[-1],),
+                                    numpy_dtype(self._tcs.dtype))
         return self._output
 
     def __getstate__(self):
@@ -224,7 +229,7 @@ class ContinuousOutputBatch:
         t = np.asarray(t, np.float64)
         if t.ndim not in (1, 2) or t.shape[-1] != self.batch_size:
             raise ValueError("t must be (batch,) or (n_times, batch)")
-        ts = _tensor(np.atleast_2d(t).T, self._device)
+        ts = _tensor(np.atleast_2d(t).T, self._device, self._tcs.dtype)
         out = self._eval(ts).transpose(0, 1).cpu().numpy()
         return out[0] if t.ndim == 1 else out
 

@@ -48,11 +48,13 @@ from ..dfloat import dd_add_d
 from .stepper import ceval_update, h_from_norms, horner_update, rho_factor
 
 #: launches of each kernel; a wrapper adds one where it launches its kernel
-#: (``conv_f32``, ``conv_dd`` and ``proto_phase`` are the kernels of the
+#: (``phase`` and ``phase_f32`` are kernel B4's two entries, f64 and f32;
+#: ``conv_f32``, ``conv_dd`` and ``proto_phase`` are the kernels of the
 #: tools, ``heyoka_tpu_torch.tools``; ``series`` is kernel S1,
 #: ``taylor/series_jet.py``)
 LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0, "phase": 0,
-            "conv_f32": 0, "conv_dd": 0, "proto_phase": 0, "series": 0}
+            "phase_f32": 0, "conv_f32": 0, "conv_dd": 0, "proto_phase": 0,
+            "series": 0}
 
 #: header of the packed int32 table the kernels read (csrc/taylor_jet.cu
 #: ``enum Hdr``): sizes, then offsets of the sub-tables in ``itab`` (and of
@@ -231,12 +233,14 @@ def _eval_k(name, alpha, k: int, hist, nargs):
         Q = hist(-1, 1, k)
         return (hist(0, k, k + 1)[0] - (Q * Q.flip(0)).sum(0)) \
             / (2.0 * hist(-1, 0, 1)[0])
-    # pow: (sum_{j<k} (alpha (k-j) - j) q_j b_{k-j}) / (k b_0)
+    # pow: (sum_{j<k} (alpha (k-j) - j) q_j b_{k-j}) / (k b_0), in the
+    # coefficients' dtype (an f32 run rounds the f64 exponents once, as
+    # kernel B4's f32 entry does)
     Q = hist(-1, 0, k)
     Bf = hist(0, 1, k + 1).flip(0)
     dev = Q.device
-    j = torch.arange(k, dtype=_F64, device=dev)[:, None, None]
-    al = torch.as_tensor(alpha, device=dev)[:, None]
+    j = torch.arange(k, dtype=Q.dtype, device=dev)[:, None, None]
+    al = torch.as_tensor(alpha, dtype=Q.dtype, device=dev)[:, None]
     s1 = ((Q * Bf) * (k - j)).sum(0)
     s2 = ((Q * j) * Bf).sum(0)
     return (s1 * al - s2) / (k * hist(0, 0, 1)[0])
@@ -268,13 +272,14 @@ def _order_k(tape: JetTape, tc, k: int):
 
 
 def _seed_plain(tape: JetTape, state, pars, t):
-    """A zeroed ``(K+1, W, B)`` buffer with the order-0 state and the
-    virtual columns (constants, parameters, time) seeded."""
+    """A zeroed ``(K+1, W, B)`` buffer of ``state``'s dtype with the
+    order-0 state and the virtual columns (constants, parameters, time)
+    seeded (the f64 literals rounded once to an f32 buffer)."""
     B = state.shape[1]
-    tc = torch.zeros((tape.order + 1, tape.width, B), dtype=_F64,
+    tc = torch.zeros((tape.order + 1, tape.width, B), dtype=state.dtype,
                      device=state.device)
     tc[0, :tape.n_eq] = state
-    tc[0, tape.const_cols] = tape.const_vals[:, None]
+    tc[0, tape.const_cols] = tape.const_vals[:, None].to(tc.dtype)
     if tape.par_cols.numel():
         tc[0, tape.par_cols] = pars.index_select(0, tape.par_idx)
     if tape.time_col is not None:

@@ -7,17 +7,19 @@ whose f64 yardstick is the staged engine's ``_f_*`` rules
 (``heyoka_tpu/taylor/compact_flat.py:1311-1569``).  The JAX package
 reaches its kernel with ``pallas_phase=True``: order 0 in f64 XLA, orders
 ``mp_order+1..K`` in f32 in the kernel.  The H100 has f64, so here one
-f64 run from ``lo = 1`` gives the whole jet:
+run from ``lo = 1`` gives the whole jet in the buffer's dtype, f64 or
+f32 (the integrators' ``dtype=float32``):
 
 - :func:`order0`: order 0 of every group in level order, with the
-  numeric rules of :mod:`..expr.numeric`, in f64 torch;
-- :func:`phase`: orders ``lo..K`` in place on a ``(K+1, W, B)`` f64
-  buffer.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor launches
-  ``hy_phase_f64`` (``csrc/taylor_phase.cu``) or raises;
+  numeric rules of :mod:`..expr.numeric`, in the buffer's dtype;
+- :func:`phase`: orders ``lo..K`` in place on a ``(K+1, W, B)`` f64 or
+  f32 buffer.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor
+  launches ``hy_phase_f64`` or ``hy_phase_f32`` (``csrc/taylor_phase.cu``,
+  ``ENTRIES``) or raises, never casting;
 - :func:`jet_phase`: the contract of ``jet_kernels.jet`` over the two.
 
 This is the port's route for every tape with an op outside kernels
-B1/B2/B3's rule set (``convert.JET_OPS``).  The buffer is worked on in
+B1/B2/B3's rule set (``convert.JET_OPS``), and for every f32 tape.  The buffer is worked on in
 place, so the caller seeds it: orders >= 1 of the virtual columns
 (literals, parameters, time) zero, the time column's order 1 one
 (``jet_kernels._seed_plain``).  Neither the kernel nor the twin writes a
@@ -70,6 +72,11 @@ from .jet_kernels import (
     _HDR, _HDR_LEN, _check, _device_of, _eval0, _eval_k, _norms, _ptr,
     _rows, _seed_plain, table_bytes,
 )
+
+#: kernel B4's C entry and its ``LAUNCHES`` counter for each dtype of the
+#: buffer; another dtype raises
+ENTRIES = {torch.float64: ("hy_phase_f64", "phase"),
+           torch.float32: ("hy_phase_f32", "phase_f32")}
 from .series_jet import AffineInput, series_jet, tables_on
 
 #: header of the phase kernels' int32 table (csrc/taylor_common.cuh ``enum
@@ -247,11 +254,12 @@ def _hist(tc, syn, s, m, cols, aux, srows, side=None):
     return hist
 
 
-def _wts(a, b, dev):
+def _wts(a, b, like):
     """Weights ``a, a+1, ..., b-1`` (or down to ``b+1`` for ``a > b``) as
-    an ``(n, 1, 1)`` f64 column."""
+    an ``(n, 1, 1)`` column of ``like``'s dtype and device."""
     step = 1 if b >= a else -1
-    return torch.arange(a, b, step, dtype=_F64, device=dev)[:, None, None]
+    return torch.arange(a, b, step, dtype=like.dtype,
+                        device=like.device)[:, None, None]
 
 
 def _conv(w, A, Bf):
@@ -260,9 +268,10 @@ def _conv(w, A, Bf):
     return ((w * A) * Bf).sum(0)
 
 
-def _phase_k(name, alpha, k: int, hist, nargs: int, dev):
-    """Order ``k`` (>= 1) of one group's columns (``_rule`` in f64).
-    Every rule reads aux and synthetic rows below order ``k`` only."""
+def _phase_k(name, alpha, k: int, hist, nargs: int, like):
+    """Order ``k`` (>= 1) of one group's columns (``_rule`` in ``like``'s
+    dtype, the buffer's).  Every rule reads aux and synthetic rows below
+    order ``k`` only."""
     if name in ("sum", "mul", "div", "sqrt", "pow"):
         return _eval_k(name, alpha, k, hist, nargs)
     kind = op_kind(name)
@@ -271,9 +280,9 @@ def _phase_k(name, alpha, k: int, hist, nargs: int, dev):
         return hist("side", 0, 1)[0] * hist(0, k, k + 1)[0]
     if kind == "dayfrac":
         return hist(0, k, k + 1)[0]
-    up = _wts(1, k + 1, dev)    # j = 1..k
-    dn = _wts(k, 0, dev)        # k - m for m = 0..k-1
-    dn1 = _wts(k - 1, 0, dev)   # k - m for m = 1..k-1
+    up = _wts(1, k + 1, like)    # j = 1..k
+    dn = _wts(k, 0, like)        # k - m for m = 0..k-1
+    dn1 = _wts(k - 1, 0, like)   # k - m for m = 1..k-1
     if name == "exp":
         # e_k = (sum_{j=1..k} j b_j e_{k-j}) / k
         return _conv(up, hist(0, 1, k + 1), hist(-1, 0, k).flip(0)) / k
@@ -283,7 +292,7 @@ def _phase_k(name, alpha, k: int, hist, nargs: int, dev):
         return -v if name == "cos" else v
     if name == "log":
         # c_k = (b_k - (sum_{j=1..k-1} j c_j b_{k-j}) / k) / b_0
-        s = _conv(_wts(1, k, dev), hist(-1, 1, k), hist(0, 1, k).flip(0))
+        s = _conv(_wts(1, k, like), hist(-1, 1, k), hist(0, 1, k).flip(0))
         return (hist(0, k, k + 1)[0] - s / k) / hist(0, 0, 1)[0]
     if name in ("tan", "tanh"):
         # t_k = b_k +- (sum_{m=0..k-1} (k-m) q_m b_{k-m}) / k, q = t^2
@@ -337,7 +346,7 @@ def _phase_k(name, alpha, k: int, hist, nargs: int, dev):
         C = hist("cos", 0, k)
         t1 = k * hist(2, k, k + 1)[0]
         t2 = (k * hist(0, k, k + 1)[0]) * (1.0 - C[0])
-        t3 = _conv(_wts(1, k, dev), hist(0, 1, k), C[1:].flip(0))
+        t3 = _conv(_wts(1, k, like), hist(0, 1, k), C[1:].flip(0))
         t4 = _conv(up, hist(1, 1, k + 1), hist("sin", 0, k).flip(0))
         t5 = _conv(dn1, hist("syn", 1, k), hist(-1, 1, k).flip(0))
         return (t1 - t2 + t3 + t4 - t5) / (k * (1.0 + hist("syn", 0, 1)[0]))
@@ -413,7 +422,6 @@ def phase_plain(tape: PhaseTape, tc, lo: int, ser=None):
     K, n_eq = tape.order, tape.n_eq
     _check_lo(lo, K)
     _check_ser(tape, tc, ser)
-    dev = tc.device
     syn = tc.new_empty((K + 1, tape.n_syn, tc.shape[2])) if tape.n_syn \
         else None
     for j in range(lo):
@@ -426,7 +434,7 @@ def phase_plain(tape: PhaseTape, tc, lo: int, ser=None):
                 continue
             tc[k, s:s + m] = _phase_k(
                 name, alpha, k, _hist(tc, syn, s, m, cols, aux, srows, ser),
-                cols.shape[1], dev)
+                cols.shape[1], tc)
         if k < K:
             _synth(tape, tc, syn, k)
     return tc
@@ -457,11 +465,13 @@ def _check_ser(tape: PhaseTape, tc, ser):
 
 
 def phase(tape: PhaseTape, tc, lo: int, ser=None):
-    """Orders ``lo..K`` of ``tc (K+1, W, B)`` f64 in place; returns
-    ``tc``.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor launches
-    kernel B4 (``hy_phase_f64``) at the block shape of
-    :func:`block_shape`.  ``ser``: :func:`order0`'s side buffer, on a
-    tape with dense series or interpolants."""
+    """Orders ``lo..K`` of ``tc (K+1, W, B)`` (f64 or f32) in place;
+    returns ``tc``.  A CPU tensor runs :func:`phase_plain`; a CUDA tensor
+    launches kernel B4's entry for its dtype (``hy_phase_f64`` or
+    ``hy_phase_f32``, ``ENTRIES``) at the block shape of
+    :func:`block_shape`, and raises for any other dtype.  ``ser``:
+    :func:`order0`'s side buffer, on a tape with dense series or
+    interpolants."""
     if _device_of(tc, tape).type == "cpu":
         return phase_plain(tape, tc, lo, ser)
     return _phase_cuda(tape, tc, lo, ser=ser)
@@ -469,11 +479,16 @@ def phase(tape: PhaseTape, tc, lo: int, ser=None):
 
 def _phase_cuda(tape: PhaseTape, tc, lo: int, lanes=None, threads=None,
                 layout=None, ser=None):
-    """Kernel B4 at a block shape of ``lanes`` x ``threads`` on ``layout``
-    (default: :func:`block_shape`'s)."""
+    """Kernel B4 on ``tc``'s dtype (``ENTRIES``; ValueError for a dtype
+    without an entry) at a block shape of ``lanes`` x ``threads`` on
+    ``layout`` (default: :func:`block_shape`'s)."""
+    if tc.dtype not in ENTRIES:
+        raise ValueError(f"kernel B4 takes float64 or float32 buffers; got "
+                         f"{tc.dtype}")
     _check_ser(tape, tc, ser)
-    return launch("hy_phase_f64", "phase", tape, tc, lo, _F64, lanes,
-                  threads, layout,
+    entry, counter = ENTRIES[tc.dtype]
+    return launch(entry, counter, tape, tc, lo, tc.dtype, lanes, threads,
+                  layout,
                   series=(None if ser is None else _ptr(ser), tape.n_side))
 
 
@@ -613,8 +628,8 @@ def _sms(dev) -> int:
 
 def block_shape(tape: PhaseTape, B: int, itemsize: int, lanes=None,
                 threads=None, layout=None, sms: int = SMS) -> PhaseShape:
-    """The block shape of kernel B4 (``itemsize`` 8) or T2 (4) on ``B``
-    lanes of ``tape``, or the ``lanes``, ``threads`` and ``layout`` given
+    """The block shape of kernel B4 (``itemsize`` 8 in f64, 4 in f32) or
+    T2 (4) on ``B`` lanes of ``tape``, or the ``lanes``, ``threads`` and ``layout`` given
     (the tests and ``chip_smoke.py`` hold every shape to the default).
 
     - Lanes: as many as a block's shared memory holds (:func:`lane_bytes`),
@@ -684,17 +699,19 @@ def layout_report(tape: PhaseTape, B: int, itemsize: int = 8) -> dict:
 def jet_phase(tape: PhaseTape, state, pars, t=None):
     """Taylor jet with the contract of ``jet_kernels.jet``: ``(tc (n_eq +
     n_out, K+1, B), norms (3, B))`` from ``state (n_eq, B)``, ``pars
-    (n_pars, B)`` and ``t (B,)``.  Seeds the buffer, runs :func:`order0`
-    and then :func:`phase` from ``lo = 1``, which launches kernel B4 on a
-    CUDA tensor.  The jet is in place in the buffer, every op column
+    (n_pars, B)`` and ``t (B,)``, all of one dtype, f64 or f32, which the
+    jet keeps.  Seeds the buffer, runs :func:`order0` and then
+    :func:`phase` from ``lo = 1``, which launches kernel B4's entry for the
+    dtype on a CUDA tensor.  The jet is in place in the buffer, every op column
     written back by the kernel, so the sv-func rows (the event equations,
     the JAX kernel's ``sv_extra``) are gathered from it after the state
     rows.  On a tape with dense series, :func:`order0` launches kernel S1
     once a series column."""
     dev = _device_of(state, tape)
     B = state.shape[1]
-    _check("state", state, (tape.n_eq, B), _F64, dev)
-    _check("pars", pars, (tape.n_pars, B), _F64, dev)
+    dt = state.dtype if state.dtype in ENTRIES else _F64
+    _check("state", state, (tape.n_eq, B), dt, dev)
+    _check("pars", pars, (tape.n_pars, B), dt, dev)
     tc = _seed_plain(tape, state, pars, t)
     ser = order0(tape, tc)
     phase(tape, tc, 1, ser)

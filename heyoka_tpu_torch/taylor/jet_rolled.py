@@ -416,22 +416,24 @@ def jet_rolled_plain(tape: RolledTape, state, pars, t=None):
     jet_plain`, with the coefficients in the H/C/V/A buffers, every operand
     read through the class maps and the alias table, and the aliases
     computed at order 0 only.  H, C and A start as NaN, so a read of a slot
-    that was never written shows in the result."""
+    that was never written shows in the result.  It runs in ``state``'s
+    dtype (the kernel in f64 only; the tests also hold an f32 twin against
+    the multiple-precision jet)."""
     K, n_eq = tape.order, tape.n_eq
     WH, WC, WV, NA, _ = tape.sizes
     B = state.shape[1]
-    dev = state.device
+    dev, dt = state.device, state.dtype
     nan = float("nan")
-    bufs = (torch.full((K + 1, WH, B), nan, dtype=_F64, device=dev),
-            torch.full((WC, B), nan, dtype=_F64, device=dev),
-            torch.empty((WV, B), dtype=_F64, device=dev),
-            torch.full((NA, B), nan, dtype=_F64, device=dev))
+    bufs = (torch.full((K + 1, WH, B), nan, dtype=dt, device=dev),
+            torch.full((WC, B), nan, dtype=dt, device=dev),
+            torch.empty((WV, B), dtype=dt, device=dev),
+            torch.full((NA, B), nan, dtype=dt, device=dev))
     Hb, _, Vb, _ = bufs
     # seeds: the state, the literals and parameters, the time (t, 1, 0, ...)
     Hb[0, :n_eq] = state
     rm = tape.rowmap
     Vb[rm[tape.arrays["const_cols"].astype(np.int64)]] = \
-        tape.const_vals[:, None]
+        tape.const_vals[:, None].to(dt)
     if tape.par_cols.numel():
         Vb[rm[tape.arrays["par_cols"].astype(np.int64)]] = \
             pars.index_select(0, tape.par_idx)

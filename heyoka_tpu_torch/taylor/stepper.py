@@ -1,4 +1,5 @@
-"""Adaptive step rules over a batch of lanes, in f64 torch.
+"""Adaptive step rules over a batch of lanes, in torch, in the dtype of
+the coefficients (f64, or f32 for a float32 integrator).
 
 The counterpart of ``heyoka_tpu.taylor.stepper`` (reference: heyoka
 ``src/taylor_00.cpp``, ``taylor_determine_h`` :102-273,
@@ -34,8 +35,12 @@ def rho_factor(order: int) -> float:
 
 def h_from_norms(m0, mo1, mo, order: int, max_delta_t):
     """Signed step size from the per-lane infinity norms of orders 0,
-    ``order - 1`` and ``order`` (each ``(B,)``).  ``max_delta_t`` (``(B,)``
-    or scalar) may be negative: the step then goes backward."""
+    ``order - 1`` and ``order`` (each ``(B,)``), in their dtype.
+    ``max_delta_t`` (``(B,)`` or scalar) may be negative: the step then
+    goes backward.  An order-K norm that underflows to 0 gives an infinite
+    rho, which the other order or ``max_delta_t`` bounds, as in the JAX
+    package's ``determine_h`` (``stepper.py:33-64``), which guards neither
+    in f64 nor in f32."""
     num = torch.where(m0 <= 1.0, torch.ones_like(m0), m0)
     rho = torch.minimum((num / mo) ** (1.0 / order),
                         (num / mo1) ** (1.0 / (order - 1)))

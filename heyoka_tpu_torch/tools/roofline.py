@@ -59,6 +59,18 @@ def phase_bytes(arrays: dict, n_lanes: int, lo: int, itemsize: int) -> int:
     return itemsize * n_lanes * (W * (K + 1) + n_w * (K + 1 - lo) + side)
 
 
+def phase_bound(tape, n_lanes: int, lo: int, dtype) -> dict:
+    """:func:`bound` of kernel B4 on ``n_lanes`` lanes of ``tape`` (a
+    ``jet_phase.PhaseTape``) from ``lo`` in ``dtype``: :func:`phase_flops`
+    at ``dtype``'s peak, and :func:`phase_bytes` at its size (8 B an
+    element in f64, 4 B in f32: B4-f32's buffer bytes are half B4-f64's,
+    over the same operations) plus the tables, read once."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return bound(phase_flops(tape.arrays, lo) * n_lanes,
+                 phase_bytes(tape.arrays, n_lanes, lo, itemsize)
+                 + nbytes(tape.itab, tape.dtab), dtype)
+
+
 def op_columns(arrays: dict):
     """``(op name, operand count)`` of every op column of a plan's arrays
     (``convert.plan_to_arrays``), in level order."""

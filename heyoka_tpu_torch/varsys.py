@@ -288,9 +288,10 @@ class var_ode_sys:
 
         where the derivative values come from the *augmented state* of the
         variational integrator (they ride in as cfunc pars, exactly like
-        the reference's tm cfunc).  The cfunc runs on ``device``: ``deltas``
-        (n_vargs,) with ``var_state`` (len(sys),) give (n_orig,), and
-        (B, n_vargs) with (B, len(sys)) give (B, n_orig), a tensor there."""
+        the reference's tm cfunc).  The cfunc runs on ``device`` in
+        ``dtype`` (float64 by default, or float32): ``deltas`` (n_vargs,)
+        with ``var_state`` (len(sys),) give (n_orig,), and (B, n_vargs)
+        with (B, len(sys)) give (B, n_orig), a tensor there."""
         from .cfunc import make_cfunc
 
         K = self.n_vargs
@@ -308,7 +309,8 @@ class var_ode_sys:
                     term = term * deltas[j]
             comp_terms[i].append(term)
         outs = [sum_expr(ts) for ts in comp_terms]
-        cf = make_cfunc(outs, vars=deltas, device=device)
+        cf = make_cfunc(outs, vars=deltas, device=device,
+                        dtype=np.float64 if dtype is None else dtype)
 
         def tm(deltas_vals, var_state):
             return cf(deltas_vals, pars=var_state)

@@ -235,8 +235,10 @@ def test_refusals():
         cp(np.zeros(3))  # one variable
     with pytest.raises(ValueError):
         cp(np.zeros((4, 1)), pars=np.zeros((3, 1)))
-    with pytest.raises(ValueError, match="float64"):
-        ht.make_cfunc([x], device="cpu", dtype=np.float32)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        ht.make_cfunc([x], device="cpu", dtype=np.float16)
+    assert ht.make_cfunc([x], device="cpu", dtype=np.float32)(
+        [2.0]).dtype == torch.float32
     with pytest.raises(ValueError):
         ht.make_cfunc([x * ht.make_vars("y")], vars=[x], device="cpu")
     if not torch.cuda.is_available():

@@ -210,13 +210,23 @@ def test_unsupported_op_raises():
 
 def test_port_runs_without_jax():
     # the port must run where JAX is not installed: hide it (and the JAX
-    # package) and run a 3-body propagation through the port on the CPU
+    # package, and mpmath, which only multiprec needs, at first use) and
+    # run a 3-body propagation and an f32 pendulum through the port on the
+    # CPU, with s11n and multiprec imported
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["heyoka_tpu"] = None
+        sys.modules["mpmath"] = None
         import numpy as np
         import heyoka_tpu_torch as ht
+        from heyoka_tpu_torch import multiprec, s11n
+        tf = ht.taylor_adaptive_batch(ht.models.pendulum(), [[0.1, 0.0]],
+                                      tol=1e-6, dtype=np.float32,
+                                      device="cpu")
+        tf = s11n.loads(s11n.dumps(tf))
+        tf.propagate_until(1.0)
+        assert tf.state.dtype == np.float32 and tf.time[0] == 1.0
         from heyoka_tpu_torch.models import nbody
         st = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
                        0, 1.5, 0, -0.8, 0, 0], float)

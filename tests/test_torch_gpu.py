@@ -500,7 +500,7 @@ def test_phase_rejects_bad_inputs(cuda):
     tc = seeded_buffer(tape, pendulum_lanes(4, 0), np.zeros((4, 0)),
                        np.zeros(4), cuda)
     with pytest.raises(ValueError):
-        jp.phase(tape, tc.float(), 1)  # dtype
+        jp.phase(tape, tc.half(), 1)  # dtype: f64 and f32 only
     with pytest.raises(ValueError):
         jp.phase(tape, tc[:, :-1].contiguous(), 1)  # shape
     with pytest.raises(ValueError):
@@ -509,6 +509,98 @@ def test_phase_rejects_bad_inputs(cuda):
         jp.phase(tape, tc.transpose(1, 2).contiguous().transpose(1, 2), 1)
     with pytest.raises(ValueError):
         jp.phase(tape, tc, 0)  # order 0 is not the kernel's
+
+
+#: kernel B4-f32 against its f32 twin: per order, relative to the order's
+#: largest magnitude (T2's bar, PERF.md section 2); both sum in f32 and
+#: only the order of the convolutions' terms differs
+F32_BAR = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(PHASE_CASES))
+def test_phase_f32_kernel_matches_plain(cuda, name):
+    # kernel B4's f32 entry against the f32 twin from lo = 1 and lo = 9,
+    # counted in its own LAUNCHES key, and twice to the same bits
+    B, K = 200, 8
+    tape = _phase_tape(name, K, cuda)
+    st0, pars = PHASE_CASES[name][1:]
+    tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, B, 5), cuda,
+                        torch.float32)
+    n0 = dict(jk.LAUNCHES)
+    tc_k = jp.phase(tape, tc0.clone(), 1)
+    torch.cuda.synchronize()
+    assert jk.LAUNCHES["phase_f32"] == n0["phase_f32"] + 1
+    assert jk.LAUNCHES["phase"] == n0["phase"]
+    assert tc_k.dtype == torch.float32
+    assert torch.equal(jp.phase(tape, tc0.clone(), 1), tc_k)
+    tc_p = jp.phase_plain(tape, tc0.clone(), 1)
+    tc5 = tc_p.clone()
+    tc5[5:, :int(tape.lvl[-1])] = float("nan")
+    jp.phase(tape, tc5, 5)
+    for tc in (tc_k, tc5):
+        assert bool(torch.isfinite(tc).all())
+        rel = _per_order_rel(tc.permute(1, 0, 2), tc_p.permute(1, 0, 2))
+        assert float(rel.max()) <= F32_BAR, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pendulum", "hyper"])
+def test_phase_f32_every_shape_equals_the_default(cuda, name):
+    # B4-f32 at every block shape and layout it takes, forced
+    B, K = 203, 8
+    tape = _phase_tape(name, K, cuda)
+    st0, pars = PHASE_CASES[name][1:]
+    tc0 = seeded_buffer(tape, *phase_lanes(st0, pars, B, 7), cuda,
+                        torch.float32)
+    ref = jp.phase(tape, tc0.clone(), 1)
+    for lay, L, nt in jp.sweep_shapes(tape, 4):
+        got = jp._phase_cuda(tape, tc0.clone(), 1, L, nt, lay)
+        assert torch.equal(got, ref), (lay, L, nt)
+
+
+@pytest.mark.gpu
+def test_pendulum_f32_slice_on_cuda_matches_cpu(cuda):
+    # the f32 batch on the card: B4-f32 only, every tensor in f32, the
+    # states within 1e-5 of the CPU's f32 run (the two jets differ in the
+    # last bits, the steps then by an f32 ulp of h)
+    st = pendulum_lanes(8, 6)
+    kw = dict(tol=1e-6, dtype=np.float32)
+    c = ht.taylor_adaptive_batch(ht.models.pendulum(), st, device="cpu", **kw)
+    g = ht.taylor_adaptive_batch(ht.models.pendulum(), st, device=cuda, **kw)
+    assert g.engine_report()["jet"] == "hy_phase_f32"
+    n0 = dict(jk.LAUNCHES)
+    rc = c.propagate_until(5.0)
+    rg = g.propagate_until(5.0)
+    assert jk.LAUNCHES["phase_f32"] > n0["phase_f32"]
+    assert all(jk.LAUNCHES[k] == n0[k] for k in ("jet", "prop", "phase",
+                                                  "jet_rolled"))
+    assert g._state.dtype == g._tc.dtype == g._t_hi.dtype == torch.float32
+    assert rg[0] == rc[0] and (g.time == 5.0).all()
+    np.testing.assert_allclose(g.state, c.state, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cfunc_and_sgp4_f32_on_cuda_match_cpu(cuda):
+    # the f32 cfunc and SGP4 on the card against the same on the CPU: one
+    # torch op a row in f32 on both, libm and CUDA's f32 math apart
+    x, y = ht.make_vars("x", "y")
+    fns = [ht.sin(x) * ht.exp(-y) + ht.atan2(y, x), ht.sqrt(x * x + y * y)]
+    pts = np.random.default_rng(3).uniform(0.1, 2.0, (4096, 2))
+    cg = ht.make_cfunc(fns, vars=[x, y], device=cuda, dtype=np.float32)
+    cc = ht.make_cfunc(fns, vars=[x, y], device="cpu", dtype=np.float32)
+    og, oc = cg(pts), cc(pts)
+    assert og.dtype == torch.float32
+    np.testing.assert_allclose(og.cpu().numpy(), oc.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    g = c5.sgp4_population(64, 1)
+    tt = np.linspace(0.0, 1440.0, 4)[:, None] * np.ones((1, g.shape[1]))
+    pg = ht.models.sgp4_propagator(g, device=cuda, dtype=np.float32)
+    pc = ht.models.sgp4_propagator(g, device="cpu", dtype=np.float32)
+    rg, rc = pg(tt), pc(tt)
+    assert rg.dtype == torch.float32
+    np.testing.assert_allclose(rg.cpu().numpy()[..., :3], rc.numpy()[..., :3],
+                               rtol=0, atol=1.0)
 
 
 @pytest.mark.gpu

@@ -20,11 +20,10 @@ import heyoka_tpu as hy
 import heyoka_tpu_torch as ht
 import heyoka_tpu_torch.models as htm
 
-A15, A22 = "A.15 numeric rest", "A.22 native"
+A22 = "A.22 native"
 
 #: top-level names of ``heyoka_tpu`` the port does not have yet
 NOT_PORTED = {
-    "multiprec": A15, "s11n": A15,
     "native": A22,
 }
 
@@ -114,13 +113,24 @@ def test_float64_is_accepted(dtype):
     assert tb.state.dtype == ta.state.dtype == np.float64
 
 
-@pytest.mark.parametrize("dtype", [np.float32, torch.float32, "float16",
-                                   int])
+@pytest.mark.parametrize("dtype", [np.float32, "float32", torch.float32,
+                                   np.dtype(np.float32)])
+def test_float32_is_accepted(dtype):
+    # the JAX package's second precision (ROADMAP C.4, repaired)
+    tb = ht.taylor_adaptive_batch(ht.models.pendulum(), [[0.1, 0.0]],
+                                  device="cpu", dtype=dtype)
+    ta = ht.taylor_adaptive(ht.models.pendulum(), [0.1, 0.0], device="cpu",
+                            dtype=dtype)
+    assert tb.state.dtype == ta.state.dtype == np.float32
+    assert tb.tol == ta.tol == float(np.finfo(np.float32).eps)
+
+
+@pytest.mark.parametrize("dtype", ["float16", int, torch.float16, np.int32])
 def test_other_dtypes_are_refused(dtype):
-    with pytest.raises(ValueError, match="float64"):
+    with pytest.raises(ValueError, match="float64 or float32"):
         ht.taylor_adaptive_batch(ht.models.pendulum(), [[0.1, 0.0]],
                                  device="cpu", dtype=dtype)
-    with pytest.raises(ValueError, match="float64"):
+    with pytest.raises(ValueError, match="float64 or float32"):
         ht.taylor_adaptive(ht.models.pendulum(), [0.1, 0.0], device="cpu",
                            dtype=dtype)
 
@@ -163,4 +173,7 @@ def test_the_earth_orientation_slice():
     for n in ("EOPData", "SWData", "eop_data", "sw_data", "eop_sw"):
         assert hasattr(ht, n) and n not in NOT_PORTED
     assert ht.eop_sw.__name__ == "heyoka_tpu_torch.eop_sw"
-    assert set(NOT_PORTED) == {"multiprec", "s11n", "native"}
+    # the rest of A.15 (s11n, multiprec) came after it: only A.22 is left
+    assert set(NOT_PORTED) == {"native"}
+    assert ht.s11n.__name__ == "heyoka_tpu_torch.s11n"
+    assert ht.multiprec.__name__ == "heyoka_tpu_torch.multiprec"

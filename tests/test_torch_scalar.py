@@ -1,7 +1,7 @@
 """The port's scalar integrator (``taylor_adaptive``, a one-lane batch)
 against the JAX package's on the CPU in f64: the cases of
-``tests/test_integrator.py`` (without ``test_float32_mode``: the port
-refuses float32) with the JAX scalar as the reference, scalar events and
+``tests/test_integrator.py`` (``test_float32_mode``'s case is in
+``tests/test_torch_f32.py``) with the JAX scalar as the reference, scalar events and
 step callbacks, pickling and the refused knobs.  States within 1e-12
 relative, step counts equal outside a sub-ulp landing step, event times
 within 1e-12.  The JAX integrators are built once a module and reset

@@ -232,6 +232,6 @@ def test_pickle_replace_and_device():
         p.replace_sat_data(g[:7])
     with pytest.raises(ValueError, match="times"):
         p(np.zeros((4, 3)))
-    with pytest.raises(ValueError, match="float64"):
-        _prop(g, dtype=np.float32)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        _prop(g, dtype=np.float16)
     assert ht.models.sgp4_propagator(g, device="cpu").nsats == 8
