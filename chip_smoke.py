@@ -299,7 +299,26 @@ if anything is missing or any check fails.  Phases, one line each:
     ``s11n``'s cache in a child process with no ``nvcc``: the built
     library packed, unpacked into a fresh directory, that directory
     enabled, B4 (f32 and f64) launched from the unpacked library and held
-    to its twin.
+    to its twin;
+27. the rest of C.4 in f32 and the native host runtime (ROADMAP A.22):
+    (a) the Henon-Heiles Poincare batch of phase 18 in f32 (tol the f32
+    epsilon) at 10,240 lanes to t = 20: only B4-f32 launched, the event
+    rows isolated in f32, 64 lanes' hits against the port's f32 CPU run
+    and every lane's against phase 18's f64 hits before t = 20 (count and
+    sign equal, times within 2e-5), the energy drift, lane-steps/s beside
+    phase 18's f64 event rate; (b) config 4's PCR3BP STM batch in f32 at
+    2,048 lanes to t = 10: |det STM - 1|, states and Taylor map against
+    the f64 run on the card and the f32 CPU run; (c) the complete ELP2000
+    ODE in f32 at 10,240 lanes over 0.002 centuries (S1 in f64 on the
+    widened f32 input, B4-f32) against the f64 card runs at the same tol
+    and at 1e-15 and the f32 CPU run, then phase 25 (c)'s ``pm_x`` ODE in
+    f32 against its f64 run and the CPU's; (d) ``backend="native"`` on the
+    card's host (the runtime and the outer-SS stepper built by ``g++`` in
+    a child process at a lower priority while phases 3-26 run): one
+    outer-SS lane's ``step()`` latency beside the card's, and
+    ``propagate_until(100)`` at 8, 64 and 256 lanes on the host and on the
+    card, held to each other, with no kernel launched and no device event
+    (``torch.profiler``) during the native runs, and the host's CPU model.
 
 The line before the last is the kernels' JSON summary (each kernel's
 launches on its path, its error against its plain version, its time, its
@@ -312,7 +331,8 @@ rows, ``var_tape``, phase 22's time on its variational tape, and
 24's, B4's gains ``series_tapes`` and ``eo_tape``, phase 25's time on
 the ``eo_dynamics`` tape; B4-f32's row is phase 26's: its launches on the
 f32 pendulum, its time at 10,240 pendulum lanes at order 8 beside
-B4-f64's); the last line is
+B4-f64's, its ``path_launches`` with phase 27's f32 paths, and S1's
+with phase 27 (c)'s); the last line is
 ``{"ok": true, "device": {...}}``.  Each phase's
 line carries ``t_s``, the seconds since the script started.
 """
@@ -531,6 +551,19 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
+    # phase 27 (d)'s host libraries, built beside the device phases
+    warm_proc = start_native_build()
+    try:
+        device_phases(dev, smi, build_s, warm_proc)
+    finally:
+        if warm_proc.poll() is None:
+            warm_proc.kill()
+            warm_proc.communicate()
+
+
+def device_phases(dev, smi, build_s, warm_proc):
+    """Phases 2-27 (the module's docstring), then the kernels' line and the
+    last line."""
     log_path = _build.library_path().with_suffix(".log")
     log = log_path.read_text() if log_path.exists() else ""
     ptxas, fn = {}, None
@@ -821,6 +854,14 @@ def main():
 
     # phase 26: float32; B4-f32's row, its launches on the f32 pendulum
     f32_row = f32_paths(dev, smi, order, pend_until)
+
+    # phase 27: C.4's remainder in f32 and the native host runtime;
+    # B4-f32's and S1's launches on its paths
+    c4_launch = c4_native_paths(dev, smi, sys_, ics, hh, hh_hits, warm_proc)
+    f32_row[2]["path_launches"].update(
+        {p: n["phase_f32"] for p, n in c4_launch.items() if n["phase_f32"]})
+    s1_row["path_launches"].update(
+        {p: n["series"] for p, n in c4_launch.items() if n["series"]})
 
     rows = [("hy_series_jet_f64", ser_launch["elp2000_complete"]["series"],
              s1_err, s1_row),
@@ -4706,6 +4747,481 @@ def f32_paths(dev, smi, order, pend_until):
                                          for k, v in paths.items()})
     return paths["f32_pendulum"]["phase_f32"], err, row
 
+
+
+# -- phase 27: C.4's remainder in f32 and the native host runtime (A.22) ---
+
+HH27_T = HH_GRID_T  # the f32 HH run's horizon, a tenth of phase 18's
+#: f32 against f32 on the CPU and against f64, the HH hit times: the CPU's
+#: f32 run of 256 lanes to t = 20 parts from f64 by 1.8e-6 (measured);
+#: ten times that
+HH27_HIT_ATOL = 2e-5
+HH27_DRIFT_MAX = 1e-5  # the f32 energy drift at t = 20 (9.5e-7 on the CPU)
+#: config 4 in f32 at B = 2,048 to t = 10: |det STM - 1| was 1.1e-4 on the
+#: CPU, the states 6.2e-5 (relative) from f64 and the CPU's 16- and
+#: 64-lane f32 runs 1.3e-5 apart: ten times each
+VAR27_B = VAR_B[0]
+VAR27_DET = 1e-3
+VAR27_F64_RTOL = 1e-3
+VAR27_CPU_RTOL = 2e-4
+#: the ELP2000 ODE's states are < 1e-7 (``x' = 1e-10 c``), so f32's
+#: tolerance (1.19e-7, absolute for |x| < 1) exceeds them: at that tol the
+#: f64 run parts from tol 1e-15 as much as f32 does (the same 1.5e-8 on
+#: the CPU), and f32's time rounds the 1e4-rad/century phases by ~1e-3
+#: rad (f32 and f64 at one tol 4.5e-10 apart on the card's 10,240 lanes,
+#: 5e-12 on 8 CPU lanes).  The bars: 10 times the f32 tolerance
+#: (absolute) against both f64 runs; against the CPU's f32 run of the
+#: same lanes 1e-2 of the largest |x|
+ELP27_B = SER_B
+ELP27_T = SER_T / 10
+ELP27_REF_LANES = 4
+ELP27_ABS = 10 * float(np.finfo(np.float32).eps)
+ELP27_RTOL = 1e-2
+#: the pm_x ODE in f32: within the f32 tolerance (absolute) of the f64 run
+#: (3.7e-9 on the CPU) and of the CPU's f32 run
+PMX27_ABS = float(np.finfo(np.float32).eps)
+NATIVE_B = (8, 64, 256)  # propagate_until on the host and on the card
+
+NATIVE_WARM = r"""
+import json, sys, threading, time
+import heyoka_tpu_torch as ht
+from heyoka_tpu_torch import native, native_cg
+from heyoka_tpu_torch.tools import GCONST, MASSES
+t0 = time.perf_counter()
+ok = native.native_available()
+rt_s = time.perf_counter() - t0
+tape = ht.taylor_decompose_sys(ht.models.nbody(6, masses=MASSES,
+                                               Gconst=GCONST))
+order = ht.taylor_order_from_tol(1e-15)
+out, errs = {}, []
+
+def build(W):
+    t = time.perf_counter()
+    try:
+        native_cg.CompiledTape(tape, order, W=W)
+    except Exception as e:
+        errs.append(repr(e))
+    out[W] = time.perf_counter() - t
+
+th = [threading.Thread(target=build, args=(W,)) for W in (1, 8)]
+for t in th:
+    t.start()
+for t in th:
+    t.join()
+print(json.dumps(dict(ok=ok and not errs, runtime_s=rt_s, errors=errs,
+                      codegen_s={str(k): v for k, v in out.items()},
+                      wall_s=time.perf_counter() - t0,
+                      build_error=native.build_error())))
+"""
+
+
+def use_path_gxx():
+    """Build the native route with the ``g++`` on PATH: set ``CXX`` to it
+    (the card's host sets ``CXX`` to a wrapper of its own GCC whose driver
+    finds no ``libgomp.spec``, so ``-fopenmp`` fails there, while the
+    ``g++`` on PATH links OpenMP).  Returns the compiler, or the ``CXX``
+    already set where PATH has no ``g++``."""
+    import os
+    import shutil
+    gxx = shutil.which("g++")
+    if gxx is not None:
+        os.environ["CXX"] = gxx
+    return os.environ.get("CXX", "g++")
+
+
+def start_native_build():
+    """The native runtime and the outer-SS stepper (W = 1 for the scalar,
+    8 for the batch) built in a child process at a lower priority while
+    the device phases run: ``g++`` takes ~20 s and ~40 s on one core each
+    for this tape, and phase 27 (d) then loads them from the build
+    directory; the compiler is :func:`use_path_gxx`'s.  Returns the
+    child."""
+    import os
+    import subprocess
+    from pathlib import Path
+    use_path_gxx()
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen(
+        [sys.executable, "-c", NATIVE_WARM], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, preexec_fn=lambda: os.nice(10))
+
+
+def host_cpu():
+    """The host's CPU model (``/proc/cpuinfo``, and ``lscpu``'s vendor,
+    model name, family and model where ``/proc`` says "unknown"), its
+    logical CPUs and those this process may run on, ``OMP_NUM_THREADS``
+    and the compiler of the native route."""
+    import os
+    import subprocess
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ln.startswith("model name"):
+                    model = ln.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    lscpu = {}
+    try:
+        r = subprocess.run(["lscpu"], capture_output=True, text=True,
+                           timeout=10)
+        for ln in r.stdout.splitlines():
+            k, _, v = ln.partition(":")
+            if k.strip() in ("Vendor ID", "Model name", "CPU family",
+                             "Model", "Flags") and v.strip():
+                lscpu[k.strip()] = v.strip() if k.strip() != "Flags" \
+                    else " ".join(f for f in v.split()
+                                  if f.startswith("avx"))
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return dict(model=model, lscpu=lscpu, cpus=os.cpu_count(),
+                usable=len(os.sched_getaffinity(0)),
+                omp_num_threads=os.environ.get("OMP_NUM_THREADS"),
+                cxx=os.environ.get("CXX"))
+
+
+def hh_f32(dev, smi, hh, hh_hits):
+    """Phase 27 (a): the HH Poincare batch in f32 (tol the f32 epsilon) at
+    10,240 lanes to t = 20: B4-f32 alone, f32 isolation, the hits of 64
+    lanes against the port's f32 CPU run and of every lane against phase
+    18's f64 run on the card (its hits before t = 20), the energy drift,
+    lane-steps/s beside phase 18's f64 event rate."""
+    sys_, y = hh_sys()
+    kw = dict(dtype=np.float32)
+
+    def make(ics, d, rec):
+        return ht.taylor_adaptive_batch(
+            sys_, ics, device=d, nt_events=[ht.nt_event(
+                y, rec, direction=ht.EventDirection.positive)], **kw)
+
+    make(hh_lanes(CHUNK), dev, HitArrays()).propagate_until(1.0)
+    ics = hh_lanes(HH_B)
+    rec = HitArrays()
+    zero_launches()
+    ta, res, wall = timed_call(lambda: make(ics, dev, rec),
+                               lambda t: t.propagate_until(HH27_T))
+    launches = dict(jk.LAUNCHES)
+    eng = ta.engine_report()
+    check(eng["jet"] == "hy_phase_f32"
+          and eng["propagate_engine"] == "events", f"HH f32: route {eng}")
+    check(only(launches, "phase_f32"), f"HH f32: kernels {launches}")
+    check(ta._tc.dtype == ta._state.dtype == torch.float32
+          and ta._ev is not None, "HH f32: not f32")
+    oc, _, _, ns = res
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == HH27_T).all()), "HH f32: landing")
+    e0 = hh_energy(torch.as_tensor(ics, device=dev))
+    drift = float(((hh_energy(torch.as_tensor(ta.state, device=dev)
+                              .double()) - e0).abs() / e0.abs()).max())
+    check(drift <= HH27_DRIFT_MAX, f"HH f32: energy drift {drift}")
+    ts, sg, ln = rec.arrays()
+    check(ts.size > 0 and bool((sg == 1).all()), "HH f32: hits")
+    # 64 lanes against the f32 CPU run
+    ref = HitArrays()
+    make(ics[:HH_REF_LANES], "cpu", ref).propagate_until(HH27_T)
+    mine, cpu = rec.per_lane(HH_REF_LANES), ref.per_lane(HH_REF_LANES)
+    check(all(a[0].size == b[0].size and np.array_equal(a[1], b[1])
+              for a, b in zip(mine, cpu)),
+          "HH f32: hits differ from the f32 CPU run in count or sign")
+    dt_cpu = max(float(np.abs(a[0] - b[0]).max(initial=0.0))
+                 for a, b in zip(mine, cpu))
+    check(dt_cpu <= HH27_HIT_ATOL, f"HH f32: hit times vs CPU {dt_cpu}")
+    # every lane against phase 18's f64 hits before t = 20 (a hit within
+    # the bar of t = 20 may fall on either side)
+    ft, fs, fl = hh_hits
+    keep = ft < HH27_T
+    f64 = HitArrays()
+    f64.parts.append((ft[keep], fs[keep], fl[keep]))
+    a_all, b_all = rec.per_lane(HH_B), f64.per_lane(HH_B)
+    n_edge, dt_f64 = 0, 0.0
+    for a, b in zip(a_all, b_all):
+        if a[0].size != b[0].size:
+            near = min(np.abs(np.concatenate([a[0], b[0]]) - HH27_T))
+            check(abs(a[0].size - b[0].size) == 1
+                  and near <= HH27_HIT_ATOL,
+                  f"HH f32: hit count vs f64 {a[0].size} {b[0].size}")
+            n_edge += 1
+            m = min(a[0].size, b[0].size)
+            a, b = (a[0][:m], a[1][:m]), (b[0][:m], b[1][:m])
+        check(np.array_equal(a[1], b[1]), "HH f32: a sign differs from f64")
+        dt_f64 = max(dt_f64, float(np.abs(a[0] - b[0]).max(initial=0.0)))
+    check(dt_f64 <= HH27_HIT_ATOL, f"HH f32: hit times vs f64 {dt_f64}")
+    steps = int(ns.sum())
+    f64_rate = float(np.median(hh[f"B{HH_B}"]["events_steps_per_s"]))
+    return dict(B=HH_B, t_end=HH27_T, order=ta.order, tol=ta.tol,
+                engine=eng, launches=launches, lockstep_steps=int(ns.max()),
+                lane_steps=steps, wall_s=wall, steps_per_s=steps / wall,
+                f64_phase18_steps_per_s=f64_rate,
+                rate_vs_f64=(steps / wall) / f64_rate, crossings=int(ts.size),
+                energy_drift_max_rel=drift, cpu_ref_lanes=HH_REF_LANES,
+                cpu_hit_dt_max=dt_cpu, f64_hit_dt_max=dt_f64,
+                f64_edge_lanes=n_edge, hit_atol=HH27_HIT_ATOL,
+                nvidia_smi=smi), launches
+
+
+def var_f32(dev, smi):
+    """Phase 27 (b): config 4's PCR3BP STM batch in f32 at 2,048 lanes to
+    t = 10 on B4-f32: |det STM - 1|, the Taylor map (f64 from the f32
+    state, as the JAX package evaluates it) and the states against the
+    f64 run on the card and the f32 CPU run of 16 lanes."""
+    vsys = ht.var_ode_sys(ht.models.pcr3bp(mu=VAR_MU), ht.VarArgs.vars,
+                          order=1)
+    ics = var_lanes(VAR27_B)
+    d = np.array([TM_D, 0.0, 0.0, 0.0])
+    warm = ht.taylor_adaptive_batch(vsys, ics[:CHUNK], device=dev,
+                                    dtype=np.float32)
+    warm.propagate_until(1.0)
+    ta = ht.taylor_adaptive_batch(vsys, ics, device=dev, dtype=np.float32)
+    eng = ta.engine_report()
+    check(eng["jet"] == "hy_phase_f32" and ta.is_variational,
+          f"config 4 f32: route {eng}")
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    oc, _, _, ns = ta.propagate_until(VAR_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "phase_f32"), f"config 4 f32: kernels {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in oc)
+          and bool((ta.time == VAR_T).all()), "config 4 f32: landing")
+    st = ta.state
+    check(st.dtype == np.float32 and bool(np.isfinite(st).all()),
+          "config 4 f32: state")
+    stm = torch.as_tensor(st[:, ta.get_vslice(1)].astype(np.float64),
+                          device=dev).reshape(VAR27_B, 4, 4)
+    det_err = float((torch.linalg.det(stm) - 1.0).abs().max())
+    check(det_err <= VAR27_DET, f"config 4 f32: |det STM - 1| {det_err}")
+    tm = ta.eval_taylor_map(d)
+    check(tm.dtype == np.float64, "config 4 f32: the Taylor map's dtype")
+    t64 = ht.taylor_adaptive_batch(vsys, ics, device=dev, tol=TOL,
+                                   high_accuracy=True)
+    t64.propagate_until(VAR_T)
+    tm64 = t64.eval_taylor_map(d)
+    rel64, tm_rel64 = rel_max(st, t64.state), rel_max(tm, tm64)
+    check(rel64 <= VAR27_F64_RTOL and tm_rel64 <= VAR27_F64_RTOL,
+          f"config 4 f32 vs f64: {rel64}, Taylor map {tm_rel64}")
+    cpu = ht.taylor_adaptive_batch(vsys, ics[:16], device="cpu",
+                                   dtype=np.float32)
+    cpu.propagate_until(VAR_T)
+    rel_cpu = rel_max(st[:16], cpu.state)
+    tm_cpu = rel_max(tm[:16], cpu.eval_taylor_map(d))
+    check(rel_cpu <= VAR27_CPU_RTOL and tm_cpu <= VAR27_CPU_RTOL,
+          f"config 4 f32 vs the f32 CPU run: {rel_cpu}, map {tm_cpu}")
+    steps = int(ns.sum())
+    return dict(B=VAR27_B, t_end=VAR_T, order=ta.order, engine=eng,
+                launches=launches, wall_s=wall, lane_steps=steps,
+                steps_per_s=steps / wall, det_max_err=det_err,
+                vs_f64_max_rel=rel64, taylor_map_vs_f64_max_rel=tm_rel64,
+                cpu_ref_lanes=16, vs_cpu_max_rel=rel_cpu,
+                taylor_map_vs_cpu_max_rel=tm_cpu, nvidia_smi=smi), launches
+
+
+def elp_f32(dev, smi):
+    """Phase 27 (c): the complete ELP2000 ODE in f32 at 10,240 lanes over
+    0.002 centuries (S1 in f64 on the widened f32 input, its orders
+    rounded once into B4-f32's buffer) against the f64 card runs at the
+    same tol and at 1e-15 and the f32 CPU run of 4 lanes; then phase 25
+    (c)'s ``pm_x`` ODE in f32 against its f64 run and the CPU's."""
+    sys_ = elp_sys(ht, 0.0)
+    t0 = series_times(ELP27_B, 0)
+    eps32 = float(np.finfo(np.float32).eps)
+
+    def run(d, B, **kw):
+        return ht.taylor_adaptive_batch(sys_, np.zeros((B, 3)), time=t0[:B],
+                                        device=d, **kw)
+
+    ta = run(dev, ELP27_B, dtype=np.float32)
+    eng = ta.engine_report()
+    check(eng["jet"] == "hy_phase_f32"
+          and eng["series"] == "hy_series_jet_f64", f"ELP f32: route {eng}")
+    torch.cuda.synchronize()
+    zero_launches()
+    w0 = time.perf_counter()
+    res = ta.propagate_for(ELP27_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = dict(jk.LAUNCHES)
+    check(only(launches, "phase_f32", "series"),
+          f"ELP f32: kernels {launches}")
+    check(all(o == ht.TaylorOutcome.time_limit for o in res[0])
+          and bool(np.isfinite(ta.state).all()), "ELP f32: outcomes")
+    st = ta.state.astype(np.float64)
+    same = run(dev, ELP27_B, tol=eps32)
+    same.propagate_for(ELP27_T)
+    f64 = run(dev, ELP27_B, tol=TOL)
+    f64.propagate_for(ELP27_T)
+    cpu = run("cpu", ELP27_REF_LANES, dtype=np.float32)
+    cpu.propagate_for(ELP27_T)
+    scale = float(np.abs(f64.state).max())
+    d_same = float(np.abs(st - same.state).max())
+    d_f64 = float(np.abs(st - f64.state).max())
+    d_same64 = float(np.abs(same.state - f64.state).max())
+    d_cpu = float(np.abs(st[:ELP27_REF_LANES] - cpu.state).max())
+    check(d_f64 <= ELP27_ABS and d_same <= ELP27_ABS,
+          f"ELP f32 vs f64 at 1e-15 {d_f64}, at its tol {d_same}")
+    check(d_cpu <= ELP27_RTOL * scale, f"ELP f32 vs the CPU: {d_cpu}")
+    steps = int(np.asarray(res[3]).sum())
+    # the pm_x ODE in f32
+    x = ht.make_vars("x")
+    t1, t2 = ht.utils.jd_utc_to_tt(ht.utils.cal_to_jd(2020, 1, 1), 0.0)
+    tp0 = float(((t1 - 2451545.0) + t2) / 36525.0)
+    pm = {}
+    for name, d, kw in (("f32", dev, dict(dtype=np.float32)),
+                        ("f64", dev, dict(tol=1e-12)),
+                        ("cpu_f32", "cpu", dict(dtype=np.float32))):
+        s = ht.taylor_adaptive([(x, ht.models.pm_x() * 1e6)], [0.0],
+                               time=tp0, device=d, **kw)
+        if name == "f32":
+            zero_launches()
+        oc = s.propagate_until(tp0 + 2.0 / 36525.0,
+                               max_delta_t=0.02 / 36525.0)[0]
+        check(oc == ht.TaylorOutcome.time_limit, f"pm_x {name}: {oc}")
+        if name == "f32":
+            pm_launch = dict(jk.LAUNCHES)
+            check(only(pm_launch, "phase_f32"), f"pm_x f32: {pm_launch}")
+        pm[name] = float(s.state[0])
+    check(abs(pm["f32"] - pm["f64"]) <= PMX27_ABS
+          and abs(pm["f32"] - pm["cpu_f32"]) <= PMX27_ABS,
+          f"pm_x f32: {pm}")
+    return dict(B=ELP27_B, t_span=ELP27_T, order=ta.order, engine=eng,
+                launches=launches, wall_s=wall, lane_steps=steps,
+                lane_steps_per_s=steps / wall, max_abs_state=scale,
+                vs_f64_same_tol_max_abs=d_same, vs_f64_max_abs=d_f64,
+                f64_same_tol_vs_f64_max_abs=d_same64,
+                cpu_ref_lanes=ELP27_REF_LANES, vs_cpu_max_abs=d_cpu,
+                bars=dict(f64_abs=ELP27_ABS, rtol=ELP27_RTOL),
+                pm_x=dict(pm, launches=pm_launch, abs_bar=PMX27_ABS),
+                nvidia_smi=smi), launches, pm_launch
+
+
+def no_device_work(fn):
+    """``fn()`` under ``torch.profiler`` with the card's activity: its
+    result, its wall seconds and the device events it caused."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    zero_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, wall, len(ev)
+
+
+def native_paths(dev, smi, sys_ss, ics_ss, warm_proc):
+    """Phase 27 (d): ``backend="native"`` on the card's host: one outer-SS
+    lane's ``step()`` latency on the host beside the device's (phase 20's
+    measure), ``propagate_until(100)`` at 8, 64 and 256 lanes on the host
+    and on the card, the states held to each other and the landing
+    exact, no kernel launched and no device event during the native
+    runs (``torch.profiler``), the host's CPU."""
+    out, err = warm_proc.communicate(timeout=600)
+    check(warm_proc.returncode == 0, f"native build: {err[-2000:]}")
+    build = json.loads(out.strip().splitlines()[-1])
+    check(build["ok"], f"native build: {build}")
+    kw = dict(tol=TOL, high_accuracy=True)
+    t0 = time.perf_counter()
+    tn = ht.taylor_adaptive(sys_ss, ics_ss[0], backend="native", **kw)
+    load_s = time.perf_counter() - t0
+    check(tn.backend == "native"
+          and tn.engine_report()["propagate_engine"] == "native-cg",
+          f"native scalar: {tn.engine_report()}")
+    lat_n, w, n_ev = no_device_work(lambda: step_latency(tn))
+    check(n_ev == 0 and not any(jk.LAUNCHES.values()),
+          f"native step(): {n_ev} device events, {dict(jk.LAUNCHES)}")
+    td = ht.taylor_adaptive(sys_ss, ics_ss[0], device=dev, **kw)
+    lat_d = step_latency(td)
+    e_ref = energy(torch.as_tensor(ics_ss[:max(NATIVE_B)], device=dev),
+                   MASSES, GCONST)
+    rows = {}
+    for B in NATIVE_B:
+        st0 = ics_ss[:B]
+        nb = ht.taylor_adaptive_batch(sys_ss, st0, backend="native", **kw)
+        check(nb.engine_report()["propagate_engine"] == "native-cg",
+              f"native batch: {nb.engine_report()}")
+        nb.step()
+        nb = ht.taylor_adaptive_batch(sys_ss, st0, backend="native", **kw)
+        res_n, wall_n, n_ev = no_device_work(
+            lambda: nb.propagate_until(T_END))
+        check(n_ev == 0 and not any(jk.LAUNCHES.values()),
+              f"native B={B}: {n_ev} device events, {dict(jk.LAUNCHES)}")
+        warm = ht.taylor_adaptive_batch(sys_ss, st0, device=dev, **kw)
+        warm.propagate_until(1.0)
+        db, res_d, wall_d = timed_call(
+            lambda: ht.taylor_adaptive_batch(sys_ss, st0, device=dev, **kw),
+            lambda t: t.propagate_until(T_END))
+        for r, t in ((res_n, nb), (res_d, db)):
+            check(all(o == ht.TaylorOutcome.time_limit for o in r[0])
+                  and bool((t.time == T_END).all()),
+                  f"native B={B}: landing")
+        rel = rel_max(nb.state, db.state)
+        check(rel <= REF_RTOL, f"native B={B} against the card: {rel}")
+        drift = float(((energy(torch.as_tensor(nb.state, device=dev),
+                               MASSES, GCONST) - e_ref[:B]).abs()
+                       / e_ref[:B].abs()).max())
+        check(drift <= DRIFT_MAX, f"native B={B}: energy drift {drift}")
+        sn, sd = int(np.asarray(res_n[3]).sum()), int(np.asarray(
+            res_d[3]).sum())
+        rows[f"B{B}"] = dict(
+            native_wall_s=wall_n, native_steps_per_s=sn / wall_n,
+            device_wall_s=wall_d, device_steps_per_s=sd / wall_d,
+            native_over_device=(sn / wall_n) / (sd / wall_d),
+            lane_steps=sn, device_lane_steps=sd, max_rel=rel,
+            energy_drift_max_rel=drift)
+    return dict(build=build, load_s=load_s, host=host_cpu(),
+                step_ms_native=lat_n,
+                steps_per_s_native=1e3 / lat_n["median"],
+                step_ms_device=lat_d, steps_per_s_device=1e3 / lat_d[
+                    "median"], latency_device_over_native=lat_d["median"]
+                / lat_n["median"],
+                propagate_until=rows, t_end=T_END, nvidia_smi=smi)
+
+
+def c4_native_paths(dev, smi, sys_ss, ics_ss, hh, hh_hits, warm_proc):
+    """Phase 27: float32 on the rest of C.4 (the HH events, config 4's
+    STM, the complete ELP2000 and the pm_x ODE) and the native host
+    runtime.  Returns the launches on each path, by kernel counter."""
+    t0 = time.perf_counter()
+    line_a, la = hh_f32(dev, smi, hh, hh_hits)
+    say("27a", **line_a)
+    line_b, lb = var_f32(dev, smi)
+    say("27b", **line_b)
+    line_c, lc, lp = elp_f32(dev, smi)
+    say("27c", **line_c)
+    line_d = native_paths(dev, smi, sys_ss, ics_ss, warm_proc)
+    say("27d", phase_s=time.perf_counter() - t0, **line_d)
+    return dict(hh_f32_events=la, var_pcr3bp_f32=lb, elp2000_f32=lc,
+                pm_x_f32=lp)
+
+
+def phase27_alone():
+    """Phase 27 alone on the card (``python3 -c "import chip_smoke as cs;
+    cs.phase27_alone()"``), phase 18's f64 hits made anew at 10,240 lanes
+    to t = 20 and its rate from that run."""
+    _build.load()
+    warm = start_native_build()
+    try:
+        dev, smi = torch.device("cuda"), smi_line()
+        print(smi, flush=True)
+        rec = HitArrays()
+        hh_batch(hh_lanes(CHUNK), dev, HitArrays()).propagate_until(1.0)
+        _, r, wall = timed_call(lambda: hh_batch(hh_lanes(HH_B), dev, rec),
+                                lambda t: t.propagate_until(HH27_T))
+        hh = {f"B{HH_B}": {"events_steps_per_s": [int(r[3].sum()) / wall]}}
+        out = c4_native_paths(dev, smi, nbody(6, masses=MASSES,
+                                              Gconst=GCONST),
+                              lanes(IC, B_MAIN, 0), hh, rec.arrays(), warm)
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+            warm.communicate()
+    print(json.dumps(out), flush=True)
 
 if __name__ == "__main__":
     main()

@@ -41,7 +41,10 @@ default) or ``float32``: a float32 integrator runs every tape through
 kernel B4's f32 entry.  ``s11n`` pickles every object and manages the
 kernel library's directory as the JAX package's cache API manages its
 compilation cache; ``multiprec`` is the host-side mpmath integrator at any
-number of digits (it imports mpmath at first use).
+number of digits (it imports mpmath at first use).  ``native`` is the JAX
+package's C++ host runtime (``native_cg`` its compiled stepper), behind
+``backend="native"`` of both integrators: built with ``g++`` at first
+use, it runs on the host CPU and never on the card.
 """
 
 from .expr.core import (  # noqa: F401
@@ -110,7 +113,7 @@ from .ensemble import (  # noqa: F401
     ensemble_propagate_grid_batch,
 )
 from .taylor.jet_kernels import LAUNCHES  # noqa: F401
-from . import multiprec, s11n  # noqa: F401
+from . import multiprec, native, s11n  # noqa: F401
 from .taylor.jet_phase import PhaseTape, jet_phase, phase  # noqa: F401
 
 taylor_outcome = TaylorOutcome

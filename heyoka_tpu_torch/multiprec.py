@@ -2,8 +2,8 @@
 
 A copy of ``heyoka_tpu/multiprec.py`` on the port's front end: the same
 mpmath interpreter of the decomposition tape (``taylor_decompose_sys`` of
-the port, the native runtime's operand encoding through the port's copy
-of ``pack_tape``, :mod:`._pack_tape`), the same per-op Taylor recurrences
+the port, the native runtime's operand encoding through
+:func:`.native.pack_tape`), the same per-op Taylor recurrences
 and Jorba step control, at any number of decimal digits, with events
 (the port's ``t_event``/``nt_event``) and dense output.  Reference:
 heyoka's ``taylor_adaptive<mppp::real>`` (doc/tut_arbitrary_precision.rst;
@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from .expr.decompose import Tape
-from ._pack_tape import pack_tape
+from .native import pack_tape
 
 _TIME = -2000000
 _PARBASE = -1000000

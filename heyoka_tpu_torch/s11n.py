@@ -29,6 +29,13 @@ it manages the library's directory:
 - :func:`pack_cache` writes the entries to a ``.tar.gz`` and
   :func:`unpack_cache` restores them into a directory, so that a machine
   with the same sources loads the kernels without ``nvcc``.
+
+The host libraries of ``backend="native"`` (:mod:`.native`,
+:mod:`.native_cg`) live in ``native/`` under the same directory and are
+not entries: compiled with ``-march=native`` for the CPU that built
+them, they are no use to another host, so :func:`pack_cache` leaves them
+out and :func:`trim_cache` never deletes them, as the JAX package's
+cache API leaves its native libraries alone.
 """
 
 from __future__ import annotations

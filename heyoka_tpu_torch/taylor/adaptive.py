@@ -32,15 +32,22 @@ pure-stop terminal events ``propagate_until`` dispatches the non-terminal
 callbacks after the propagation, in time order.
 
 Knobs: ``dtype=`` takes float64 (the default) or float32, as the batch
-does (a float32 integrator runs kernel B4's f32 entry on every tape and
-refuses events and variational systems, ROADMAP C.4).  ``backend="jax"``
-and ``"auto"``
-run the port's one engine (JAX's ``"auto"`` falls back to ``"jax"`` where
-the native runtime is absent, ``adaptive.py:151-177``) and
-:attr:`backend` is ``"device"``; ``backend="native"``, the JAX package's
-host C++ runtime, is not ported (ROADMAP A.22) and raises
-``NotImplementedError``.  ``compact_mode=`` is accepted and has no
-effect: the port has one engine.  Unlike the JAX class, whose
+does (a float32 integrator runs kernel B4's f32 entry on every tape, its
+events, variational system, series and interpolants too).
+``backend="jax"`` and ``"auto"`` run the port's kernels on ``device``
+and :attr:`backend` is ``"device"``; ``backend="native"`` runs the host
+C++ runtime (:mod:`..native`, the stepper of :mod:`..native_cg`
+compiled for one lane, ``W = 1``, as the JAX class builds it) through a
+one-lane native batch on the host, whatever ``device`` says, and
+:attr:`backend` is ``"native"``: ``step`` and ``propagate_until`` in one
+host call, the grid, ``c_output`` and step callbacks through the
+host-driven driver over ``step`` (``adaptive.py:512-522, 601-615`` of
+the JAX package).  It raises the JAX class's RuntimeError without a
+working compiler and its ValueError for float32 or events.  Departure:
+the JAX ``"auto"`` picks the native runtime where it is available
+(``adaptive.py:151-177``); the port has no auto-detection, and its
+``"auto"`` is the device.  ``compact_mode=`` is accepted and has no
+effect: the port has one device engine.  Unlike the JAX class, whose
 getters return host arrays of a device computation too, each getter here
 copies from the device.
 """
@@ -112,11 +119,6 @@ class TaylorAdaptive:
         npd = numpy_dtype(check_dtype(dtype))
         if backend not in ("jax", "native", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "native":
-            raise NotImplementedError(
-                "backend='native' (the JAX package's host C++ runtime) is "
-                "not ported yet (ROADMAP A.22); the port runs its one "
-                "engine on the device (backend='jax' or 'auto')")
         # a var_ode_sys integrates its augmented system; given the original
         # initial conditions only, the variational ones are filled in
         # (``heyoka_tpu/taylor/adaptive.py:69-82``)
@@ -141,7 +143,8 @@ class TaylorAdaptive:
                 pars, npd).reshape(1, -1),
             tol=tol, high_accuracy=high_accuracy, dtype=npd,
             t_events=self._lane_events(self._t_events),
-            nt_events=self._lane_events(self._nt_events))
+            nt_events=self._lane_events(self._nt_events), backend=backend,
+            _cg_width=1)
 
     def _lane_events(self, evs):
         return [_ScalarEvent(ev, self) for ev in evs]
@@ -256,8 +259,9 @@ class TaylorAdaptive:
 
     @property
     def backend(self) -> str:
-        """``"device"``: the port's one engine."""
-        return "device"
+        """``"device"`` (the port's kernels) or ``"native"`` (the host
+        runtime)."""
+        return self._tb.backend
 
     @property
     def dtype(self) -> np.dtype:
@@ -466,6 +470,7 @@ class TaylorAdaptive:
             "vsys": tb._vsys, "sys": tb.sys, "tol": tb.tol,
             "high_accuracy": tb.high_accuracy, "dtype": self.dtype.name,
             "compact_mode": self._compact_mode, "device": str(tb._device),
+            "backend": tb._backend_setting,
             "t_events": self._t_events, "nt_events": self._nt_events,
             "state": self.state, "pars": self.pars, "t_hi": hi, "t_lo": lo,
             "last_h": self.last_h, "tc": tb.tc[0],
@@ -479,7 +484,8 @@ class TaylorAdaptive:
                       high_accuracy=st["high_accuracy"],
                       compact_mode=st["compact_mode"], device=st["device"],
                       t_events=st["t_events"], nt_events=st["nt_events"],
-                      dtype=st.get("dtype", "float64"))
+                      dtype=st.get("dtype", "float64"),
+                      backend=st.get("backend", "jax"))
         self._tb._load_carry(dict(
             t_hi=[st["t_hi"]], t_lo=[st["t_lo"]], last_h=[st["last_h"]],
             tc=np.asarray(st["tc"])[None],

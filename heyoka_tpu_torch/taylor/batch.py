@@ -27,10 +27,14 @@ default) or float32, whose default tolerance is the f32 epsilon, as in the
 JAX batch.  A float32 batch takes the phase jet, kernel B4's f32 entry
 (``hy_phase_f32``), and the per-step driver on every tape, its state,
 parameters, coefficients, steps and double-length time (an f32 pair) in
-f32; it refuses (``ValueError`` naming ROADMAP C.4, the f32 work still to
-do) a tape with dense series or dataset interpolants (kernel S1 and the
-EOP/SW tables are f64), event equations and variational systems, all of
-which the JAX package runs in f32.  On a CUDA device ``step`` launches kernel B2
+f32, as the JAX package runs them.  Its events are isolated in f32 (the
+JAX event step's dtype); a variational system's augmented initial state
+and its Taylor map are computed in f64 from the f32 values, its lanes
+rounded once to f32, as the JAX package does; a dense series column or a
+dataset interpolant is computed in f64 from its f32 input widened
+exactly (kernel S1, ``eop_sw.interp0``: the JAX package's f64 tables
+promote its f32 input) and each order and slope is rounded once into the
+f32 buffer.  On a CUDA device ``step`` launches kernel B2
 and ``propagate_until`` kernel B1 (with B2 for the exact landing steps);
 on the CPU the plain twins run.  ``propagate_grid`` and
 ``propagate_until(c_output=True)`` take the per-step driver over the
@@ -50,19 +54,38 @@ the ephemeris models' ``series_op=True``) is such an op: kernel S1
 launch, which copies them; its input must be affine in time, or the
 constructor raises ValueError.  The public getters return numpy arrays,
 like the JAX class's.
+
+``backend``: ``"jax"`` (the default) and ``"auto"`` run the route above
+on ``device``; ``"native"`` runs the JAX package's host C++ runtime
+(:mod:`..native`; ``heyoka_tpu/taylor/batch.py:174-227``) with the
+stepper :mod:`..native_cg` compiles for the tape (``W = 8`` lanes a
+block), and the lanes live on the host as CPU tensors whatever
+``device`` says: ``step`` and ``propagate_until`` are one host call
+each (OpenMP over the lanes), the grid, ``c_output`` and step callbacks
+take the host-driven driver over ``step`` (``events.propagate_stepwise``),
+and no kernel launches.  It takes float64 without events, as the JAX
+class does (ValueError otherwise; RuntimeError where the runtime does not
+build), and falls back to the interpreter runtime only where the tape is
+outside codegen's set (``native_cg._Unsupported``, recorded in
+:attr:`native_fallback`) or ``HEYOKA_NATIVE_CG=0``: a failing compiler
+raises.  Departures: the JAX ``"auto"`` picks the native runtime for up to
+``HEYOKA_NATIVE_BATCH_MAX`` lanes; the port has no auto-detection, its
+``"auto"`` is the device and that variable is not read.  The JAX class
+runs a native integrator's ``c_output`` and in-graph callbacks on its
+device engines; the port keeps them on the host.
 """
 
 from __future__ import annotations
 
 import math as _pymath
+import os as _os
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..convert import (INTERP, INTERP_P, JET_OPS, SERIES, check_dtype,
-                       numpy_dtype, op_kind, plan_to_arrays, resolve_device,
-                       state_from_numpy)
+from ..convert import (JET_OPS, check_dtype, numpy_dtype, plan_to_arrays,
+                       resolve_device, state_from_numpy)
 from ..expr.core import Variable, expr
 from ..expr.decompose import Tape, taylor_decompose_sys
 from ..dfloat import dd_add_d, dd_normalize
@@ -95,15 +118,6 @@ CHUNK_STEPS = 64
 #: (PERF.md).
 ROLLED_MIN_WIDTH = 512
 
-#: the ops whose tables are f64 data: a float32 batch refuses them (C.4)
-_F64_DATA_OPS = (SERIES, INTERP, INTERP_P)
-
-
-def _refuse_f32(what: str):
-    raise ValueError(f"dtype=float32 does not take {what} yet (ROADMAP C.4: "
-                     "the JAX package runs it in f32; pass float64)")
-
-
 def _normalize_sys(sys_):
     out = []
     for lhs, rhs in sys_:
@@ -118,17 +132,16 @@ def _normalize_sys(sys_):
 class TaylorAdaptiveBatch:
     def __init__(self, sys, state, *, device="cuda", time=None, pars=None,
                  tol=None, high_accuracy=False, t_events=(), nt_events=(),
-                 dtype=np.float64):
+                 dtype=np.float64, backend="jax", _cg_width=8):
+        if backend not in ("jax", "native", "auto"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self._backend_setting = backend
         self._dtype = check_dtype(dtype)
         f32 = self._dtype == torch.float32
         # a var_ode_sys integrates its augmented system; lanes given by
         # their original initial conditions get the variational ones
         # (``heyoka_tpu/taylor/batch.py:54-75``), all lanes in one call
         self._vsys = sys if isinstance(sys, var_ode_sys) else None
-        if f32 and self._vsys is not None:
-            _refuse_f32("variational systems")
-        if f32 and (t_events or nt_events):
-            _refuse_f32("events")
         if self._vsys is not None:
             state = np.asarray(state, dtype=np.float64)
             if state.ndim == 2 and state.shape[1] == self._vsys.n_orig:
@@ -145,19 +158,53 @@ class TaylorAdaptiveBatch:
         self._tape: Tape = taylor_decompose_sys(
             sys, extra_outputs=[ev.expression for ev in
                                 (*self._t_events, *self._nt_events)])
+        self._nrt = self._ncg = self.native_fallback = None
+        if backend == "native":
+            self._init_native(_cg_width)
+            self._set_lanes(state, pars, time)
+            return
         plan = build_plan(self._tape, self._order)
         # the route: B4 for ops outside JET_OPS and for every f32 tape,
         # else B3 for huge tapes, else B1/B2; UnsupportedKernelOp for ops
         # without any rule
-        if f32 and any(op_kind(g.name) in _F64_DATA_OPS
-                       for lv in plan.levels for g in lv):
-            _refuse_f32("dense trig series or dataset interpolants")
         self._phase = f32 or any(g.name not in JET_OPS
                                  for lv in plan.levels for g in lv)
         self._rolled = not self._phase and plan.width >= ROLLED_MIN_WIDTH
         self._arrays = plan_to_arrays(plan)
         self._build_engine(resolve_device(device))
         self._set_lanes(state, pars, time)
+
+    def _init_native(self, width):
+        """The host route (``heyoka_tpu/taylor/batch.py:180-227``): the
+        interpreter runtime on the tape, and the stepper compiled for it
+        (``W = width`` lanes a block) unless ``HEYOKA_NATIVE_CG=0`` or the
+        tape is outside codegen's set (:attr:`native_fallback` says
+        which); a compiler that fails raises.  The lanes live on the host,
+        as CPU tensors."""
+        from ..native import NativeRuntime, build_error, native_available
+
+        if not native_available():
+            raise RuntimeError("backend='native' requires a host C++ "
+                               f"compiler: {build_error()}")
+        if self._dtype != torch.float64 or self._t_events \
+                or self._nt_events:
+            raise ValueError(
+                "backend='native' supports dtype=float64 without events "
+                "(use the default jax backend otherwise)")
+        self._nrt = NativeRuntime(self._tape)
+        if _os.environ.get("HEYOKA_NATIVE_CG", "1") == "0":
+            self.native_fallback = "HEYOKA_NATIVE_CG=0"
+        else:
+            from ..native_cg import CompiledTape, _Unsupported
+
+            try:
+                self._ncg = CompiledTape(self._tape, self._order, W=width)
+            except _Unsupported as e:
+                self.native_fallback = f"codegen: {e}"
+        self._device = torch.device("cpu")
+        self._jtape = self._ev = None
+        self._pu_engine = "native-cg" if self._ncg is not None \
+            else "native-interp"
 
     @classmethod
     def _sharing(cls, src, state, *, pars=None, time=None, device=None,
@@ -181,6 +228,8 @@ class TaylorAdaptiveBatch:
                 len(src._t_events), len(src._nt_events)):
             raise ValueError("the events must match the source's")
         dev = src._device if device is None else resolve_device(device)
+        if dev != src._device and src._nrt is not None:
+            raise ValueError("a native integrator runs on the host only")
         if dev != src._device:
             tb._build_engine(dev)
         tb._set_lanes(state, pars, time)
@@ -197,7 +246,7 @@ class TaylorAdaptiveBatch:
         high_accuracy = self._high_accuracy
         self._ev = build_event_step_batch(
             self._jtape, self._t_events, self._nt_events, self._tol,
-            high_accuracy=high_accuracy, jet=jet_fn) \
+            high_accuracy=high_accuracy, jet=jet_fn, dtype=self._dtype) \
             if self._t_events or self._nt_events else None
         kw = dict(high_accuracy=high_accuracy, jet=jet_fn, ev=self._ev)
         self._step_fn = make_batched_step_flat(
@@ -275,7 +324,20 @@ class TaylorAdaptiveBatch:
         run), None on the B4 route (a float32 batch's route on every tape,
         its ``jet`` ``hy_phase_f32`` on the card), and, on a tape with
         dense trig series only, ``series``, their jet (kernel S1
-        ``hy_series_jet_f64`` / ``series_jet_plain``)."""
+        ``hy_series_jet_f64`` / ``series_jet_plain``).
+
+        A native integrator (``backend="native"``) reports ``backend``
+        ``"native"``, ``device`` ``"cpu"``, ``propagate_engine``
+        ``"native-cg"`` (the compiled stepper) or ``"native-interp"`` (the
+        interpreter runtime, as the JAX report names them),
+        ``grid_engine`` and ``c_output_engine`` ``"stepwise"`` (the
+        host-driven driver over its ``step``) and ``native_fallback``
+        (why the interpreter runs, None with the compiled stepper)."""
+        if self._nrt is not None:
+            return dict(backend="native", device="cpu", jet=None,
+                        propagate_engine=self._pu_engine, prop=None,
+                        grid_engine="stepwise", c_output_engine="stepwise",
+                        layout=None, native_fallback=self.native_fallback)
         cuda = self._device.type == "cuda"
         fused = self._pu_engine == "fused"
         if self._phase:
@@ -358,10 +420,12 @@ class TaylorAdaptiveBatch:
         """Evaluate the Taylor map at deviations ``s`` for every lane
         (reference ``taylor_adaptive_batch::eval_taylor_map``): ``s`` is
         ``(n_vargs,)`` (shared across lanes) or ``(batch, n_vargs)``;
-        returns the ``(batch, n_orig)`` mapped states.  The map is a cfunc
-        on the device, each lane's augmented state its parameters."""
+        returns the ``(batch, n_orig)`` mapped states.  The map is an f64
+        cfunc on the device, each lane's augmented state its parameters: as
+        in the JAX package, a float32 integrator rounds ``s`` to f32 and
+        evaluates in f64 (the f32 state widened exactly), its result f64."""
         self._check_variational("eval_taylor_map")
-        s = np.asarray(s, dtype=np.float64)
+        s = np.asarray(np.asarray(s, self.dtype), np.float64)
         K = self._vsys.n_vargs
         if s.shape == (K,):
             s = np.broadcast_to(s, (self._batch, K))
@@ -369,15 +433,23 @@ class TaylorAdaptiveBatch:
             raise ValueError(
                 f"expected deviations of shape ({K},) or "
                 f"({self._batch}, {K}); got {s.shape}")
-        self._tstate = self._taylor_map()(s, self._state).cpu().numpy()
+        self._tstate = self._taylor_map()(
+            s, self._state.to(torch.float64)).cpu().numpy()
         return self._tstate
 
     def get_tstate(self) -> np.ndarray:
         """The last :meth:`eval_taylor_map` result, zeros before it."""
         self._check_variational("get_tstate")
         if self._tstate is None:
-            self._tstate = np.zeros((self._batch, self._vsys.n_orig))
+            self._tstate = np.zeros((self._batch, self._vsys.n_orig),
+                                    self.dtype)
         return self._tstate
+
+    @property
+    def backend(self) -> str:
+        """``"native"`` (the host runtime) or ``"device"`` (the port's
+        kernels on ``device``, for ``backend="jax"`` and ``"auto"``)."""
+        return "device" if self._nrt is None else "native"
 
     @property
     def batch_size(self) -> int:
@@ -521,6 +593,8 @@ class TaylorAdaptiveBatch:
         mdt = self._lanes(_pymath.inf if max_delta_t is None else max_delta_t)
         if self._ev is not None:
             return self._step_events(mdt)
+        if self._nrt is not None:
+            return self._step_native(mdt.numpy())
         new_state, h, tc = self._step_fn(self._state, self._pars, self._t_hi,
                                          mdt)
         self._state, self._last_h, self._tc = new_state.contiguous(), h, tc
@@ -534,6 +608,66 @@ class TaylorAdaptiveBatch:
              TaylorOutcome.success, hi)
             for f, c, hi in zip(finite, clamped, h.tolist())
         ]
+
+    def _host_lanes(self):
+        """Numpy copies of the state, parameters and time pair, which the
+        native runtime updates in place."""
+        return (self._state.numpy().copy(), self._pars.numpy(),
+                self._t_hi.numpy().copy(), self._t_lo.numpy().copy())
+
+    def _take_host(self, sts, ths, tls):
+        self._state = torch.from_numpy(sts)
+        self._t_hi, self._t_lo = torch.from_numpy(ths), torch.from_numpy(tls)
+
+    def _step_native(self, mdt):
+        """One step of every lane on the host (``batch.py:824-851``)."""
+        sts, pars, ths, tls = self._host_lanes()
+        if self._ncg is not None:
+            hs, ccs = self._ncg.step_batch(sts, pars, ths, tls, mdt,
+                                           self._high_accuracy)
+        else:
+            hs, ccs = self._nrt.step_batch(sts, pars, ths, tls, mdt,
+                                           self._order, self._high_accuracy)
+        self._take_host(sts, ths, tls)
+        self._last_h = torch.from_numpy(hs)
+        self._tc = torch.from_numpy(np.ascontiguousarray(ccs[:, :, :self.dim]))
+        finite = np.isfinite(sts).all(1) & np.isfinite(hs)
+        clamped = np.abs(hs) >= np.abs(mdt)
+        self._event_stop = np.zeros(self._batch, bool)
+        self._last_res = [
+            (TaylorOutcome.err_nf_state if not f else
+             TaylorOutcome.time_limit if c else TaylorOutcome.success,
+             float(h)) for f, c, h in zip(finite, clamped, hs)]
+
+    def _propagate_until_native(self, t, mdt, max_steps):
+        """The whole propagation of every lane in one host call
+        (``batch.py:1089-1135``)."""
+        sts, pars, ths, tls = self._host_lanes()
+        if self._ncg is not None:
+            steps, stats, ccs = self._ncg.propagate_until_batch(
+                sts, pars, ths, tls, t, max_delta_t=mdt,
+                max_steps=max_steps, high_accuracy=self._high_accuracy)
+        else:
+            steps, stats, ccs = self._nrt.propagate_until_batch(
+                sts, pars, ths, tls, t, self._order, max_delta_t=mdt,
+                max_steps=max_steps, high_accuracy=self._high_accuracy)
+        self._take_host(sts, ths, tls)
+        self._last_h = torch.from_numpy(stats[:, 2].copy())
+        took = steps != 0
+        if took.any():
+            tc = self._tc.numpy().copy()
+            tc[took] = ccs[took][:, :, :self.dim]
+            self._tc = torch.from_numpy(tc)
+        rem = t - (ths + tls)
+        fwd = stats[:, 2] >= 0.0
+        reached = np.where(fwd, rem <= 0.0, rem >= 0.0)
+        oc = [TaylorOutcome.err_nf_state if s < 0 else
+              TaylorOutcome.time_limit if r or not max_steps else
+              TaylorOutcome.step_limit for s, r in zip(steps, reached)]
+        self._event_stop = np.zeros(self._batch, bool)
+        self._last_res = list(zip(oc, stats[:, 2].tolist()))
+        return self._prop_res(oc, stats[:, 0].copy(), stats[:, 1].copy(),
+                              np.abs(steps))
 
     def _step_events(self, mdt):
         res = self._ev(self._state, self._pars, self._t_hi, self._t_lo, mdt,
@@ -667,9 +801,15 @@ class TaylorAdaptiveBatch:
             _pymath.inf if max_delta_t is None else max_delta_t,
             self.dtype), (self._batch,)))
         max_steps = int(max_steps)
+        if self._nrt is not None and callback is None and not c_output:
+            return self._propagate_until_native(t_np, mdt_np, max_steps)
+        # a native integrator takes every callback and c_output through
+        # the host-driven driver over its step (``adaptive.py:512-522``)
         stepwise = callback is not None and (
-            self._ev is not None or not is_in_graph(callback))
-        if c_output and (stepwise or self._te_callbacks()):
+            self._ev is not None or self._nrt is not None
+            or not is_in_graph(callback))
+        if c_output and (stepwise or self._te_callbacks()
+                         or self._nrt is not None):
             oc, mn, mx, ns, rec = _ev.propagate_stepwise(
                 self, t_np, mdt_np, max_steps, callback, record=True)
             return (*self._prop_res(oc, mn, mx, ns), self._cout(rec))
@@ -733,7 +873,8 @@ class TaylorAdaptiveBatch:
         mdt_np = np.array(np.broadcast_to(np.asarray(
             _pymath.inf if max_delta_t is None else max_delta_t,
             self.dtype), (self._batch,)))
-        if callback is not None or self._te_callbacks():
+        if callback is not None or self._te_callbacks() \
+                or self._nrt is not None:
             oc, mn, mx, ns, out = _ev.propagate_stepwise(
                 self, None, mdt_np, int(max_steps), callback, grid=grid_np)
             return (*self._prop_res(oc, mn, mx, ns), out)
@@ -760,6 +901,8 @@ class TaylorAdaptiveBatch:
         unknown = set(drivers) - {"step", "propagate_until", "propagate_grid"}
         if unknown:
             raise ValueError(f"unknown drivers {sorted(unknown)}")
+        if self._nrt is not None:
+            return self  # native: built in the constructor
         if self._device.type == "cuda":
             _build.load()
         zero = torch.zeros_like(self._t_hi)
@@ -797,16 +940,21 @@ class TaylorAdaptiveBatch:
             "t_hi": self._t_hi.cpu().numpy(), "t_lo": self._t_lo.cpu().numpy(),
             "last_h": self.last_h, "tc": self.tc,
             "cooldowns": self.te_cooldowns,
+            "backend": self._backend_setting,
         }
 
     def __setstate__(self, st):
-        """Rebuild on the pickled device (raises where it is absent)."""
+        """Rebuild on the pickled device (raises where it is absent), or
+        on the host for a native integrator: unlike the JAX class, which
+        unpickles ``"native"`` as ``"auto"``, the port keeps it (its
+        ``"auto"`` is the device) and raises without a compiler."""
         sys_ = st.get("vsys") or st["sys"]
         self.__init__(sys_, st["state"], pars=st["pars"], tol=st["tol"],
                       high_accuracy=st["high_accuracy"], device=st["device"],
                       t_events=st.get("t_events", ()),
                       nt_events=st.get("nt_events", ()),
-                      dtype=st.get("dtype", "float64"))
+                      dtype=st.get("dtype", "float64"),
+                      backend=st.get("backend", "jax"))
         self._load_carry(st)
 
     def _load_carry(self, st):

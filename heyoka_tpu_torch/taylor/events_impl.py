@@ -1,5 +1,7 @@
 """The batch step with events: root isolation and refinement of the event
-polynomials of a step, in f64 torch on the tensors' device.
+polynomials of a step, in torch on the tensors' device, in the
+integrator's dtype (float64, or float32 as the JAX package isolates an f32
+integrator's events: ``events_impl.py:576, 819-820`` there).
 
 The counterpart of ``heyoka_tpu/taylor/events_impl.py`` (reference: heyoka
 ``ed_data_batch::detect_events``, ``src/detail/event_detection.cpp:
@@ -22,8 +24,8 @@ reported.
   ``NEWTON_ITERS`` guarded Newton steps, duplicate merging and the
   crossing direction.
 
-The JAX package computes all of this outside its Pallas kernels (XLA f64
-on the TPU), so it is torch here, not a kernel.  What the JAX module adds
+The JAX package computes all of this outside its Pallas kernels (XLA on
+the TPU, in the integrator's dtype), so it is torch here, not a kernel.  What the JAX module adds
 for the TPU is left out: the certified-f32 tree (f64 is emulated there;
 its roots equal the f64 path's by construction), the ``top_k`` row
 budgets with their dense fallbacks and the debug knobs.  Rows that pass
@@ -57,7 +59,11 @@ CA_QUEUE = 16
 CA_MAXIT = 100
 
 _F64 = torch.float64
-_EPS = float(np.finfo(np.float64).eps)
+
+
+def _eps(dtype) -> float:
+    """The machine epsilon of torch ``dtype``."""
+    return float(torch.finfo(dtype).eps)
 
 
 def _poly_eval(coeffs, x):
@@ -106,18 +112,19 @@ def _powvec(x, p):
                      -1)
 
 
-def _make_isolator(p, max_roots, device):
+def _make_isolator(p, max_roots, device, dtype=_F64):
     """``isolate(cs (R, p+1)) -> (rlo, rhi, valid)``, each ``(R,
     max_roots)``: Collins-Akritas with a bounded working list on [0, 1]
     for every row at once (the JAX ``_make_isolator`` :81, vmapped).  A
     row iterates while its list holds an interval, it has fewer than
     ``max_roots`` roots and its budget lasts; the loop ends when no row
-    does (one host check an iteration)."""
-    comb = torch.as_tensor(_comb(p), dtype=_F64, device=device)
+    does (one host check an iteration).  Tables and intervals in
+    ``dtype``, the rows' dtype."""
+    comb = torch.as_tensor(_comb(p), dtype=dtype, device=device)
     idx = np.arange(p + 1)
     expi = torch.as_tensor(np.clip(idx[None, :] - idx[:, None], 0, p),
                            device=device)
-    tiny = 16.0 * _EPS
+    tiny = 16.0 * _eps(dtype)
     slots = torch.arange(max_roots, device=device)
 
     def shift_scale(c, a, w):
@@ -138,12 +145,12 @@ def _make_isolator(p, max_roots, device):
         c = torch.where(root0[:, None],
                         torch.cat([c[:, 1:], torch.zeros_like(c[:, :1])], 1),
                         c)
-        qlo = torch.zeros((R, CA_QUEUE), dtype=_F64, device=dev)
+        qlo = torch.zeros((R, CA_QUEUE), dtype=dtype, device=dev)
         qhi = qlo.clone()
         qhi[:, 0] = 1.0
         qact = torch.zeros((R, CA_QUEUE), dtype=torch.bool, device=dev)
         qact[:, 0] = True
-        rlo = torch.full((R, max_roots), 2.0, dtype=_F64, device=dev)
+        rlo = torch.full((R, max_roots), 2.0, dtype=dtype, device=dev)
         rlo[:, 0] = torch.where(root0, 0.0, 2.0)
         rhi = rlo.clone()
         rn = root0.to(torch.int64)
@@ -212,7 +219,7 @@ def _tree_tables(p, depth):
     return nodes, anc, T.transpose(2, 0, 1).reshape(p + 1, n_nodes * (p + 1))
 
 
-def _make_tree_isolator(p, max_roots, device, depth=TREE_DEPTH):
+def _make_tree_isolator(p, max_roots, device, depth=TREE_DEPTH, dtype=_F64):
     """``isolate_tree(cs (R, p+1)) -> (rlo, rhi, valid, fallback)``: the
     whole binary subdivision tree of depth ``depth`` over [0, 1] at once,
     one matrix product for every node's Descartes transform.  A node with
@@ -220,26 +227,27 @@ def _make_tree_isolator(p, max_roots, device, depth=TREE_DEPTH):
     isolates one root; exact zeros at the grid points are roots of width
     0; a row the tree cannot certify (a one-variation node without a sign
     change, two or more variations at a leaf) sets ``fallback``, and the
-    caller runs it through :func:`_make_isolator`."""
+    caller runs it through :func:`_make_isolator`.  The tables are built
+    in f64 numpy and rounded once to ``dtype``, the rows' dtype."""
     nodes, anc, tm = _tree_tables(p, depth)
     n_nodes = len(nodes)
-    TM = torch.as_tensor(tm, dtype=_F64, device=device)
+    TM = torch.as_tensor(tm, dtype=dtype, device=device)
     ngrid = (1 << depth) + 1
     grid = np.arange(ngrid) / float(1 << depth)
     VG = torch.as_tensor(grid[None, :] ** np.arange(p + 1)[:, None],
-                         dtype=_F64, device=device)
+                         dtype=dtype, device=device)
     node_a = np.array([a for a, _, _ in nodes])
     node_b = np.array([a + w for a, w, _ in nodes])
     gi_a = torch.as_tensor(np.rint(node_a * (1 << depth)).astype(np.int64),
                            device=device)
     gi_b = torch.as_tensor(np.rint(node_b * (1 << depth)).astype(np.int64),
                            device=device)
-    ANC = torch.as_tensor(anc, dtype=_F64, device=device)
+    ANC = torch.as_tensor(anc, dtype=dtype, device=device)
     LEAF = torch.as_tensor(np.array([d == depth for _, _, d in nodes]),
                            device=device)
-    cand_a = torch.as_tensor(np.concatenate([node_a, grid]), dtype=_F64,
+    cand_a = torch.as_tensor(np.concatenate([node_a, grid]), dtype=dtype,
                              device=device)
-    cand_b = torch.as_tensor(np.concatenate([node_b, grid]), dtype=_F64,
+    cand_b = torch.as_tensor(np.concatenate([node_b, grid]), dtype=dtype,
                              device=device)
 
     def isolate_tree(cs):
@@ -249,7 +257,7 @@ def _make_tree_isolator(p, max_roots, device, depth=TREE_DEPTH):
         gv = torch.matmul(cs, VG)
         sign_change = gv[:, gi_a] * gv[:, gi_b] < 0.0
         v1 = V == 1
-        anc_v1 = torch.matmul(v1.to(_F64), ANC) > 0
+        anc_v1 = torch.matmul(v1.to(dtype), ANC) > 0
         emit = v1 & sign_change & ~anc_v1
         bad_v1 = v1 & ~anc_v1 & ~sign_change
         bad_leaf = (V >= 2) & LEAF[None, :] & ~anc_v1
@@ -270,8 +278,8 @@ def _make_tree_isolator(p, max_roots, device, depth=TREE_DEPTH):
 def _refine_roots(cs, rlo, rhi, valid):
     """Bisection and Newton refinement, duplicate merging and the crossing
     direction in s, on the isolating intervals ``rlo``/``rhi`` ``(R,
-    MAX_ROOTS)`` of the rows ``cs (R, p+1)`` (JAX :475).  Returns
-    ``(s_root, valid, d_sgn_s)``."""
+    MAX_ROOTS)`` of the rows ``cs (R, p+1)`` (JAX :475), in their dtype.
+    Returns ``(s_root, valid, d_sgn_s)``."""
     c3 = cs[:, None, :]
     g_lo = _poly_eval(c3, rlo)
     g_hi = _poly_eval(c3, rhi)
@@ -294,7 +302,7 @@ def _refine_roots(cs, rlo, rhi, valid):
     # half-open [0, h)
     valid = valid & (s_root < 1.0)
     # merge roots closer than 16 sqrt(eps) in s
-    merge_eps = 16.0 * _pymath.sqrt(_EPS)
+    merge_eps = 16.0 * _pymath.sqrt(_eps(cs.dtype))
     cols = [valid[:, 0]]
     for i in range(1, valid.shape[1]):
         dup = torch.zeros_like(cols[0])
@@ -310,7 +318,7 @@ def _refine_roots(cs, rlo, rhi, valid):
     return s_root, valid, d_sgn_s
 
 
-def make_find_roots(order, device):
+def make_find_roots(order, device, dtype=_F64):
     """``find_roots(gcoeffs (B, ne, K+1), h (B,)) -> (s_roots, valid,
     d_sgn)``, each ``(B, ne, MAX_ROOTS)``: the roots in s of each event
     polynomial of each lane over [0, 1), their validity and the crossing
@@ -320,9 +328,10 @@ def make_find_roots(order, device):
     cannot certify, and the roots are refined.  ``find_roots.stats``
     counts, over every call, the calls, the rows, the rows the tree took,
     the rows it could not certify and the Collins-Akritas iterations (host
-    integers the two ``nonzero`` syncs give anyway)."""
-    tree = _make_tree_isolator(order, MAX_ROOTS, device)
-    ca = _make_isolator(order, MAX_ROOTS, device)
+    integers the two ``nonzero`` syncs give anyway).  Every table and
+    result in ``dtype``, the rows' dtype."""
+    tree = _make_tree_isolator(order, MAX_ROOTS, device, dtype=dtype)
+    ca = _make_isolator(order, MAX_ROOTS, device, dtype=dtype)
     stats = dict(calls=0, rows=0, tree_rows=0, fallback_rows=0, ca_iters=0)
 
     def find_roots(gcoeffs, h):
@@ -331,10 +340,11 @@ def make_find_roots(order, device):
         hp = _powvec(h, order)
         cs = (gcoeffs * hp[:, None, :]).reshape(B * ne, p1)
         need = cs[:, 0].abs() <= cs[:, 1:].abs().sum(1)
-        s_root = torch.full((B * ne, MAX_ROOTS), 2.0, dtype=_F64, device=dev)
+        s_root = torch.full((B * ne, MAX_ROOTS), 2.0, dtype=dtype,
+                            device=dev)
         valid = torch.zeros((B * ne, MAX_ROOTS), dtype=torch.bool,
                             device=dev)
-        d_sgn_s = torch.zeros((B * ne, MAX_ROOTS), dtype=_F64, device=dev)
+        d_sgn_s = torch.zeros((B * ne, MAX_ROOTS), dtype=dtype, device=dev)
         idx = need.nonzero()[:, 0]
         stats["calls"] += 1
         stats["rows"] += B * ne
@@ -361,7 +371,8 @@ def make_find_roots(order, device):
 
 
 def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
-                           high_accuracy: bool = True, jet=_jet_b2):
+                           high_accuracy: bool = True, jet=_jet_b2,
+                           dtype=_F64):
     """The whole-batch step with events over the route's ``jet`` (the
     contract of ``jet_kernels.jet``; ``tape`` decomposed with the event
     equations as its sv-funcs, terminal events first): ``ev_step_b(state
@@ -378,7 +389,11 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
     step without isolation, with the raw event rows ``ev_row (B, n_ev,
     K+1)``; ``jet_b(state, pars, t_hi, max_dt) -> (tc, h)``, the jet and
     the step size; ``find_roots_b`` (:func:`make_find_roots`).  The event
-    step calls the last two through these attributes."""
+    step calls the last two through these attributes.
+
+    ``dtype``: the lanes' dtype, in which the roots are isolated and
+    refined, the cooldowns kept and the ``eps`` of ``g_eps`` taken, as
+    the JAX package's event step does in its integrator's dtype."""
     n_te, n_nte = len(t_events), len(nt_events)
     n_eq, K = tape.n_eq, tape.order
     dev = tape.device
@@ -392,11 +407,12 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
     te_dirs, nt_dirs = ints(t_events), ints(nt_events)
     te_cd_user = torch.as_tensor(
         [_pymath.nan if e.cooldown is None else float(e.cooldown)
-         for e in t_events], dtype=_F64, device=dev)
+         for e in t_events], dtype=dtype, device=dev)
     nt_idx_row = torch.arange(n_nte, dtype=torch.int32,
                               device=dev).repeat_interleave(MAX_ROOTS)
     update = ceval_update if high_accuracy else horner_update
-    find_roots = make_find_roots(K, dev)
+    find_roots = make_find_roots(K, dev, dtype)
+    eps = _eps(dtype)
 
     def jet_b(state, pars, t_hi, max_dt):
         tcs, norms = jet(tape, state.T.contiguous(), pars.T.contiguous(),
@@ -417,7 +433,7 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
         # g_eps of the auto cooldown (taylor_adaptive.cpp:812-840)
         max_abs = tc[:, 0, :].abs().amax(1)
         max_r = torch.where(max_abs < 1.0, tol_val, tol_val * max_abs)
-        g_eps = torch.maximum(max_r, _EPS * max_abs)
+        g_eps = torch.maximum(max_r, eps * max_abs)
 
         ev_coeffs = tc[:, :, n_eq:].transpose(1, 2)  # (B, n_ev, K+1)
         s_roots, valid, d_sgn = ev_step_b.find_roots_b(ev_coeffs, h)
@@ -438,7 +454,8 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
             te_d = te_sgn[lanes, te_best, slot]
         else:
             te_found = torch.zeros(B, dtype=torch.bool, device=state.device)
-            te_s_star = torch.full((B,), 2.0, dtype=_F64, device=state.device)
+            te_s_star = torch.full((B,), 2.0, dtype=dtype,
+                                   device=state.device)
             te_best = torch.zeros(B, dtype=torch.int64, device=state.device)
             te_d = torch.zeros(B, dtype=torch.int32, device=state.device)
 
@@ -458,7 +475,7 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
         else:
             nt_mask = torch.zeros((B, 0), dtype=torch.bool,
                                   device=state.device)
-            nt_times = torch.zeros((B, 0), dtype=_F64, device=state.device)
+            nt_times = torch.zeros((B, 0), dtype=dtype, device=state.device)
             nt_sgn = torch.zeros((B, 0), dtype=torch.int32,
                                  device=state.device)
 

@@ -379,20 +379,24 @@ def order0(tape: PhaseTape, tc):
     ``n_side`` is 0): orders ``0..K`` of every series column, each made
     when its level is reached, by kernel S1 on the card, then at order 0
     each interpolant column's slope at its input (``eop_sw.interp0``,
-    which also gives the column's value)."""
+    which also gives the column's value).  Both run in f64 on the f64
+    tables: on an f32 buffer the input column is widened exactly and each
+    order, value and slope is rounded once into the buffer, as the JAX
+    package's f64 tables promote an f32 integrator's input."""
     ser = tc.new_empty((tape.order + 1, tape.n_side, tc.shape[2])) \
         if tape.n_side else None
     for name, s, m, cols, alpha, aux, srows in tape.pgroups:
         kind = op_kind(name)
         if kind == INTERP:
             tc[0, s:s + m], ser[0, srows[0]:srows[1]] = eop_sw.interp0(
-                name, tc[0].index_select(0, cols[:, 0]))
+                name, tc[0].index_select(0, cols[:, 0]).to(_F64))
             continue
         if kind == SERIES:
             for r in range(srows[0], srows[1]):
                 _, aff, tab = tape.series[r]
-                ser[:, r] = series_jet(tab, tc[0, aff.in_col].contiguous(),
-                                       aff.u1(tc), tape.order)
+                ser[:, r] = series_jet(
+                    tab, tc[0, aff.in_col].to(_F64).contiguous(),
+                    aff.u1(tc).to(_F64), tape.order)
             tc[0, s:s + m] = ser[0, srows[0]:srows[1]]
             continue
         hist = _hist(tc, None, s, m, cols, aux, srows)

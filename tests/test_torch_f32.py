@@ -2,8 +2,9 @@
 on the CPU: the scalar and batch integrators (kernel B4's f32 twin on
 every tape), the jet as unscaled Taylor coefficients, the continuous and
 grid outputs, the ensembles, ``cfunc``, SGP4 and the Taylor map, pickling,
-and the f32 cases the port still refuses (C.4's remainder, each of which
-the JAX package runs in f32).
+and C.4's remainder, which the port once refused: dense series, dataset
+interpolants, events and variational systems in f32, each against the
+JAX package's f32 run.
 
 Inputs are numpy arrays made from fixed seeds, handed to both packages.
 Tolerances: ``test_float32_mode``'s 5e-4 of the f64 run (its own bar);
@@ -15,7 +16,12 @@ order no farther from the f64 jet than 4x the JAX f32 jet is (f32 loses
 ~3e-4 at order 9 on the 3-body problem in both); cfunc and SGP4 outputs to
 f32 rounding, 1e-5 relative (SGP4's positions 1e-5 of the orbit's
 radius, ~0.07 km); an f32 ensemble instance within 1e-6 of its scalar
-run (torch's f32 sin/cos round differently on one lane than on four)."""
+run (torch's f32 sin/cos round differently on one lane than on four).
+C.4's remainder (the f32 jet's bar above): the port's f32 states,
+Taylor maps and event times no farther from the JAX f64 run than
+``F32_BAR`` = 4 times the JAX f32 run is, outcomes, hit counts and signs
+equal; the f32 event grid within ``test_float32_mode``'s 5e-4 of the f64
+one."""
 
 import pickle
 
@@ -256,29 +262,214 @@ def test_pickle_keeps_float32(kind):
     np.testing.assert_array_equal(b.state, a.state)
 
 
-def _remainder_cases():
-    v = ht.make_vars("v")
-    pend = ht.models.pendulum()
-    return {
-        "series": (p9_sys(ht, 1e-5), np.zeros((2, 2)), {}),
-        "interp": (eop_ode_sys(ht), np.zeros((2, 2)), {}),
-        "events": (pend, _pend_lanes(2, 0),
-                   dict(nt_events=[ht.nt_event(v, lambda *a: None)])),
-        "t_events": (pend, _pend_lanes(2, 0),
-                     dict(t_events=[ht.t_event(v)])),
-        "var_ode_sys": (ht.var_ode_sys(pend, ht.VarArgs.vars, 1),
-                        _pend_lanes(2, 0), {}),
-    }
+#: C.4's remainder (once refused in f32): the bar of each case,
+#: the port's f32 result no farther from the JAX f64 run than this many
+#: times the JAX f32 run is
+F32_BAR = 4.0
+#: the start of the EOP/SW ODE: 2015-01-01 00:00 TT, days since J2000, and
+#: its span (days), step cap and lanes' offsets (the f64 test's)
+EOP_T0, EOP_SPAN, EOP_MDT = 5478.5, 3.0, 0.02
+
+
+@pytest.fixture(scope="module")
+def full_f64_series():
+    """The JAX series reference in full f64 (its f32 tail off and the
+    cached head/tail splits dropped), as ``tests/test_torch_ephemeris.py``
+    runs it; restored after the module."""
+    import heyoka_tpu.expr.series as JS
+
+    old = JS._FAST
+    JS._FAST = False
+    for d in JS._STORE.values():
+        d.pop("head", None)
+        d.pop("tail", None)
+    yield
+    JS._FAST = old
+
+
+def _bar(port32, jax32, jax64):
+    """``max |port32 - jax64| <= F32_BAR max |jax32 - jax64|``."""
+    p, j, r = (np.asarray(a, np.float64) for a in (port32, jax32, jax64))
+    assert np.abs(p - r).max() <= F32_BAR * np.abs(j - r).max(), (
+        np.abs(p - r).max(), np.abs(j - r).max())
+
+
+def _hit_logs():
+    """Per-lane hit logs and the port's / JAX's nt callbacks (batch and
+    scalar signatures) that fill them."""
+    logs = {}
+
+    def batch_cb(tag):
+        return lambda tb, t, d, lane: logs.setdefault(
+            (tag, lane), []).append((float(t), int(d)))
+
+    def scalar_cb(tag, lane):
+        return lambda ta, t, d: logs.setdefault(
+            (tag, lane), []).append((float(t), int(d)))
+
+    return logs, batch_cb, scalar_cb
+
+
+def _remainder_run(case):
+    """The case in f32 on the port (batch on 2 lanes, and the scalar on
+    lane 0) and on the JAX package in f32 and f64: ``(port batch, port
+    scalar, {tag: (state, outcomes, hits)})`` for tags ``p32``, ``s32``,
+    ``j32``, ``j64``; hits ``{lane: [(t, d_sgn)]}``."""
+    out = {}
+    if case in ("series", "interp"):
+        if case == "series":
+            mk, st, t_end = (lambda p: p9_sys(p, 1e-5)), np.zeros((2, 2)), 0.5
+            kw, jkw = {}, dict(compact_mode="flat")
+            mdt = None
+        else:
+            mk, st = eop_ode_sys, np.zeros((2, 2))
+            kw = dict(time=np.array([EOP_T0, EOP_T0 + 0.3]))
+            t_end, jkw, mdt = EOP_T0 + EOP_SPAN, {}, EOP_MDT
+        pb = ht.taylor_adaptive_batch(mk(ht), st, dtype=F32, device="cpu",
+                                      **kw)
+        rp = pb.propagate_until(t_end, max_delta_t=mdt)
+        ps = ht.taylor_adaptive(mk(ht), st[0], dtype=F32, device="cpu",
+                                time=float(kw.get("time", [0.0])[0]))
+        rs = ps.propagate_until(t_end, max_delta_t=mdt)
+        out["p32"] = (pb.state, list(rp[0]), None)
+        out["s32"] = (ps.state[None], [rs[0]], None)
+        for tag, dt in (("j32", jnp.float32), ("j64", jnp.float64)):
+            jb = hy.taylor_adaptive_batch(mk(hy), st, dtype=dt, **kw, **jkw)
+            rj = jb.propagate_until(t_end, max_delta_t=mdt)
+            out[tag] = (np.asarray(jb.state), list(rj[0]), None)
+        return pb, ps, out
+    if case == "var_ode_sys":
+        st = _pend_lanes(2, 0)
+        pb = ht.taylor_adaptive_batch(
+            ht.var_ode_sys(ht.models.pendulum(), ht.VarArgs.vars, 1), st,
+            dtype=F32, tol=1e-6, device="cpu")
+        rp = pb.propagate_until(3.0)
+        ps = ht.taylor_adaptive(
+            ht.var_ode_sys(ht.models.pendulum(), ht.VarArgs.vars, 1), st[0],
+            dtype=F32, tol=1e-6, device="cpu")
+        rs = ps.propagate_until(3.0)
+        d = np.array([1e-3, -1e-3])
+        out["p32"] = (np.concatenate([pb.state, pb.eval_taylor_map(d)], 1),
+                      list(rp[0]), None)
+        out["s32"] = (np.concatenate([ps.state, ps.eval_taylor_map(d)])[None],
+                      [rs[0]], None)
+        for tag, dt in (("j32", jnp.float32), ("j64", jnp.float64)):
+            jb = hy.taylor_adaptive_batch(
+                hy.var_ode_sys(hy.models.pendulum(), hy.VarArgs.vars, 1), st,
+                dtype=dt, tol=1e-6, compact_mode="flat")
+            rj = jb.propagate_until(3.0)
+            out[tag] = (np.concatenate([np.asarray(jb.state),
+                                        jb.eval_taylor_map(d)], 1),
+                        list(rj[0]), None)
+        return pb, ps, out
+    # the events: the pendulum's turning points (nt_event(v)) over 10 time
+    # units, or the first one stopping it (t_event(v)); the JAX references
+    # lane by lane on its scalar (compact mode), the JAX batch's event
+    # step compiling for minutes on this host
+    st = _pend_lanes(2, 0)
+    logs, batch_cb, scalar_cb = _hit_logs()
+
+    def events(pkg, tag, lane=None):
+        v = pkg.make_vars("v")
+        if case == "t_events":
+            return dict(t_events=[pkg.t_event(v)])
+        cb = batch_cb(tag) if lane is None else scalar_cb(tag, lane)
+        return dict(nt_events=[pkg.nt_event(v, cb)])
+
+    pb = ht.taylor_adaptive_batch(ht.models.pendulum(), st, dtype=F32,
+                                  tol=1e-6, device="cpu",
+                                  **events(ht, "p32"))
+    rp = pb.propagate_until(10.0)
+    ps = ht.taylor_adaptive(ht.models.pendulum(), st[0], dtype=F32,
+                            tol=1e-6, device="cpu", **events(ht, "s32", 0))
+    rs = ps.propagate_until(10.0)
+    out["p32"] = (np.concatenate([pb.state, pb.time[:, None]], 1),
+                  list(rp[0]), None)
+    out["s32"] = (np.concatenate([ps.state, [ps.time]])[None], [rs[0]],
+                  None)
+    for tag, dt in (("j32", jnp.float32), ("j64", jnp.float64)):
+        rows, ocs = [], []
+        for lane in range(2):
+            ta = hy.taylor_adaptive(hy.models.pendulum(), st[lane], dtype=dt,
+                                    tol=1e-6, compact_mode=True,
+                                    **events(hy, tag, lane))
+            ocs.append(ta.propagate_until(10.0)[0])
+            rows.append(np.concatenate([np.asarray(ta.state), [ta.time]]))
+        out[tag] = (np.array(rows), ocs, None)
+    for tag in out:
+        out[tag] = (*out[tag][:2], {lane: logs.get((tag, lane), [])
+                                    for lane in range(2)})
+    return pb, ps, out
 
 
 @pytest.mark.parametrize("case", ["series", "interp", "events", "t_events",
                                   "var_ode_sys"])
-def test_c4_remainder_is_refused(case):
-    # the JAX package runs each in f32; the port refuses it, naming C.4
-    sys_, st, kw = _remainder_cases()[case]
-    with pytest.raises(ValueError, match="C.4"):
-        ht.taylor_adaptive_batch(sys_, st, dtype=F32, device="cpu", **kw)
-    with pytest.raises(ValueError, match="C.4"):
-        ht.taylor_adaptive(sys_, st[0], dtype=F32, device="cpu", **kw)
-    # the same in f64 builds
-    ht.taylor_adaptive_batch(sys_, st, device="cpu", **kw)
+def test_c4_remainder_is_refused(case, full_f64_series):
+    # C.4's remainder, repaired: each case once refused in f32 runs in f32
+    # on the batch and on the scalar, on the f32 route (B4-f32's twin), and
+    # holds against the JAX package's f32 run: no farther from its f64 run
+    # than F32_BAR times the JAX f32 run is, with equal outcomes and, for
+    # events, equal hit counts and signs
+    pb, ps, out = _remainder_run(case)
+    assert pb.dtype == ps.dtype == F32 and pb._state.dtype == torch.float32
+    assert pb.engine_report()["jet"] == ps.engine_report()["jet"] \
+        == "phase_plain"
+    if case in ("events", "t_events"):
+        assert pb.engine_report()["propagate_engine"] == "events"
+        assert pb._ev is not None and pb._tc.dtype == torch.float32
+    for tag in ("p32", "s32"):
+        n = len(out[tag][0])
+        assert [int(o) for o in out[tag][1]] == \
+            [int(o) for o in out["j32"][1][:n]]
+        _bar(out[tag][0], out["j32"][0][:n], out["j64"][0][:n])
+    if case == "t_events":
+        assert [int(o) for o in out["p32"][1]] == [0, 0]
+    if case == "events":
+        for tag in ("p32", "s32"):
+            for lane, hits in out[tag][2].items():
+                if tag == "s32" and lane:
+                    continue
+                ref, f64 = out["j32"][2][lane], out["j64"][2][lane]
+                assert len(hits) == len(ref) == len(f64) > 0
+                assert [d for _, d in hits] == [d for _, d in ref]
+                _bar([t for t, _ in hits], [t for t, _ in ref],
+                     [t for t, _ in f64])
+
+
+def test_f32_event_grid_and_te_callbacks():
+    # the f32 event route through the grid driver and the te-callback
+    # loop: rows and hits against the port's f64 run at the same tol
+    v = ht.make_vars("v")
+    st = _pend_lanes(3, 4)
+    grid = np.linspace(0.0, 6.0, 13)
+    runs = {}
+    for dt in (F32, np.float64):
+        hits, stops = [], []
+
+        def te_cb(tb, d, lane, stops=stops):
+            stops.append((lane, float(tb.time[lane])))
+            return len(stops) < 4
+
+        tb = ht.taylor_adaptive_batch(
+            ht.models.pendulum(), st, dtype=dt, tol=1e-6, device="cpu",
+            nt_events=[ht.nt_event(v, lambda tb, t, d, lane, hits=hits:
+                                   hits.append((lane, float(t), d)))])
+        out = tb.propagate_grid(grid)[4]
+        assert tb.engine_report()["grid_engine"] == "events"
+        te = ht.taylor_adaptive_batch(
+            ht.models.pendulum(), st, dtype=dt, tol=1e-6, device="cpu",
+            t_events=[ht.t_event(v, callback=te_cb)])
+        oc = te.propagate_until(10.0)[0]
+        runs[dt] = (out, sorted(hits), stops, [int(o) for o in oc],
+                    te.state)
+    (o32, h32, s32, c32, e32), (o64, h64, s64, c64, e64) = \
+        runs[F32], runs[np.float64]
+    assert o32.dtype == F32
+    np.testing.assert_allclose(o32, o64, rtol=0, atol=5e-4)
+    assert [(l, d) for l, _, d in h32] == [(l, d) for l, _, d in h64]
+    np.testing.assert_allclose([t for _, t, _ in h32],
+                               [t for _, t, _ in h64], rtol=0, atol=5e-4)
+    assert [l for l, _ in s32] == [l for l, _ in s64] and c32 == c64
+    np.testing.assert_allclose([t for _, t in s32], [t for _, t in s64],
+                               rtol=0, atol=5e-4)
+    np.testing.assert_allclose(e32, e64, rtol=0, atol=5e-4)

@@ -212,7 +212,8 @@ def test_port_runs_without_jax():
     # the port must run where JAX is not installed: hide it (and the JAX
     # package, and mpmath, which only multiprec needs, at first use) and
     # run a 3-body propagation and an f32 pendulum through the port on the
-    # CPU, with s11n and multiprec imported
+    # CPU, with s11n, multiprec and native imported, and a step of the
+    # native host runtime (backend="native")
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -220,7 +221,12 @@ def test_port_runs_without_jax():
         sys.modules["mpmath"] = None
         import numpy as np
         import heyoka_tpu_torch as ht
-        from heyoka_tpu_torch import multiprec, s11n
+        from heyoka_tpu_torch import multiprec, native, s11n
+        tn = ht.taylor_adaptive(ht.models.pendulum(), [0.05, 0.025],
+                                backend="native")
+        oc, h = tn.step()
+        assert tn.backend == "native" and native.native_available()
+        assert oc == ht.TaylorOutcome.success and h > 0
         tf = ht.taylor_adaptive_batch(ht.models.pendulum(), [[0.1, 0.0]],
                                       tol=1e-6, dtype=np.float32,
                                       device="cpu")

@@ -1357,3 +1357,120 @@ def test_eop_batch_on_cuda_matches_cpu(cuda):
         "time_limit"] * 3 + ["err_nf_state"]
     np.testing.assert_allclose(tg.state[:3], tc_.state[:3], rtol=0,
                                atol=1e-12 * np.abs(tc_.state[:3]).max())
+
+
+# -- float32: C.4's remainder (series, interpolants, events, variational) ---
+
+#: f32 on the card against f32 on the CPU: the jets differ in the last
+#: bits (B4-f32 against its twin), the steps then by an f32 ulp of h,
+#: over ~100 steps (phase 26 measured 5.8e-6 on the pendulum at t = 10)
+F32_CUDA_TOL = 5e-5
+
+
+@pytest.mark.gpu
+def test_f32_series_and_interp_on_cuda_match_cpu(cuda):
+    # planet 9's series (S1 in f64, rounded into B4-f32's buffer) and the
+    # EOP/SW ODE in f32 on the card against the same on the CPU
+    for sys_, kw, t_end, mdt in (
+            (c5.p9_sys(ht, 1e-5), dict(time=c5.series_times(4, 2)), 0.2,
+             None),
+            (c5.eop_ode_sys(ht), dict(time=np.array(
+                [5478.0, 5478.3, 5478.7, 5479.1])), 2.0, 0.02)):
+        n0 = dict(jk.LAUNCHES)
+        st = np.zeros((4, 2))
+        tg = ht.taylor_adaptive_batch(sys_, st, dtype=np.float32,
+                                      device=cuda, **kw)
+        assert tg.engine_report()["jet"] == "hy_phase_f32"
+        rg = tg.propagate_for(t_end, max_delta_t=mdt)
+        assert jk.LAUNCHES["phase_f32"] > n0["phase_f32"]
+        assert jk.LAUNCHES["phase"] == n0["phase"]
+        tc_ = ht.taylor_adaptive_batch(sys_, st, dtype=np.float32,
+                                       device="cpu", **kw)
+        rc = tc_.propagate_for(t_end, max_delta_t=mdt)
+        assert [o.name for o in rg[0]] == [o.name for o in rc[0]]
+        assert tg._state.dtype == torch.float32
+        np.testing.assert_allclose(
+            tg.state, tc_.state, rtol=0,
+            atol=F32_CUDA_TOL * max(1.0, float(np.abs(tc_.state).max())))
+    assert jk.LAUNCHES["series"] > 0
+
+
+@pytest.mark.gpu
+def test_f32_events_on_cuda_match_cpu(cuda):
+    # the pendulum's turning points in f32 (nt_event(v)) and the first one
+    # stopping it (t_event(v)): hits, signs and outcomes equal, times and
+    # states within F32_CUDA_TOL
+    v = ht.make_vars("v")
+    st = pendulum_lanes(8, 9)
+    res = {}
+    for dev in (cuda, "cpu"):
+        hits = []
+        tb = ht.taylor_adaptive_batch(
+            ht.models.pendulum(), st, dtype=np.float32, tol=1e-6,
+            device=dev, nt_events=[ht.nt_event(
+                v, lambda tb, t, d, lane: hits.append((lane, t, d)))])
+        tb.propagate_until(10.0)
+        te = ht.taylor_adaptive_batch(
+            ht.models.pendulum(), st, dtype=np.float32, tol=1e-6,
+            device=dev, t_events=[ht.t_event(v)])
+        oc = te.propagate_until(10.0)[0]
+        res[str(dev)] = (sorted(hits), tb.state, [int(o) for o in oc],
+                         te.time, te.state)
+        if dev == cuda:
+            assert tb.engine_report()["jet"] == "hy_phase_f32"
+            assert tb._tc.dtype == torch.float32
+    (hg, sg, og, tg, eg), (hc, sc, oc_, tc_, ec) = res["cuda"], res["cpu"]
+    assert [(l, d) for l, _, d in hg] == [(l, d) for l, _, d in hc]
+    np.testing.assert_allclose([t for _, t, _ in hg], [t for _, t, _ in hc],
+                               rtol=0, atol=F32_CUDA_TOL)
+    assert og == oc_ == [0] * 8
+    for a, b in ((sg, sc), (tg, tc_), (eg, ec)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=F32_CUDA_TOL)
+
+
+@pytest.mark.gpu
+def test_f32_var_on_cuda_matches_cpu(cuda):
+    # a variational pendulum in f32 on B4-f32: states, STM and the Taylor
+    # map (f64 from the f32 state, as the JAX package evaluates it)
+    vsys = ht.var_ode_sys(ht.models.pendulum(), ht.VarArgs.vars, 1)
+    st = pendulum_lanes(6, 2)
+    out = {}
+    for dev in (cuda, "cpu"):
+        tb = ht.taylor_adaptive_batch(vsys, st, dtype=np.float32, tol=1e-6,
+                                      device=dev)
+        tb.propagate_until(3.0)
+        tm = tb.eval_taylor_map([1e-3, -1e-3])
+        assert tm.dtype == np.float64 and tb.state.dtype == np.float32
+        out[str(dev)] = (tb.state, tm)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=F32_CUDA_TOL)
+
+
+@pytest.mark.gpu
+def test_native_backend_leaves_the_card_alone(cuda, monkeypatch):
+    # backend="native" on the card's host: the lanes on the host, no kernel
+    # launched, no device memory taken, the state as the device route's.
+    # Built with the g++ on PATH (chip_smoke.use_path_gxx: the card's host
+    # sets CXX to a GCC wrapper that cannot link OpenMP)
+    import shutil
+
+    from heyoka_tpu_torch import native
+
+    if shutil.which("g++"):
+        monkeypatch.setenv("CXX", shutil.which("g++"))
+    native._lib.cache_clear()
+    n0 = dict(jk.LAUNCHES)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    st = pendulum_lanes(8, 3)
+    tn = ht.taylor_adaptive_batch(ht.models.pendulum(), st, tol=1e-15,
+                                  backend="native")
+    tn.propagate_until(10.0)
+    tn.propagate_grid(np.linspace(10.0, 12.0, 5))
+    assert dict(jk.LAUNCHES) == n0
+    assert torch.cuda.memory_allocated() == m0
+    assert tn._state.device.type == "cpu"
+    tg = ht.taylor_adaptive_batch(ht.models.pendulum(), st, tol=1e-15,
+                                  device=cuda)
+    tg.propagate_until(12.0)
+    np.testing.assert_allclose(tn.state, tg.state, rtol=0, atol=1e-12)

@@ -1,8 +1,8 @@
 """The port's multiple-precision integrator (``heyoka_tpu_torch.multiprec``,
-mpmath on the host) and its copy of the native runtime's tape encoding
-(``_pack_tape``): the cases of ``tests/test_native.py`` for the JAX
-package's ``multiprec`` (without the f128 comparison, which needs the
-native runtime of ROADMAP A.22), and the oracle case: the port's jet
+mpmath on the host) and the native runtime's tape encoding
+(``native.pack_tape``): the cases of ``tests/test_native.py`` for the JAX
+package's ``multiprec`` (the f128 comparison, on the port's native
+runtime, is in ``tests/test_torch_native.py``), and the oracle case: the port's jet
 twins (B2's ``jet_plain``, B3's ``jet_rolled_plain``, B4's
 ``phase_plain``), in f64 and in f32, against the 40-digit jet at order 20
 on the op cases of ``tests/test_engine_matrix.py`` ``_build_sys``.
@@ -25,7 +25,7 @@ from heyoka_tpu.native import pack_tape as hy_pack_tape
 
 import heyoka_tpu_torch as ht
 import test_engine_matrix as em
-from heyoka_tpu_torch._pack_tape import pack_tape
+from heyoka_tpu_torch.native import pack_tape
 from heyoka_tpu_torch.expr.decompose import taylor_decompose_sys
 from heyoka_tpu_torch.multiprec import MPTaylorIntegrator
 from heyoka_tpu_torch.taylor import jet_kernels as jk

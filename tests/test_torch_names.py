@@ -1,11 +1,13 @@
 """The port's public names against the JAX package's: every public name
 of ``heyoka_tpu`` and ``heyoka_tpu.models`` exists in the port, or stands
 on the list below of names not ported yet, each with the ROADMAP item
-that ports it.  A name that the port gains must leave the list.  The JAX
+that ports it (empty since the native runtime, ROADMAP A.22, came in).
+A name that the port gains must leave the list.  The JAX
 package's names are read in a fresh interpreter: a submodule that another
 test imports (``heyoka_tpu.native_cg``) becomes an attribute of the
 package in this one."""
 
+import inspect
 import json
 import os
 import subprocess
@@ -20,12 +22,8 @@ import heyoka_tpu as hy
 import heyoka_tpu_torch as ht
 import heyoka_tpu_torch.models as htm
 
-A22 = "A.22 native"
-
 #: top-level names of ``heyoka_tpu`` the port does not have yet
-NOT_PORTED = {
-    "native": A22,
-}
+NOT_PORTED: dict = {}
 
 #: the series slice's model names (ROADMAP A.14, ported)
 _A14_MODELS = (
@@ -173,7 +171,61 @@ def test_the_earth_orientation_slice():
     for n in ("EOPData", "SWData", "eop_data", "sw_data", "eop_sw"):
         assert hasattr(ht, n) and n not in NOT_PORTED
     assert ht.eop_sw.__name__ == "heyoka_tpu_torch.eop_sw"
-    # the rest of A.15 (s11n, multiprec) came after it: only A.22 is left
-    assert set(NOT_PORTED) == {"native"}
+    # the rest of A.15 (s11n, multiprec) came after it, then A.22
+    assert set(NOT_PORTED) == set()
     assert ht.s11n.__name__ == "heyoka_tpu_torch.s11n"
     assert ht.multiprec.__name__ == "heyoka_tpu_torch.multiprec"
+
+
+#: the public functions and classes of the native modules, whose
+#: signatures the port keeps
+_NATIVE_API = {
+    "native": ("native_available", "pack_tape", "NativeRuntime",
+               "native_jet", "native_propagate_until",
+               "native_propagate_until_batch", "native_jet_ld",
+               "native_propagate_until_ld", "native_jet_f128",
+               "native_propagate_until_f128"),
+    "native_cg": ("generate_cpp", "CompiledTape", "compiled_available"),
+}
+
+
+def _params(fn):
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("mod", sorted(_NATIVE_API))
+def test_native_modules_keep_the_jax_signatures(mod):
+    # the native runtime and its stepper (ROADMAP A.22): each public
+    # function and method the JAX modules have, with their parameters
+    import importlib
+
+    jm = importlib.import_module(f"heyoka_tpu.{mod}")
+    pm = importlib.import_module(f"heyoka_tpu_torch.{mod}")
+    for name in _NATIVE_API[mod]:
+        jo, po = getattr(jm, name), getattr(pm, name)
+        assert _params(po) == _params(jo), name
+        if inspect.isclass(jo):
+            assert getattr(po, "MAX_STMTS", None) == getattr(
+                jo, "MAX_STMTS", None)
+            for meth in (m for m, v in vars(jo).items()
+                         if not m.startswith("_") and callable(v)):
+                assert _params(getattr(po, meth)) == \
+                    _params(getattr(jo, meth)), f"{name}.{meth}"
+
+
+@pytest.mark.parametrize("cls", ["batch", "scalar"])
+def test_backend_keyword_matches_the_jax_one(cls):
+    # ``backend=`` on both integrators: the JAX default and its values
+    from heyoka_tpu_torch.taylor.adaptive import TaylorAdaptive
+    from heyoka_tpu_torch.taylor.batch import TaylorAdaptiveBatch
+
+    jc = hy.TaylorAdaptiveBatch if cls == "batch" else hy.TaylorAdaptive
+    pc = TaylorAdaptiveBatch if cls == "batch" else TaylorAdaptive
+    jp = inspect.signature(jc.__init__).parameters["backend"]
+    pp = inspect.signature(pc.__init__).parameters["backend"]
+    assert (pp.default, pp.kind) == (jp.default, jp.kind) == (
+        "jax", inspect.Parameter.KEYWORD_ONLY)
+    with pytest.raises(ValueError, match="unknown backend"):
+        pc(ht.models.pendulum(), [[0.1, 0.0]] if cls == "batch"
+           else [0.1, 0.0], device="cpu", backend="llvm")

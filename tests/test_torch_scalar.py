@@ -357,8 +357,10 @@ def test_setters_pickling_and_repr():
 
 def test_refused_and_accepted_knobs():
     sys_ = ht.models.pendulum()
-    with pytest.raises(NotImplementedError, match="A.22"):
-        ht.taylor_adaptive(sys_, IC, device="cpu", backend="native")
+    # the host runtime (ROADMAP A.22, now ported): a native integrator
+    # whatever the device; tests/test_torch_native.py holds it to JAX
+    assert ht.taylor_adaptive(sys_, IC, device="cpu",
+                              backend="native").backend == "native"
     with pytest.raises(ValueError, match="unknown backend"):
         ht.taylor_adaptive(sys_, IC, device="cpu", backend="xla")
     for backend in ("jax", "auto"):
