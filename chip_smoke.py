@@ -234,19 +234,26 @@ if anything is missing or any check fails.  Phases, one line each:
     2^20 points against the CPU (1e-13).  Each path's lane-steps/s beside
     the card's name and power limit.
 24. the series slice (ROADMAP A.14; ``heyoka_tpu_torch/tools/cases.py``
-    ``elp_sys``, ``p9_sys``): (a) kernel S1 (``hy_series_jet_f64``)
-    against its twin on the 24 series ops of the complete ELP2000 tape
-    (9 ops, 37,863 terms) and of planet 9's q/p at thresh 1e-9 (15 ops,
-    4,479 terms) at 10,240 lanes, u0 from U(-0.5, 0.5), u1 = 1, K = 19:
-    every order within 1e-13 of its sum of the terms' magnitudes, two
-    runs bit for bit; S1's time a launch, its bound and the twin's time;
+    ``elp_sys``, ``p9_sys``): (a) kernel S1's two entries, S1-L
+    (``hy_series_lin_f64``, the linear terms' closed form on the FP64
+    tensor cores) and S1-G (``hy_series_gen_f64``, the recurrence),
+    each alone against its class's twin on each of the 24 series ops of
+    the complete ELP2000 tape (9 ops, 37,863 terms) and of planet 9's q/p
+    at thresh 1e-9 (15 ops, 4,479 terms, all linear), then the grouped
+    step (every op of a tape in one work list) against the twin, at
+    10,240 lanes, u0 from U(-0.5, 0.5), u1 = 1, K = 19: every order
+    within 1e-13 of its sum of the terms' magnitudes, two runs bit for
+    bit; each entry's time over the ELP2000 step, its twin's, its bound,
+    the recurrence's bound over every term, and the torch closed form of
+    class L (few calls a series, the ``library_ms`` yardstick);
     (b) the complete ELP2000 ODE (``x' = c_x 1e-10``, as
     ``benchmarks/vsop2013_cartesian.py``) on 10,240 lanes starting at
     U(-0.5, 0.5) centuries, zero state, tol 1e-15, ``propagate_for(0.02)``
-    on the card: only S1 and B4 launched, every lane ``time_limit`` on its
-    target bit for bit, 16 lanes against the port's CPU run (1e-12
-    relative), steps a lane, lane-steps/s, the idle share (profiler),
-    S1's and B4's time a launch; the same at 256 lanes (the benchmark's
+    on the card: only S1 and B4 launched, each S1 entry once a step (as
+    many launches as B4's), every lane ``time_limit`` on its target bit
+    for bit, 16 lanes against the port's CPU run (1e-12 relative), steps
+    a lane, lane-steps/s, the idle share and S1's share of the busy time
+    (profiler), B4's time a launch; the same at 256 lanes (the benchmark's
     width); (c) planet 9 at thresh 1e-7 on 1,024 lanes through the series
     route (S1 + B4) and the expanded tape (1,332 u-vars, B4 alone): the
     routes' states within 1e-12 relative, both rates; (d) the complete
@@ -327,9 +334,11 @@ call computes the same function, that call's time; for B1-B4 also
 ``path_launches``, the launches on phases 15-16's, 17-19's, 20-21's, 22's
 and 23's paths, and for B2-B4 ``event_rows_ms``, phase 17's times with event
 rows, ``var_tape``, phase 22's time on its variational tape, and
-``config5_tape``, phase 23's on its config-5 tape; S1's line is phase
-24's, B4's gains ``series_tapes`` and ``eo_tape``, phase 25's time on
-the ``eo_dynamics`` tape; B4-f32's row is phase 26's: its launches on the
+``config5_tape``, phase 23's on its config-5 tape; the lines of S1's
+two entries, S1-L ``hy_series_lin_f64`` and S1-G ``hy_series_gen_f64``,
+are phase 24's (each entry's time over the ELP2000 step, S1-L's
+``library_ms`` the torch closed form), B4's gains ``series_tapes`` and
+``eo_tape``, phase 25's time on the ``eo_dynamics`` tape; B4-f32's row is phase 26's: its launches on the
 f32 pendulum, its time at 10,240 pendulum lanes at order 8 beside
 B4-f64's, its ``path_launches`` with phase 27's f32 paths, and S1's
 with phase 27 (c)'s); the last line is
@@ -412,7 +421,8 @@ PEND_GRID_N = 1001
 GRID_RTOL = 1e-11
 COUT_RTOL = 1e-13  # phase 16: the continuous output against the grid rows
 
-SOURCES = {"hy_series_jet_f64": "heyoka_tpu_torch/csrc/series_jet.cu",
+SOURCES = {"hy_series_lin_f64": "heyoka_tpu_torch/csrc/series_jet.cu",
+           "hy_series_gen_f64": "heyoka_tpu_torch/csrc/series_jet.cu",
            "hy_jet_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_prop_f64": "heyoka_tpu_torch/csrc/taylor_jet.cu",
            "hy_jet_rolled_f64": "heyoka_tpu_torch/csrc/taylor_jet_rolled.cu",
@@ -422,7 +432,8 @@ SOURCES = {"hy_series_jet_f64": "heyoka_tpu_torch/csrc/series_jet.cu",
            "hy_conv_dd": "heyoka_tpu_torch/csrc/conv_microbench.cu",
            "hy_proto_phase_f32": "heyoka_tpu_torch/csrc/proto_phase.cu"}
 #: kernel S1 replaces XLA code, not a Pallas kernel: ``_series_jet``
-REPLACES = {"hy_series_jet_f64": "heyoka_tpu/expr/series.py:427",
+REPLACES = {"hy_series_lin_f64": "heyoka_tpu/expr/series.py:427",
+            "hy_series_gen_f64": "heyoka_tpu/expr/series.py:427",
             "hy_jet_f64": "heyoka_tpu/taylor/pallas_phase.py:1604",
             "hy_prop_f64": "heyoka_tpu/taylor/pallas_phase.py:2454",
             "hy_jet_rolled_f64": "heyoka_tpu/taylor/pallas_phase.py:1842",
@@ -433,8 +444,9 @@ REPLACES = {"hy_series_jet_f64": "heyoka_tpu/expr/series.py:427",
             "hy_proto_phase_f32": "tools/proto_pallas_phase.py:240"}
 #: the kernels' names in ptxas's log, longest first where one name holds
 #: another
-PTXAS_NAMES = ("jet_rolled_kernel", "series_jet_kernel",
-               "series_reduce_kernel", "jet_kernel", "prop_kernel",
+PTXAS_NAMES = ("jet_rolled_kernel", "series_lin_kernel",
+               "series_gen_kernel", "series_reduce_kernel", "jet_kernel",
+               "prop_kernel",
                "proto_phase_kernel", "phase_kernel", "conv_f32_kernel",
                "conv_dd_ring", "conv_dd_direct")
 #: block shapes of B1/B2 with the jets in shared memory timed in phase 6
@@ -450,6 +462,9 @@ def ptxas_name(line):
     fn = next(w for w in PTXAS_NAMES if w in line)
     if fn == "conv_dd_ring":
         return fn + ("<trace>" if fn + "ILb1E" in line else "")
+    m = re.search(fn + r"ILi(\d+)EE", line)  # S1-L's row tiles
+    if m:
+        return f"{fn}<{m.group(1)}>"
     m = re.search(fn + r"ILi(\d+)ELb([01])E", line)
     if m:
         fn += f"<{m.group(1)},{'smem' if m.group(2) == '1' else 'global'}>"
@@ -835,14 +850,16 @@ def device_phases(dev, smi, build_s, warm_proc):
     phased = (phased[0], max(phased[1], c5_rows["phase"]["max_abs_err"]),
               phased[2])
 
-    # phase 24: the series slice; S1's row, B4's launches and time on the
-    # series tapes
-    s1_row, s1_err, b4_series, ser_launch = series_paths(dev, smi, order)
+    # phase 24: the series slice; the rows of S1's two entries, B4's
+    # launches and time on the series tapes
+    s1_rows, b4_series, ser_launch = series_paths(dev, smi, order)
     phased[2]["path_launches"].update(
         {p: n["phase"] for p, n in ser_launch.items() if n["phase"]})
     phased[2]["series_tapes"] = b4_series
-    s1_row["path_launches"] = {p: n["series"] for p, n in ser_launch.items()
-                               if n["series"]}
+    for entry, (_, row) in s1_rows.items():
+        key = sj.COUNTERS[entry]
+        row["path_launches"] = {p: n[key] for p, n in ser_launch.items()
+                                if n[key]}
 
     # phase 25: the Earth-orientation slice; B4's launches and time on the
     # eo_dynamics tape
@@ -860,11 +877,13 @@ def device_phases(dev, smi, build_s, warm_proc):
     c4_launch = c4_native_paths(dev, smi, sys_, ics, hh, hh_hits, warm_proc)
     f32_row[2]["path_launches"].update(
         {p: n["phase_f32"] for p, n in c4_launch.items() if n["phase_f32"]})
-    s1_row["path_launches"].update(
-        {p: n["series"] for p, n in c4_launch.items() if n["series"]})
+    for entry, (_, row) in s1_rows.items():
+        key = sj.COUNTERS[entry]
+        row["path_launches"].update(
+            {p: n[key] for p, n in c4_launch.items() if n[key]})
 
-    rows = [("hy_series_jet_f64", ser_launch["elp2000_complete"]["series"],
-             s1_err, s1_row),
+    rows = [*((entry, ser_launch["elp2000_complete"][sj.COUNTERS[entry]],
+               err, row) for entry, (err, row) in s1_rows.items()),
             ("hy_jet_f64", launches["jet"], jet_err, times["jet"]),
             ("hy_prop_f64", launches["prop"], prop_err, times["prop"]),
             ("hy_jet_rolled_f64", *rolled),
@@ -1864,8 +1883,9 @@ def event_rows(dev, smi, order):
     on mascon-512 with the alias-form x - 1.5 and the impact x^2 + y^2 +
     z^2 - 1 at 1,024 lanes (its layout; its bytes a lane beside the
     tape's without events and with the alias-form event alone, which
-    costs its order 0, 8 bytes), B4 on the pendulum with v and x at 10,240.  Returns
-    each kernel's largest error and times."""
+    costs its order 0, 8 bytes), B4 on the pendulum with v and x at 10,240;
+    B2's bound on each of its tapes (``tools/roofline.py``, as phase 6's).
+    Returns each kernel's largest error and times."""
     f64 = dict(dtype=torch.float64, device=dev)
     res, errs = {}, {}
 
@@ -1886,6 +1906,11 @@ def event_rows(dev, smi, order):
         res[name] = dict(B=B, rows=int(tc.shape[0]), n_eq=tape.n_eq,
                          n_out=tape.n_out, max_rel_per_order=rel,
                          norms_max_rel=nrel, max_abs_err=err, ms_runs=t_k)
+        if kernel == "jet":  # B2's bound with the event rows, as phase 6's
+            res[name].update(rl.bound(
+                B * rl.jet_flops(tape.arrays),
+                rl.nbytes(*args, tape.itab, tape.dtab, tc, nrm),
+                torch.float64))
 
     def tape_of(sys_, evs, cls):
         return cls(ht.plan_to_arrays(build_plan(
@@ -3798,8 +3823,8 @@ SER_PROFILE_T = 0.004
 SER_CF_N = 2 ** 18
 SER_CF_REF = 1_024
 #: S1 against its twin: each order within this share of the sum of its
-#: terms' magnitudes (the kernel's recurrence uses fma, the sums over
-#: 10^4 terms run in other orders)
+#: terms' magnitudes (S1-G's recurrence uses fma, S1-L's products and
+#: both kernels' sums over 10^4 terms run in other orders)
 SER_RTOL = 1e-13
 SER_REF_RTOL = 1e-12
 SER_ROUTES_RTOL = 1e-12
@@ -3820,63 +3845,169 @@ def series_ops(sys_):
             if op.op.startswith("trigseries%")]
 
 
+def s1_run(work, U0, U1, which="both"):
+    """Kernel S1 on ``work`` at ``U0``, ``U1`` (n_ser, B): ``(K+1, n_ser,
+    B)``, one class alone (``which`` "lin" or "gen") or both."""
+    out = U0.new_empty((work.K + 1, U0.shape[0], U0.shape[1]))
+    return sj._series_cuda(work, U0, U1, out, range(U0.shape[0]), which)
+
+
+def s1_twin(splits, U0, U1, K, which):
+    """The twin of ``which`` on every series of ``splits``: ``(f, scale)``,
+    each ``(K+1, n_ser, B)``."""
+    got = [sj._closed_form(sp, U0[i], U1[i], K, True) if which == "lin"
+           else sj._recurrence(sp.gen_tab, U0[i], U1[i], K, True)
+           if which == "gen" else
+           sj.series_jet_plain(sj.tables_on(sp.name, U0.device), U0[i],
+                               U1[i], K, True)
+           for i, sp in enumerate(splits)]
+    return (torch.stack([f for f, _ in got], 1),
+            torch.stack([m for _, m in got], 1))
+
+
+def lin_yardstick(splits, U0, U1, K):
+    """Class L of every series by the closed form in a few torch calls a
+    series, every (term, lane) pair at once: a multiply and an add for
+    the phases (an fma, ``addcmul``, moves a phase of 4e4 rad by an ulp
+    and its sin by 7e-12), ``sin`` and ``cos`` of the whole ``(n_L, B)``
+    table, two ``matmul`` and the scale ``u1^m / m!`` by ``cumprod`` (the
+    yardstick of kernel S1-L, never called by the port)."""
+    out = []
+    m = torch.arange(1, K + 1, dtype=U0.dtype, device=U0.device)
+    for i, sp in enumerate(splits):
+        p0 = sp.ph0[:, None] + U0[i][None] * sp.ph1[:, None]
+        f = U0.new_empty((K + 1, U0.shape[1]))
+        f[0::2] = sp.W[0::2] @ torch.sin(p0)
+        if K:
+            f[1::2] = sp.W[1::2] @ torch.cos(p0)
+        sc = torch.cumprod(torch.cat([torch.ones_like(U1[i][None]),
+                                      U1[i][None] / m[:, None]]), 0)
+        out.append(f * sc)
+    return torch.stack(out, 1)
+
+
+def s1_check(what, got, again, want, scale):
+    """The largest error of ``got`` over ``scale`` (each order's summed
+    term magnitudes), checked to ``SER_RTOL``, and two runs' bits."""
+    check(bool(torch.isfinite(got).all()), f"S1 {what}: not finite")
+    rel = float(((got - want).abs() / torch.where(
+        scale > 0, scale, torch.ones_like(scale))).max())
+    check(rel <= SER_RTOL, f"S1 {what} vs its twin: {rel}")
+    check(torch.equal(got, again), f"S1 {what}: two runs differ")
+    return rel, float((got - want).abs().max())
+
+
 def s1_parity(dev, order):
-    """Phase 24 (a): kernel S1 against its twin on the 24 series ops of
-    the complete ELP2000 tape and planet 9's at ``SER_P9_THRESH``, at
-    ``SER_B`` lanes; on the ELP2000 ops also its time a launch, its bound
-    and the twin's time."""
+    """Phase 24 (a): kernel S1's entries against their twins on the 24
+    series ops of the complete ELP2000 tape and planet 9's at
+    ``SER_P9_THRESH``, at ``SER_B`` lanes: S1-L and S1-G alone on each op,
+    then each tape's grouped step; on the ELP2000 step each entry's time,
+    its twin's, its bound, and the torch closed form of class L.  Returns
+    the two entries' rows of the kernels line, keyed by entry, each with
+    its largest error, and the phase's line."""
     rng = np.random.default_rng(24)
     u0 = torch.as_tensor(rng.uniform(-0.5, 0.5, SER_B), device=dev)
     u1 = torch.ones_like(u0)
-    ops, err, worst = [], 0.0, 0.0
+    K = order
+    ops, steps = [], {}
+    worst = {"lin": (0.0, 0.0), "gen": (0.0, 0.0)}
+
+    def keep(cls, rel, err):
+        worst[cls] = (max(worst[cls][0], rel), max(worst[cls][1], err))
+
     for which, names in (("elp", series_ops(elp_sys(ht, 0.0))),
                          ("p9", series_ops(p9_sys(ht, SER_P9_THRESH)))):
-        for nm in names:
-            tab = sj.tables_on(nm, dev)
-            got = sj.series_jet(tab, u0, u1, order)
-            again = sj.series_jet(tab, u0, u1, order)
-            torch.cuda.synchronize()
-            want, scale = sj.series_jet_plain(tab, u0, u1, order,
-                                              with_scale=True)
-            check(bool(torch.isfinite(got).all()), f"S1 on {nm}: not finite")
-            rel = float(((got - want).abs() / scale).max())
-            check(rel <= SER_RTOL, f"S1 vs its twin on {which} {nm}: {rel}")
-            check(torch.equal(got, again), f"S1 on {nm}: two runs differ")
-            err, worst = max(err, float((got - want).abs().max())), \
-                max(worst, rel)
-            row = dict(tape=which, n=tab.n, d=tab.d, q=tab.q,
-                       max_err_of_scale=rel)
-            if which == "elp":
-                ms = cuda_ms(lambda: sj.series_jet(tab, u0, u1, order), 3)
-                plain = cuda_ms(lambda: sj.series_jet_plain(
-                    tab, u0, u1, order), 1, warmup=False)
-                bnd = rl.bound(
-                    SER_B * rl.series_flops(tab.n, tab.d, tab.q, order),
-                    rl.series_bytes(tab.n, tab.d, tab.q, order, SER_B),
-                    torch.float64)
-                row.update(ms=ms, plain_ms=plain, **bnd,
-                           x_bound=ms / bnd["bound_ms"])
+        tabs = [sj.tables_on(nm, dev) for nm in names]
+        splits = [sj.split_of(t, K) for t in tabs]
+        for tab, sp in zip(tabs, splits):
+            work = sj.work_of((tab,), K)
+            row = dict(tape=which, n=tab.n, n_lin=int(sp.lin.size),
+                       n_gen=int(sp.gen.size), d=tab.d, q=tab.q)
+            for cls, n in (("lin", sp.lin.size), ("gen", sp.gen.size)):
+                if not n:
+                    continue
+                got = s1_run(work, u0[None], u1[None], cls)
+                again = s1_run(work, u0[None], u1[None], cls)
+                torch.cuda.synchronize()
+                rel, err = s1_check(f"{cls} on {which} {tab.name}", got,
+                                    again, *s1_twin([sp], u0[None],
+                                                    u1[None], K, cls))
+                keep(cls, rel, err)
+                row[f"{cls}_max_err_of_scale"] = rel
             ops.append(row)
-    elp = [r for r in ops if r["tape"] == "elp"]
-    step = {k: sum(r[k] for r in elp) for k in ("ms", "plain_ms",
-                                                 "bound_ms", "flops",
-                                                 "bytes")}
-    n = len(elp)
-    # the kernels line: a launch's mean over the 9 ELP2000 ops (one launch
-    # each a step), its bound likewise
-    row = dict(ms=step["ms"] / n, plain_ms=step["plain_ms"] / n,
-               bound_ms=step["bound_ms"] / n,
-               bound_by="operations" if step["flops"] / rl.PEAK_FLOPS[
-                   torch.float64] > step["bytes"] / rl.HBM_BYTES_PER_S
-               else "bytes", library_ms=None,
-               x_bound=step["ms"] / step["bound_ms"],
-               ms_a_step_elp2000=step["ms"], bound_ms_a_step=step[
-                   "bound_ms"], lanes=SER_B, order=order,
-               max_err_of_scale=worst)
-    return row, err, dict(B=SER_B, K=order, ops=ops, max_err_of_scale=worst,
-                          elp2000_ms_a_step=step["ms"],
-                          elp2000_bound_ms_a_step=step["bound_ms"],
-                          elp2000_plain_ms_a_step=step["plain_ms"])
+        # the grouped step: every op of the tape in one work list
+        n = len(tabs)
+        U0, U1 = u0.expand(n, -1).contiguous(), u1.expand(n, -1).contiguous()
+        work = sj.work_of(tabs, K)
+        zero_launches()
+        got = s1_run(work, U0, U1)
+        launches = {k: jk.LAUNCHES[k] for k in ("series_lin", "series_gen")}
+        again = s1_run(work, U0, U1)
+        torch.cuda.synchronize()
+        n_gen = sum(sp.gen.size for sp in splits)
+        check(launches == {"series_lin": 1, "series_gen": int(n_gen > 0)},
+              f"S1 {which} step: launches {launches}")
+        want, scale = s1_twin(splits, U0, U1, K, "both")
+        rel, err = s1_check(f"{which} step", got, again, want, scale)
+        for cls in ("lin", "gen"):
+            keep(cls, rel, err)
+        step = dict(launches=launches, max_err_of_scale=rel,
+                    lin=dict(terms=int(sum(sp.lin.size for sp in splits))),
+                    gen=dict(terms=int(n_gen)))
+        if which == "elp":
+            for cls in ("lin", "gen"):
+                ms = [cuda_ms(lambda: s1_run(work, U0, U1, cls), 3)
+                      for _ in range(2)]
+                plain = cuda_ms(lambda: s1_twin(splits, U0, U1, K, cls), 1,
+                                warmup=False)
+                step[cls].update(ms_runs=ms, ms=sum(ms) / 2, plain_ms=plain)
+            ms = [cuda_ms(lambda: s1_run(work, U0, U1), 3)
+                  for _ in range(2)]
+            step.update(ms_runs=ms, ms=sum(ms) / 2)
+            yard = lin_yardstick(splits, U0, U1, K)
+            lw, ls = s1_twin(splits, U0, U1, K, "lin")
+            yrel = float(((yard - lw).abs() / torch.where(
+                ls > 0, ls, torch.ones_like(ls))).max())
+            check(yrel <= SER_RTOL, f"S1-L's yardstick vs the twin: {yrel}")
+            del yard, lw, ls
+            step["lin"].update(
+                library_ms=cuda_ms(lambda: lin_yardstick(splits, U0, U1, K),
+                                   1), library_max_err_of_scale=yrel)
+            # the bounds: class L on the FP64 units and tensor cores, class
+            # G and (before the split) every term by the recurrence
+            nb = [rl.series_bytes(n_, t.d, t.q, K, SER_B) for t, n_ in
+                  zip(tabs, (sp.lin.size for sp in splits))]
+            fl = [rl.series_lin_flops(sp.lin.size, K) for sp in splits]
+            step["lin"].update(rl.bound_by_type(
+                {k: SER_B * sum(f[k] for f in fl) for k in fl[0]},
+                sum(nb)))
+            step["gen"].update(rl.bound(
+                SER_B * sum(rl.series_flops(sp.gen.size, t.d, t.q, K)
+                            for t, sp in zip(tabs, splits)),
+                sum(rl.series_bytes(sp.gen.size, t.d, t.q, K, SER_B)
+                    for t, sp in zip(tabs, splits)), torch.float64))
+            rec = [rl.bound(SER_B * rl.series_flops(t.n, t.d, t.q, K),
+                            rl.series_bytes(t.n, t.d, t.q, K, SER_B),
+                            torch.float64) for t in tabs]
+            step.update(
+                bound_ms=step["lin"]["bound_ms"] + step["gen"]["bound_ms"],
+                recurrence_bound_ms=sum(b["bound_ms"] for b in rec))
+        steps[which] = step
+    elp = steps["elp"]
+    rows = {}
+    for entry, cls in zip(sj.ENTRIES, ("lin", "gen")):
+        e = elp[cls]
+        rows[entry] = (worst[cls][1], dict(
+            ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], library_ms=e.get("library_ms"),
+            x_bound=e["ms"] / e["bound_ms"], ms_runs=e["ms_runs"],
+            terms=e["terms"], lanes=SER_B, order=K,
+            max_err_of_scale=worst[cls][0],
+            elp2000_step_ms=elp["ms"], elp2000_step_bound_ms=elp["bound_ms"],
+            recurrence_bound_ms_a_step=elp["recurrence_bound_ms"],
+            yardstick="torch closed form (mul, add, sin, cos, 2 matmul)"
+            if cls == "lin" else None))
+    return rows, dict(B=SER_B, K=K, ops=ops, steps=steps)
 
 
 def elp_batch(sys_, t0, dev):
@@ -3892,7 +4023,7 @@ def elp_complete(dev, smi, order):
     t0 = series_times(SER_B, 0)
     ta = elp_batch(sys_, t0, dev)
     ta.assert_engine(jet="hy_phase_f64", propagate_engine="flat",
-                     series="hy_series_jet_f64")
+                     series=sj.REPORT)
     torch.cuda.synchronize()
     zero_launches()
     w0 = time.perf_counter()
@@ -3900,8 +4031,11 @@ def elp_complete(dev, smi, order):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     launches = dict(jk.LAUNCHES)
-    check(only(launches, "phase", "series"),
+    check(only(launches, "phase", "series_lin", "series_gen"),
           f"ELP2000: kernels launched {launches}")
+    # one jet a step: each S1 entry once with B4
+    check(launches["series_lin"] == launches["series_gen"]
+          == launches["phase"], f"ELP2000: S1 launches {launches}")
     check(all(o == ht.TaylorOutcome.time_limit for o in res[0]),
           "ELP2000: a lane did not end with time_limit")
     check(bool(np.array_equal(ta.time, t0 + SER_T)),
@@ -3928,7 +4062,7 @@ def elp_complete(dev, smi, order):
     b4_bnd = rl.bound(SER_B * rl.phase_flops(tape.arrays, 1),
                       rl.phase_bytes(tape.arrays, SER_B, 1, 8)
                       + rl.nbytes(ser), torch.float64)
-    prof = profiled(lambda: elp_batch(sys_, t0, dev), None, "series_jet",
+    prof = profiled(lambda: elp_batch(sys_, t0, dev), None, "series_",
                     run=lambda t: t.propagate_for(SER_PROFILE_T))
     small, sres, swall = timed_call(
         lambda: elp_batch(sys_, t0[:SER_B_REF], dev),
@@ -3958,7 +4092,7 @@ def series_routes(dev, smi):
     route and the expanded tape on the same lanes."""
     t0 = series_times(SER_ROUTE_B, 2)
     out, states, paths = {}, {}, {}
-    for name, series_op, kern in (("series", True, ("phase", "series")),
+    for name, series_op, kern in (("series", True, ("phase", "series_lin")),
                                   ("expanded", False, ("phase",))):
         sys_ = p9_sys(ht, SER_ROUTE_THRESH, series_op)
         ta = ht.taylor_adaptive_batch(sys_, np.zeros((SER_ROUTE_B, 2)),
@@ -3987,8 +4121,9 @@ def series_routes(dev, smi):
 
 
 def series_cfuncs(dev, smi):
-    """Phase 24 (d): the complete ELP2000 cfunc at ``SER_CF_N`` times,
-    the published vectors and Pluto's elements on the card."""
+    """Phase 24 (d): the complete ELP2000 cfunc at ``SER_CF_N`` times (S1's
+    launches a call), the published vectors and Pluto's elements on the
+    card."""
     names = series_ops(elp_sys(ht, 0.0))
     fns = ht.models.elp2000_cartesian_e2000(thresh=0.0, series_op=True)
     sers = [PS.trig_series(ht.time, *PS.tables(nm)) for nm in names]
@@ -3997,7 +4132,19 @@ def series_cfuncs(dev, smi):
     none = torch.zeros((SER_CF_N, 0), dtype=torch.float64, device=dev)
     cf = ht.make_cfunc(fns, vars=[], device=dev)
     cfs = ht.make_cfunc(sers, vars=[], device=dev)
-    out, outs = cf(none, time=td), cfs(none, time=td)
+    # S1's launches a call: each entry once a series op with terms of its
+    # class at order 0
+    zero_launches()
+    out = cf(none, time=td)
+    torch.cuda.synchronize()
+    launches = dict(jk.LAUNCHES)
+    gen_ops = sum(bool(sj.split_of(sj.tables_on(nm, dev), 0).gen.size)
+                  for nm in names)
+    check(only(launches, "series_lin", "series_gen")
+          and launches["series_lin"] == len(names)
+          and launches["series_gen"] == gen_ops,
+          f"ELP2000 cfunc: launches {launches}")
+    outs = cfs(none, time=td)
     check(tuple(out.shape) == (SER_CF_N, 3) and bool(
         torch.isfinite(out).all()), "ELP2000 cfunc: bad output")
     m = SER_CF_REF
@@ -4032,7 +4179,7 @@ def series_cfuncs(dev, smi):
     check(abs(incl - 17.15) <= 0.05 and abs(node - 110.29) <= 0.05,
           f"Pluto: inclination {incl}, node {node}")
     return dict(n=SER_CF_N, n_ops=len(cf.dc.ops), ms_runs=ms,
-                evals_per_s=SER_CF_N / (min(ms) / 1e3),
+                launches=launches, evals_per_s=SER_CF_N / (min(ms) / 1e3),
                 position_max_rel=pos_rel, series_max_err_of_scale=worst,
                 ref_points=m, vectors_max_err_km=vec_err,
                 pluto_inclination_deg=float(incl),
@@ -4040,21 +4187,25 @@ def series_cfuncs(dev, smi):
 
 
 def series_paths(dev, smi, order):
-    """Phase 24: the series slice on the card.  Returns S1's row of the
-    kernels line, its largest error against its twin, B4's time on the
-    ELP2000 tape and the launches on each of the phase's paths."""
-    s1_row, s1_err, line_a = s1_parity(dev, order)
+    """Phase 24: the series slice on the card.  Returns the rows of S1's
+    two entries for the kernels line (``{entry: (largest error, row)}``),
+    B4's time on the ELP2000 tape and the launches on each of the phase's
+    paths."""
+    s1_rows, line_a = s1_parity(dev, order)
     say("24a", nvidia_smi=smi, **line_a)
     line_b, launches, b4 = elp_complete(dev, smi, order)
     say("24b", **line_b)
-    s1_row["profile_share_of_busy"] = line_b["profile"][
-        "kernel_share_of_busy"]
+    for _, row in s1_rows.values():
+        row["profile_share_of_busy"] = line_b["profile"][
+            "kernel_share_of_busy"]
     paths = {"elp2000_complete": launches}
     line_c, p_c = series_routes(dev, smi)
     paths.update(p_c)
     say("24c", **line_c)
-    say("24d", **series_cfuncs(dev, smi))
-    return s1_row, s1_err, b4, paths
+    line_d = series_cfuncs(dev, smi)
+    say("24d", **line_d)
+    paths["elp2000_cfunc"] = line_d["launches"]
+    return s1_rows, b4, paths
 
 
 # -- phase 25: the Earth-orientation slice -------------------------------------
@@ -5036,7 +5187,7 @@ def elp_f32(dev, smi):
     ta = run(dev, ELP27_B, dtype=np.float32)
     eng = ta.engine_report()
     check(eng["jet"] == "hy_phase_f32"
-          and eng["series"] == "hy_series_jet_f64", f"ELP f32: route {eng}")
+          and eng["series"] == sj.REPORT, f"ELP f32: route {eng}")
     torch.cuda.synchronize()
     zero_launches()
     w0 = time.perf_counter()
@@ -5044,7 +5195,7 @@ def elp_f32(dev, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     launches = dict(jk.LAUNCHES)
-    check(only(launches, "phase_f32", "series"),
+    check(only(launches, "phase_f32", "series_lin", "series_gen"),
           f"ELP f32: kernels {launches}")
     check(all(o == ht.TaylorOutcome.time_limit for o in res[0])
           and bool(np.isfinite(ta.state).all()), "ELP f32: outcomes")

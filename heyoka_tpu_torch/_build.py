@@ -80,9 +80,14 @@ SIGNATURES = {
     # itab, dtab, tc, syn, B, lo, lanes, threads, smem, n_it, n_dt,
     # global layout, stream
     "hy_proto_phase_f32": (_P,) * 4 + (_I,) * 8 + (_P,),
-    # amp, ph, u0, u1, out, part, n, q1, d1, B, K, per, chunks, smem,
-    # stream (csrc/series_jet.cu)
-    "hy_series_jet_f64": (_P,) * 6 + (_I,) * 8 + (_P,),
+    # tiles, items, n_items, U0, U1, part, B, K, mt, smem, sstart, dst,
+    # out, n_ser, R, stream (csrc/series_jet.cu)
+    "hy_series_lin_f64": (_P, _P, _I, _P, _P, _P) + (_I,) * 4 + (_P,) * 3
+    + (_I, _I, _P),
+    # rows, items, n_items, U0, U1, part, B, K, ring, smem, sstart, dst,
+    # out, n_ser, R, stream
+    "hy_series_gen_f64": (_P, _P, _I, _P, _P, _P) + (_I,) * 4 + (_P,) * 3
+    + (_I, _I, _P),
 }
 
 

@@ -104,6 +104,7 @@ from .jet_kernels import JetTape, jet, layout_report
 from .jet_phase import PhaseTape, jet_phase
 from .jet_rolled import RolledTape, jet_rolled
 from .jet_rolled import layout_report as rolled_layout
+from . import series_jet
 from .outcome import TaylorOutcome
 from ..varsys import var_ode_sys
 
@@ -323,8 +324,9 @@ class TaylorAdaptiveBatch:
         (``jet_rolled.layout_report``; the CPU names the one the card would
         run), None on the B4 route (a float32 batch's route on every tape,
         its ``jet`` ``hy_phase_f32`` on the card), and, on a tape with
-        dense trig series only, ``series``, their jet (kernel S1
-        ``hy_series_jet_f64`` / ``series_jet_plain``).
+        dense trig series only, ``series``, their jet (kernel S1's two
+        entries ``hy_series_lin_f64+hy_series_gen_f64`` /
+        ``series_jet_plain``).
 
         A native integrator (``backend="native"``) reports ``backend``
         ``"native"``, ``device`` ``"cpu"``, ``propagate_engine``
@@ -359,7 +361,7 @@ class TaylorAdaptiveBatch:
             if self._rolled else layout_report(self._jtape),
         )
         if getattr(self._jtape, "n_ser", 0):
-            rep["series"] = "hy_series_jet_f64" if cuda \
+            rep["series"] = series_jet.REPORT if cuda \
                 else "series_jet_plain"
         return rep
 

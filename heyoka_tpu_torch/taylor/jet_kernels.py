@@ -50,11 +50,11 @@ from .stepper import ceval_update, h_from_norms, horner_update, rho_factor
 #: launches of each kernel; a wrapper adds one where it launches its kernel
 #: (``phase`` and ``phase_f32`` are kernel B4's two entries, f64 and f32;
 #: ``conv_f32``, ``conv_dd`` and ``proto_phase`` are the kernels of the
-#: tools, ``heyoka_tpu_torch.tools``; ``series`` is kernel S1,
-#: ``taylor/series_jet.py``)
+#: tools, ``heyoka_tpu_torch.tools``; ``series_lin`` and ``series_gen``
+#: are kernel S1's two entries, ``taylor/series_jet.py``)
 LAUNCHES = {"jet": 0, "prop": 0, "jet_rolled": 0, "phase": 0,
             "phase_f32": 0, "conv_f32": 0, "conv_dd": 0, "proto_phase": 0,
-            "series": 0}
+            "series_lin": 0, "series_gen": 0}
 
 #: header of the packed int32 table the kernels read (csrc/taylor_jet.cu
 #: ``enum Hdr``): sizes, then offsets of the sub-tables in ``itab`` (and of

@@ -33,12 +33,14 @@ series (kepE q = e cos E; kepF w = h sin F + k cos F; kepDE w = s0 sin DE
 column, filled for orders below ``lo`` first and then once per order, as
 the JAX kernel keeps ``hist[(gi, "synth")]``.
 
-Dense trig series (``expr/series.py``): :func:`order0` fills a series
-column's orders ``0..K`` when it reaches the column's level, through
-``series_jet.series_jet`` (kernel S1 on the card) at ``u0`` the input
-column's order 0 and ``u1`` its rate (``series_jet.AffineInput``), into a
-read-only ``(K+1, n_ser, B)`` buffer ``ser`` that it returns; the twin and
-kernel B4 copy order k of the column from it.
+Dense trig series (``expr/series.py``): :func:`order0` fills the series
+columns' orders ``0..K`` together (``PhaseTape.ser_launches``: before the
+first group that reads one, once a step on the ephemeris tapes), through
+``series_jet.series_jets`` (kernel S1 on the card, each entry launched
+once) at ``u0`` the input columns' order 0 and ``u1`` their rates
+(``series_jet.AffineInput``), into a read-only ``(K+1, n_ser, B)`` buffer
+``ser`` that it returns; the twin and kernel B4 copy order k of a column
+from it.
 
 Dataset interpolants (``eop_sw.py``: opcode ``interp``, their slopes
 ``interp_p``) and ``dayfrac``: :func:`order0` gives an interpolant
@@ -77,7 +79,7 @@ from .jet_kernels import (
 #: buffer; another dtype raises
 ENTRIES = {torch.float64: ("hy_phase_f64", "phase"),
            torch.float32: ("hy_phase_f32", "phase_f32")}
-from .series_jet import AffineInput, series_jet, tables_on
+from .series_jet import AffineInput, series_jets, tables_on, work_of
 
 #: header of the phase kernels' int32 table (csrc/taylor_common.cuh ``enum
 #: Hdr``): ``jet_kernels._HDR``, then the offsets of the level table (the
@@ -143,6 +145,8 @@ class PhaseTape(JetTape):
                 {key: idx(aux[o, slot])
                  for slot, key in enumerate(AUX_KEYS.get(name, ()))},
                 None if r0 < 0 else (r0, r0 + m)))
+        self.ser_launches = series_launches(arrays, self.pgroups,
+                                            self.series)
 
     @staticmethod
     def _syn_rows(a):
@@ -167,6 +171,29 @@ class PhaseTape(JetTape):
                       "syncol": np.flatnonzero(syn >= 0),
                       "aux": np.asarray(a["aux"]).reshape(-1), "syn": side},
             {"n_syn": int(syn.max(initial=-1)) + 1, "n_lv": lvl.size - 1})
+
+
+def series_launches(a, pgroups, series) -> dict:
+    """Where :func:`order0` runs kernel S1: ``{group index: series rows}``,
+    the rows' jets made just before that group (a key ``len(pgroups)``:
+    at the end of order 0).  The series columns met in level order wait
+    together until a group reads one of them: their inputs are affine in
+    time (:class:`AffineInput`) and set by then.  So a tape on which no
+    group reads a series before the last series' level (the ELP2000's,
+    planet 9's) runs each entry of kernel S1 once a step."""
+    n_eq = int(a["meta"][1])
+    ptr, args = a["arg_ptr"], a["args"]
+    row_of = {col: r for r, (col, _, _) in enumerate(series)}
+    out, pending = {}, []
+    for gi, (name, s, m, *_) in enumerate(pgroups):
+        ops = args[ptr[s - n_eq]:ptr[s - n_eq + m]]
+        if pending and any(row_of.get(int(c), -1) in pending for c in ops):
+            out[gi], pending = tuple(pending), []
+        if op_kind(name) == SERIES:
+            pending += [row_of[c] for c in range(s, s + m)]
+    if pending:
+        out[len(pgroups)] = tuple(pending)
+    return out
 
 
 def side_rows(a) -> np.ndarray:
@@ -376,28 +403,29 @@ def order0(tape: PhaseTape, tc):
     """Order 0 of every group column, in level order, in place on the
     ``(K+1, W, B)`` buffer whose order-0 state and virtual columns are
     set.  Returns the side buffer ``ser (K+1, n_side, B)`` (None where
-    ``n_side`` is 0): orders ``0..K`` of every series column, each made
-    when its level is reached, by kernel S1 on the card, then at order 0
-    each interpolant column's slope at its input (``eop_sw.interp0``,
-    which also gives the column's value).  Both run in f64 on the f64
-    tables: on an f32 buffer the input column is widened exactly and each
-    order, value and slope is rounded once into the buffer, as the JAX
-    package's f64 tables promote an f32 integrator's input."""
+    ``n_side`` is 0): orders ``0..K`` of every series column, then at
+    order 0 each interpolant column's slope at its input
+    (``eop_sw.interp0``, which also gives the column's value).  The
+    series columns' jets are made together (:func:`_series_rows`: kernel
+    S1 on the card, each entry launched once) where
+    ``tape.ser_launches`` puts them: before the first group that reads one
+    of the series met so far, else at the end of order 0.  Both run in
+    f64 on the f64 tables: on an f32 buffer the input column is widened
+    exactly and each order, value and slope is rounded once into the
+    buffer, as the JAX package's f64 tables promote an f32 integrator's
+    input."""
     ser = tc.new_empty((tape.order + 1, tape.n_side, tc.shape[2])) \
         if tape.n_side else None
-    for name, s, m, cols, alpha, aux, srows in tape.pgroups:
+    for gi, (name, s, m, cols, alpha, aux, srows) in enumerate(
+            tape.pgroups):
+        if gi in tape.ser_launches:
+            _series_rows(tape, tc, ser, tape.ser_launches[gi])
         kind = op_kind(name)
         if kind == INTERP:
             tc[0, s:s + m], ser[0, srows[0]:srows[1]] = eop_sw.interp0(
                 name, tc[0].index_select(0, cols[:, 0]).to(_F64))
             continue
-        if kind == SERIES:
-            for r in range(srows[0], srows[1]):
-                _, aff, tab = tape.series[r]
-                ser[:, r] = series_jet(
-                    tab, tc[0, aff.in_col].to(_F64).contiguous(),
-                    aff.u1(tc).to(_F64), tape.order)
-            tc[0, s:s + m] = ser[0, srows[0]:srows[1]]
+        if kind == SERIES:  # made with the others at its launch
             continue
         hist = _hist(tc, None, s, m, cols, aux, srows)
         if name == "pow":  # the exponent per column, as kernel B2 has it
@@ -406,7 +434,28 @@ def order0(tape: PhaseTape, tc):
             v = evaluate(name, *(hist(q, 0, 1)[0]
                                  for q in range(cols.shape[1])))
         tc[0, s:s + m] = v
+    if len(tape.pgroups) in tape.ser_launches:
+        _series_rows(tape, tc, ser, tape.ser_launches[len(tape.pgroups)])
     return ser
+
+
+def _series_rows(tape: PhaseTape, tc, ser, rows):
+    """Orders ``0..K`` of the series rows ``rows`` into ``ser`` in one
+    :func:`series_jet.series_jets` (kernel S1 on the card), at ``u0`` the
+    input columns' order 0 and ``u1`` their rates, in f64; then order 0
+    of each series column into ``tc``."""
+    aff = [tape.series[r][1] for r in rows]
+    U0 = torch.stack([tc[0, x.in_col] for x in aff]).to(_F64)
+    U1 = torch.stack([x.u1(tc).to(_F64) for x in aff])
+    work = work_of([tape.series[r][2] for r in rows], tape.order)
+    if ser.dtype == _F64:
+        series_jets(work, U0, U1, ser, rows)
+    else:
+        tmp = U0.new_empty((tape.order + 1, len(rows), U0.shape[1]))
+        series_jets(work, U0, U1, tmp, range(len(rows)))
+        ser[:, list(rows)] = tmp.to(ser.dtype)
+    for r in rows:
+        tc[0, tape.series[r][0]] = ser[0, r]
 
 
 def _synth(tape: PhaseTape, tc, syn, j: int):
@@ -709,8 +758,9 @@ def jet_phase(tape: PhaseTape, state, pars, t=None):
     dtype on a CUDA tensor.  The jet is in place in the buffer, every op column
     written back by the kernel, so the sv-func rows (the event equations,
     the JAX kernel's ``sv_extra``) are gathered from it after the state
-    rows.  On a tape with dense series, :func:`order0` launches kernel S1
-    once a series column."""
+    rows.  On a tape with dense series, :func:`order0` launches each
+    entry of kernel S1 once a step where no group reads a series before
+    the last series' level."""
     dev = _device_of(state, tape)
     B = state.shape[1]
     dt = state.dtype if state.dtype in ENTRIES else _F64

@@ -5,7 +5,11 @@ The bound is the larger of two times: the bytes the function must move
 allocates is neither) over the card's memory rate, and the operations it
 does on its data over the card's peak rate for their type.  Peaks: NVIDIA's
 H100 SXM data sheet at its 700 W power limit, outside the tensor cores
-(34 TFLOP/s f64, 67 TFLOP/s f32) and 3.35 TB/s of HBM3.
+(34 TFLOP/s f64, 67 TFLOP/s f32), the FP64 tensor cores (67 TFLOP/s,
+``TC_F64``: kernel S1-L's products) and 3.35 TB/s of HBM3.  Where a
+kernel's operations run on two kinds of unit (:func:`bound_by_type`),
+the bound is the longest of their times and the bytes' time: the units
+work side by side.
 
 Operations are those of each rule's recurrence in its plain form, the
 form the kernels write (``csrc/taylor_jet.cu`` ``jet_orders``,
@@ -26,18 +30,27 @@ import torch
 
 from ..convert import OPCODES
 
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+#: the FP64 tensor cores' key of ``PEAK_FLOPS``
+TC_F64 = "f64_tensor_core"
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, TC_F64: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
 def bound(flops: float, nbytes: float, dtype) -> dict:
     """``{"bound_ms", "bound_by", "flops", "bytes"}`` for ``flops``
     operations of type ``dtype`` and ``nbytes`` bytes moved."""
-    t_op = flops / PEAK_FLOPS[dtype]
+    return bound_by_type({dtype: flops}, nbytes)
+
+
+def bound_by_type(flops: dict, nbytes: float) -> dict:
+    """:func:`bound` for operations on several units, ``{type (a key of
+    PEAK_FLOPS): operations}``: the longest of their times at each
+    unit's peak and of the bytes' time; ``flops`` is their sum."""
+    t_op = max(f / PEAK_FLOPS[k] for k, f in flops.items())
     t_mem = nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_op, t_mem),
                 bound_by="operations" if t_op > t_mem else "bytes",
-                flops=float(flops), bytes=float(nbytes))
+                flops=float(sum(flops.values())), bytes=float(nbytes))
 
 
 def nbytes(*tensors) -> int:
@@ -220,7 +233,8 @@ def rolled_traffic(tape) -> dict:
 
 
 def series_flops_a_term(d: int, q: int, K: int) -> int:
-    """Operations of kernel S1 on one (lane, term) pair at orders 0..K
+    """Operations of the recurrence (kernel S1-G, and the bound of every
+    term before the class split) on one (lane, term) pair at orders 0..K
     (sin and cos count one each): the Taylor shifts (``d(d+1)`` and
     ``q(q+1)``), the powers of ``u1`` and the scaling (``max(d, q) - 1``,
     ``d + q``), the weights ``j p_j`` (``d``), sin and cos (2), ``a_0 s_0``
@@ -236,15 +250,25 @@ def series_flops_a_term(d: int, q: int, K: int) -> int:
 
 
 def series_flops(n: int, d: int, q: int, K: int) -> int:
-    """Operations of one lane of kernel S1 at orders 0..K on a series of
+    """Operations of one lane of the recurrence at orders 0..K on a series of
     ``n`` terms with phase degree ``d`` and amplitude degree ``q``: each
     term's (:func:`series_flops_a_term`) and the adds of the terms' orders
     into the lane's sums, ``(K+1)(n-1)``."""
     return n * series_flops_a_term(d, q, K) + (K + 1) * max(n - 1, 0)
 
 
+def series_lin_flops(n: int, K: int) -> dict:
+    """Operations of one lane of the closed form (kernel S1-L) at orders
+    0..K on ``n`` class-L terms, by unit: on the FP64 units the phase
+    ``ph0 + u0 ph1`` (2) and its sin and cos (one each, as
+    :func:`series_flops_a_term` counts them) a term, and the scale by
+    ``u1^m / m!`` (3 an order above 0); on the FP64 tensor cores the
+    products, ``2 (K+1)`` a term (a multiply and an add an order)."""
+    return {torch.float64: 4 * n + 3 * K, TC_F64: 2 * (K + 1) * n}
+
+
 def series_bytes(n: int, d: int, q: int, K: int, B: int) -> int:
-    """Bytes of one launch of kernel S1: the tables read once (``n (d + 1
-    + q + 1)`` doubles), ``u0`` and ``u1`` (``2B``) and the ``(K+1, B)``
-    output written once."""
+    """Bytes of one series' jet over ``n`` of its terms: the tables read
+    once (``n (d + 1 + q + 1)`` doubles), ``u0`` and ``u1`` (``2B``) and
+    the ``(K+1, B)`` output written once."""
     return 8 * (n * (d + 1 + q + 1) + 2 * B + (K + 1) * B)

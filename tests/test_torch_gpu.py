@@ -1204,27 +1204,109 @@ def _series_tables(q, d, n, seed, dev):
     return sj.tables_on(series.add(amp, ph), dev)
 
 
+def _series_launches(n0):
+    """The launches of kernel S1's two entries since ``n0``."""
+    return (jk.LAUNCHES["series_lin"] - n0["series_lin"],
+            jk.LAUNCHES["series_gen"] - n0["series_gen"])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,d", [(0, 1), (0, 4), (2, 4), (1, 2), (3, 7)])
 def test_series_kernel_matches_plain(cuda, q, d):
     # kernel S1 against its twin per order, within 1e-13 of the order's
     # sum of absolute terms: the shifts round alike, the recurrence uses
-    # fma in the kernel and the sums over terms run in other orders; two
-    # runs of the kernel give the same bits (no atomics)
+    # fma in S1-G, S1-L's products and both kernels' sums over terms run
+    # in other orders; two runs give the same bits (no atomics).  (0, 1)
+    # is all class L (S1-L alone), the others all class G (S1-G alone)
     from heyoka_tpu_torch.taylor import series_jet as sj
     B, K = 203, 19
     tab = _series_tables(q, d, 3001, 10 * q + d, cuda)
     rng = np.random.default_rng(q + d)
     u0 = torch.as_tensor(rng.uniform(-0.5, 0.5, B), device=cuda)
     u1 = torch.as_tensor(rng.uniform(0.5, 1.5, B), device=cuda)
-    n0 = jk.LAUNCHES["series"]
+    n0 = dict(jk.LAUNCHES)
     got = sj.series_jet(tab, u0, u1, K)
     torch.cuda.synchronize()
-    assert jk.LAUNCHES["series"] == n0 + 1
+    assert _series_launches(n0) == ((1, 0) if (q, d) == (0, 1) else (0, 1))
     want, scale = sj.series_jet_plain(tab, u0, u1, K, with_scale=True)
     assert bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= 1e-13 * scale).all())
     assert torch.equal(sj.series_jet(tab, u0, u1, K), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [0, 5, 19, 24, 40])
+def test_series_entries_match_their_twins(cuda, K):
+    # mixed tables (every other term linear, rates of thousands), three
+    # series in one work list: S1-L alone against the closed form, S1-G
+    # alone against the recurrence, both against the twin, each within
+    # 1e-13 of the order's summed term magnitudes, twice with equal bits;
+    # K = 24 and 40 take S1-G's second window of register-held orders,
+    # K = 40 S1-L's second row tile
+    from heyoka_tpu_torch.expr import series
+    from heyoka_tpu_torch.taylor import series_jet as sj
+    rng = np.random.default_rng(K)
+    tabs = []
+    for n, q, d in ((2001, 0, 4), (37, 2, 4), (900, 0, 1)):
+        amp, ph = c5.random_series(rng, n, q, d)
+        ph[:, 1] *= 2000.0
+        amp[1::2, 1:] = 0.0
+        ph[1::2, 2:] = 0.0
+        tabs.append(sj.tables_on(series.add(amp, ph), cuda))
+    B = 77
+    U0 = torch.as_tensor(rng.uniform(-0.5, 0.5, (3, B)), device=cuda)
+    U1 = torch.as_tensor(rng.uniform(0.5, 1.5, (3, B)), device=cuda)
+    work = sj.SeriesWork(tabs, K)
+    outs = {}
+    for which in ("lin", "gen", "both"):
+        runs = []
+        for _ in range(2):
+            out = torch.full((K + 1, 5, B), 7.0, dtype=torch.float64,
+                             device=cuda)
+            n0 = dict(jk.LAUNCHES)
+            sj._series_cuda(work, U0, U1, out, (4, 0, 2), which)
+            torch.cuda.synchronize()
+            assert _series_launches(n0) == {"lin": (1, 0), "gen": (0, 1),
+                                            "both": (1, 1)}[which]
+            runs.append(out)
+        assert torch.equal(runs[0], runs[1]), which
+        assert bool((runs[0][:, (1, 3)] == 7.0).all())
+        outs[which] = runs[0][:, (4, 0, 2)]
+    for i, tab in enumerate(tabs):
+        sp = sj.split_of(tab, K)
+        cf, cs = sj._closed_form(sp, U0[i], U1[i], K, with_scale=True)
+        rc, rs = sj._recurrence(sp.gen_tab, U0[i], U1[i], K,
+                                with_scale=True)
+        want, scale = sj.series_jet_plain(tab, U0[i], U1[i], K,
+                                          with_scale=True)
+        for got, ref, sc in ((outs["lin"][:, i], cf, cs),
+                             (outs["gen"][:, i], rc, rs),
+                             (outs["both"][:, i], want, scale)):
+            assert bool(torch.isfinite(got).all())
+            assert bool(((got - ref).abs() <= 1e-13 * sc).all()), i
+
+
+@pytest.mark.gpu
+def test_series_lin_at_large_phases(cuda):
+    # S1-L's own sincos (csrc/series_jet.cu lin_sincos) at phases up to
+    # 5e8 rad (rates 1e6-1e7, |u0| <= 50) and of both signs, against the
+    # closed form's torch sin and cos: within 1e-13 of each order's summed
+    # term magnitudes
+    from heyoka_tpu_torch.expr import series
+    from heyoka_tpu_torch.taylor import series_jet as sj
+    rng = np.random.default_rng(5)
+    n, B, K = 500, 64, 5
+    amp = rng.uniform(-1.0, 1.0, (n, 1))
+    ph = np.stack([rng.uniform(-10.0, 10.0, n),
+                   rng.uniform(1e6, 1e7, n) * rng.choice([-1, 1], n)], 1)
+    tab = sj.tables_on(series.add(amp, ph), cuda)
+    u0 = torch.as_tensor(rng.uniform(-50.0, 50.0, B), device=cuda)
+    u1 = torch.full_like(u0, 1e-6)
+    n0 = dict(jk.LAUNCHES)
+    got = sj.series_jet(tab, u0, u1, K)
+    assert _series_launches(n0) == (1, 0)
+    want, scale = sj.series_jet_plain(tab, u0, u1, K, with_scale=True)
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
 
 
 @pytest.mark.gpu
@@ -1254,15 +1336,21 @@ def test_phase_kernel_series_rows_on_both_layouts(cuda):
     # S1; B4 copies the series columns' rows from it bit for bit on both
     # layouts and every block shape, and the rest agrees with the twin
     # (1e-13 relative per order) fed the same buffer
+    from heyoka_tpu_torch.taylor import series_jet as sj
     B, K = 77, 19
     arrays = ht.plan_to_arrays(build_plan(taylor_decompose_sys(
         c5.elp_sys(ht, 1e-4)), K))
     tape = jp.PhaseTape(arrays, cuda)
     t = c5.series_times(B, 5)
     tc0 = seeded_buffer(tape, np.zeros((B, 3)), np.zeros((B, 0)), t, cuda)
-    n0 = jk.LAUNCHES["series"]
+    n0 = dict(jk.LAUNCHES)
     ser = jp.order0(tape, tc0)
-    assert jk.LAUNCHES["series"] == n0 + tape.n_ser
+    # one launch of each entry with terms, for every series of the step
+    assert list(tape.ser_launches.values()) == [tuple(range(tape.n_ser))]
+    splits = [sj.split_of(tab, K) for _, _, tab in tape.series]
+    assert _series_launches(n0) == (
+        int(any(sp.lin.size for sp in splits)),
+        int(any(sp.gen.size for sp in splits)))
     cols = [c for c, _, _ in tape.series]
     want = jp.phase_plain(tape, tc0.clone(), 1, ser)
     assert torch.equal(want[:, cols], ser)
@@ -1288,9 +1376,10 @@ def test_series_batch_on_cuda_matches_cpu(cuda):
         n0 = dict(jk.LAUNCHES)
         tg = ht.taylor_adaptive_batch(sys_, np.zeros((6, len(sys_))),
                                       device=cuda, **kw)
-        assert tg.engine_report()["series"] == "hy_series_jet_f64"
+        assert tg.engine_report()["series"] == \
+            "hy_series_lin_f64+hy_series_gen_f64"
         rg = tg.propagate_for(t_end)
-        assert jk.LAUNCHES["series"] > n0["series"]
+        assert jk.LAUNCHES["series_lin"] > n0["series_lin"]
         assert jk.LAUNCHES["phase"] > n0["phase"]
         assert jk.LAUNCHES["jet"] == n0["jet"]
         tc_ = ht.taylor_adaptive_batch(sys_, np.zeros((6, len(sys_))),
@@ -1392,7 +1481,7 @@ def test_f32_series_and_interp_on_cuda_match_cpu(cuda):
         np.testing.assert_allclose(
             tg.state, tc_.state, rtol=0,
             atol=F32_CUDA_TOL * max(1.0, float(np.abs(tc_.state).max())))
-    assert jk.LAUNCHES["series"] > 0
+    assert jk.LAUNCHES["series_lin"] > 0
 
 
 @pytest.mark.gpu

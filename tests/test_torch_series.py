@@ -307,22 +307,46 @@ def test_plan_arrays_carry_the_tables():
 
 def test_series_flops_count():
     # the complete ELP2000 tape at K = 19: about 350 operations a (lane,
-    # term), as the kernel's note says
+    # term) by the recurrence (kernel S1-G's rule and the bound before the
+    # class split); by the closed form (kernel S1-L) 4 on the FP64 units
+    # and 2 (K+1) on the FP64 tensor cores a term, and the scale a lane
     per = rl.series_flops(37_863, 4, 0, 19) / 37_863
     assert 340 < per < 360
+    lin = rl.series_lin_flops(35_228, 19)
+    assert lin == {F64: 4 * 35_228 + 3 * 19, rl.TC_F64: 40 * 35_228}
+    # the step's two entries: the tensor cores bound class L, the FP64
+    # units class G; each bound the longest of its units' times
+    b = rl.bound_by_type(lin, 0)
+    assert b["bound_by"] == "operations" and b["flops"] == sum(lin.values())
+    assert b["bound_ms"] == 1e3 * (40 * 35_228 / rl.PEAK_FLOPS[rl.TC_F64])
+    assert rl.bound(7.0, 8.0, F64) == rl.bound_by_type({F64: 7.0}, 8.0)
 
 
-@pytest.mark.parametrize("n,B,K,chunks", [
-    (15_896, 10_240, 19, 2),   # the complete ELP2000's largest op
-    (19, 10_240, 19, 1),       # its smallest: one chunk
-    (15_896, 256, 19, 66),     # few lanes: 8 x 66 = 528 blocks fill the card
-    (37_863, 262_144, 0, 1)])  # a cfunc's many points at order 0
-def test_kernel_launch_shape(n, B, K, chunks):
-    # kernel S1's grid: term chunks up to TARGET_BLOCKS blocks, at least
-    # MIN_TERMS terms a thread; the chunks cover the terms
-    sh = sj.launch_shape(n, 0, 4, B, K)
-    assert sh.chunks == chunks and sh.per * sh.chunks >= n > sh.per * (
-        sh.chunks - 1)
-    assert sh.smem == 8 * ((K + 1) * sj.THREADS + K + 1 + sj.TILE * 6)
-    with pytest.raises(ValueError, match="coefficients"):
-        sj.launch_shape(n, 8, 4, B, K)
+@pytest.mark.parametrize("n,B,K,lin_items,gen_items", [
+    (15_896, 10_240, 19, 7, 2),    # the complete ELP2000's largest op
+    (19, 10_240, 19, 1, 1),        # its smallest: one item each
+    (15_896, 256, 19, 249, 66),    # few lanes: items fill the card
+    (37_863, 262_144, 0, 1, 1)])   # a cfunc's many points at order 0
+def test_kernel_launch_shape(n, B, K, lin_items, gen_items):
+    # kernel S1's grid: items of term chunks up to TARGET_BLOCKS blocks,
+    # at least LIN_MIN_TILES tiles (S1-L) or GEN_MIN_TERMS terms (S1-G)
+    # an item; the items cover the terms in order; shared memory within
+    # a block's
+    rng = np.random.default_rng(n)
+    for q, d, want in ((0, 1, lin_items), (2, 4, gen_items)):
+        tab = sj.tables_on(PS.add(*random_series(rng, n, q, d)), "cpu")
+        work = sj.SeriesWork([tab], K)
+        wl = work.items(B)
+        items = wl.lin if q == 0 else wl.gen
+        assert (wl.lin.shape[0], wl.gen.shape[0]) == (
+            (want, 0) if q == 0 else (0, want))
+        size = items[:, 2]
+        unit = sj.LIN_TERMS if q == 0 else 1
+        assert int(size.sum()) * unit >= n > (int(size.sum()) - 1) * unit
+        assert np.all(size[:-1] == size[0]) and size[-1] <= size[0]
+        assert np.array_equal(items[:, 6 if q else 3], np.arange(want))
+    assert sj.lin_smem(sj.lin_row_tiles(K)) <= sj.SMEM_MAX
+    assert 8 * (sj.gen_ring(sj.gen_row_doubles(7, 7)) + K + 1) \
+        <= sj.SMEM_MAX
+    with pytest.raises(ValueError, match="unknown class"):
+        work.items(B, "all")
