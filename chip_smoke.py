@@ -2073,44 +2073,65 @@ def hh_poincare(dev, smi):
 def isolation_share(make, t_end):
     """Where an event step's time goes, over a run of ``make()`` to
     ``t_end``: the jet and step size (``ev.jet_b``: the route's kernel and
-    Jorba's h) and the root finding (``ev.find_roots_b``: exclusion, tree,
-    fallback, refinement) each timed between two device syncs, their
-    shares of the run's wall (with those syncs), and ``find_roots``'s
-    counts (rows, rows the tree took, rows it could not certify,
-    Collins-Akritas iterations)."""
+    Jorba's h) timed between two device syncs, and the root finding
+    (exclusion, tree, fallback, refinement) as the port's
+    ``hy.events.isolate`` spans time it on the host clock, recorded with
+    the logger at TRACE and its handlers held at WARNING meanwhile.  An
+    isolation starts on an idle device (after the jet's sync) and holds
+    the waits of its two ``nonzero`` reads; the refinement queued after
+    them, with the rest of the step, is waited for by the step's exit
+    test (the ``hy.sync.pu_done`` spans: ``exit_wait_s``).  Returns each
+    part's share of the run's wall (with the jet's syncs), and
+    ``find_roots``'s counts (rows, rows the tree took, rows it could not
+    certify, Collins-Akritas iterations), its calls checked against the
+    isolate spans."""
+    import logging as std_logging
+
     ta = make()
     ev = ta._ev
-    acc = {"jet_b": 0.0, "find_roots_b": 0.0}
-    real = {k: getattr(ev, k) for k in acc}
-    s0 = dict(real["find_roots_b"].stats)
+    real_jet = ev.jet_b
+    s0 = dict(ev.find_roots_b.stats)
+    jet_s = 0.0
 
-    def timed_part(key):
-        def run(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = real[key](*a)
-            torch.cuda.synchronize()
-            acc[key] += time.perf_counter() - t0
-            return out
-        return run
-
-    for k in acc:
-        setattr(ev, k, timed_part(k))
-    try:
+    def timed_jet(*a):
+        nonlocal jet_s
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        out = real_jet(*a)
+        torch.cuda.synchronize()
+        jet_s += time.perf_counter() - t0
+        return out
+
+    lg = ht.logging.logger
+    levels = [(x, x.level) for x in (lg, *lg.handlers)]
+    ev.jet_b = timed_jet
+    ht.logging.set_logger_level_trace()
+    for h in lg.handlers:
+        h.setLevel(std_logging.WARNING)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
         ta.propagate_until(t_end)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
     finally:
-        for k in acc:
-            setattr(ev, k, real[k])
-    st = {k: v - s0[k] for k, v in real["find_roots_b"].stats.items()}
+        ev.jet_b = real_jet
+        for x, level in levels:
+            x.setLevel(level)
+    wall = (t1 - t0) / 1e9
+    run = [x for x in ht.logging.spans() if x.t0_ns >= t0 and x.t1_ns <= t1]
+    iso = [x for x in run if x.name == "hy.events.isolate"]
+    find_roots_s = sum(x.t1_ns - x.t0_ns for x in iso) / 1e9
+    exit_wait_s = sum(x.t1_ns - x.t0_ns for x in run
+                      if x.name == "hy.sync.pu_done") / 1e9
+    st = {k: v - s0[k] for k, v in ev.find_roots_b.stats.items()}
+    check(len(iso) == st["calls"],
+          f"isolation: {len(iso)} isolate spans, {st['calls']} calls")
     return dict(B=ta.batch_size, t_end=t_end, wall_s=wall,
-                event_steps=st["calls"], jet_s=acc["jet_b"],
-                find_roots_s=acc["find_roots_b"],
-                jet_share=acc["jet_b"] / wall,
-                isolation_share=acc["find_roots_b"] / wall,
+                event_steps=st["calls"], jet_s=jet_s,
+                find_roots_s=find_roots_s, exit_wait_s=exit_wait_s,
+                jet_share=jet_s / wall, isolation_share=find_roots_s / wall,
+                exit_wait_share=exit_wait_s / wall,
                 ms_per_step=1e3 * wall / max(st["calls"], 1),
                 find_roots_stats=st)
 

@@ -61,6 +61,7 @@ import numpy as np
 from ..convert import check_dtype, numpy_dtype
 from ..dfloat import dd_add_d, dd_add_dd
 from ..callback import is_in_graph
+from ..logging import host_read, trace_ctx
 from .batch import TaylorAdaptiveBatch
 from .continuous import ContinuousOutput
 from .events import t_event
@@ -273,7 +274,7 @@ class TaylorAdaptive:
 
     @property
     def state(self) -> np.ndarray:
-        return self._tb._state[0].cpu().numpy()
+        return host_read("hy.sync.state", self._tb._state[0].cpu).numpy()
 
     @state.setter
     def state(self, v):
@@ -360,11 +361,14 @@ class TaylorAdaptive:
         return self._do_step(-abs(float(max_delta_t)))
 
     def _do_step(self, max_dt: float):
-        tb = self._tb
-        tb.step(max_delta_t=max_dt)
-        self._event_stop = bool(tb._event_stop[0])
-        oc, h = tb._last_res[0]
-        return oc, float(h)
+        """The one lane's step in a ``hy.step`` span (:mod:`..logging`),
+        the batch's own left out."""
+        with trace_ctx("hy.step"):
+            tb = self._tb
+            tb._step(max_dt)
+            self._event_stop = bool(tb._event_stop[0])
+            oc, h = tb._last_res[0]
+            return oc, float(h)
 
     # -- propagation ----------------------------------------------------------
 

@@ -89,6 +89,7 @@ from ..convert import (JET_OPS, check_dtype, numpy_dtype, plan_to_arrays,
 from ..expr.core import Variable, expr
 from ..expr.decompose import Tape, taylor_decompose_sys
 from ..dfloat import dd_add_d, dd_normalize
+from ..logging import host_read, trace_ctx
 from . import stepper as _st
 from ..callback import is_in_graph
 from . import events as _ev
@@ -489,7 +490,7 @@ class TaylorAdaptiveBatch:
 
     @property
     def state(self) -> np.ndarray:
-        return self._state.cpu().numpy()
+        return host_read("hy.sync.state", self._state.cpu).numpy()
 
     @state.setter
     def state(self, v):
@@ -510,7 +511,7 @@ class TaylorAdaptiveBatch:
 
     @property
     def time(self) -> np.ndarray:
-        return (self._t_hi + self._t_lo).cpu().numpy()
+        return host_read("hy.sync.time", (self._t_hi + self._t_lo).cpu).numpy()
 
     def set_time(self, v):
         self._t_hi = self._lanes(v)
@@ -519,7 +520,8 @@ class TaylorAdaptiveBatch:
     @property
     def dtime(self) -> tuple:
         """Per-lane (hi, lo) double-length times."""
-        return self._t_hi.cpu().numpy(), self._t_lo.cpu().numpy()
+        return (host_read("hy.sync.dtime", self._t_hi.cpu).numpy(),
+                host_read("hy.sync.dtime", self._t_lo.cpu).numpy())
 
     def set_dtime(self, hi, lo):
         """Set the per-lane double-length times, renormalized (heyoka
@@ -591,7 +593,13 @@ class TaylorAdaptiveBatch:
         order and the callback of the terminal event that stopped it,
         ``cb(tb, d_sgn, lane)`` (``batch.py:855-904``).  The coefficients
         of the step are always kept (:attr:`tc`), as in the JAX package:
-        ``write_tc`` is accepted and changes nothing."""
+        ``write_tc`` is accepted and changes nothing.  A ``hy.step`` span
+        (:mod:`..logging`)."""
+        with trace_ctx("hy.step"):
+            self._step(max_delta_t)
+
+    def _step(self, max_delta_t):
+        """:meth:`step` without its span."""
         mdt = self._lanes(_pymath.inf if max_delta_t is None else max_delta_t)
         if self._ev is not None:
             return self._step_events(mdt)
@@ -601,14 +609,16 @@ class TaylorAdaptiveBatch:
                                          mdt)
         self._state, self._last_h, self._tc = new_state.contiguous(), h, tc
         self._t_hi, self._t_lo = dd_add_d(self._t_hi, self._t_lo, h)
-        finite = (torch.isfinite(new_state).all(1)
-                  & torch.isfinite(h)).tolist()
-        clamped = (torch.abs(h) >= torch.abs(mdt)).tolist()
+        finite = host_read("hy.sync.step", (torch.isfinite(new_state).all(1)
+                                            & torch.isfinite(h)).tolist)
+        clamped = host_read("hy.sync.step",
+                            (torch.abs(h) >= torch.abs(mdt)).tolist)
         self._last_res = [
             (TaylorOutcome.err_nf_state if not f else
              TaylorOutcome.time_limit if c else
              TaylorOutcome.success, hi)
-            for f, c, hi in zip(finite, clamped, h.tolist())
+            for f, c, hi in zip(finite, clamped,
+                                host_read("hy.sync.step", h.tolist))
         ]
 
     def _host_lanes(self):
@@ -745,19 +755,22 @@ class TaylorAdaptiveBatch:
         """Take a driver's result: the lanes' new state, time, last step
         and coefficients, and the per-lane results (one host copy per
         field, then plain Python lists: iterating a tensor lane by lane
-        costs microseconds per lane).  Returns ``(outcomes, min_h, max_h,
-        nsteps)``."""
-        self._state = res["state"].contiguous()
-        self._t_hi, self._t_lo = res["t_hi"], res["t_lo"]
-        self._last_h, self._tc = res["last_h"], res["tc"]
-        if "cooldowns" in res:
-            self._te_cooldowns = res["cooldowns"]
-            self._last_te_sgn = res["te_sgn"]
-        oc = [_ev.outcome_of(o) for o in res["outcome"].tolist()]
-        self._last_res = list(zip(oc, res["last_h"].tolist()))
-        mn, mx, ns = (res[k].cpu().numpy() for k in ("min_h", "max_h",
-                                                     "nsteps"))
-        return self._prop_res(oc, mn, mx, ns)
+        costs microseconds per lane), in a ``hy.finish`` span.  Returns
+        ``(outcomes, min_h, max_h, nsteps)``."""
+        with trace_ctx("hy.finish"):
+            self._state = res["state"].contiguous()
+            self._t_hi, self._t_lo = res["t_hi"], res["t_lo"]
+            self._last_h, self._tc = res["last_h"], res["tc"]
+            if "cooldowns" in res:
+                self._te_cooldowns = res["cooldowns"]
+                self._last_te_sgn = res["te_sgn"]
+            oc = [_ev.outcome_of(o) for o in
+                  host_read("hy.sync.finish", res["outcome"].tolist)]
+            self._last_res = list(zip(oc, host_read("hy.sync.finish",
+                                                    res["last_h"].tolist)))
+            mn, mx, ns = (host_read("hy.sync.finish", res[k].cpu).numpy()
+                          for k in ("min_h", "max_h", "nsteps"))
+            return self._prop_res(oc, mn, mx, ns)
 
     def _prop_res(self, oc, mn, mx, ns):
         """Keep ``(outcomes, min_h, max_h, nsteps)`` for
@@ -796,7 +809,15 @@ class TaylorAdaptiveBatch:
         ``keep`` is False with ``cb_stop``; a host callback ``cb(tb) ->
         bool`` (or an in-graph one with events) runs after every lockstep
         step of :func:`.events.propagate_stepwise`, and False stops every
-        lane still running."""
+        lane still running.  A ``hy.propagate_until`` span
+        (:mod:`..logging`)."""
+        with trace_ctx("hy.propagate_until"):
+            return self._propagate_until(t, max_delta_t, max_steps, c_output,
+                                         callback)
+
+    def _propagate_until(self, t, max_delta_t, max_steps, c_output,
+                         callback):
+        """:meth:`propagate_until` without its span."""
         t_np = np.array(np.broadcast_to(np.asarray(t, self.dtype),
                                         (self._batch,)))
         mdt_np = np.array(np.broadcast_to(np.asarray(

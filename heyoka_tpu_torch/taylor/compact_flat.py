@@ -23,6 +23,7 @@ import torch
 
 from ..callback import apply as apply_callback
 from ..dfloat import dd_add_d, dd_add_dd
+from ..logging import host_read, trace_ctx
 from .jet_kernels import JetTape, jet
 from .outcome import TaylorOutcome
 from .stepper import ceval_update, h_from_norms, horner, horner_update
@@ -155,12 +156,15 @@ def _callback(hook, new_state, pars, t_hi, t_lo, h, tc):
 
 
 def _pu_while(step, pars, target_hi, target_lo, max_delta_t, max_steps,
-              fwd, c, record=None, *, ev=None, hits=None, hook=None):
+              fwd, c, record=None, *, ev=None, hits=None, hook=None,
+              step_span="hy.pu.step"):
     """The lockstep propagate-until loop over a batched ``step``, or over
     the event step ``ev``, from the carry ``c`` (:func:`_carry`).  Shared
     with the fused driver (:mod:`.fused`), whose exact landing enters
     mid-flight with the kernel's state, time and statistics.  One host
-    sync per step (the loop's exit test).  With a list ``record``, each
+    sync per step (the loop's exit test, a ``hy.sync.pu_done`` span), each
+    step a ``step_span`` span (:mod:`..logging`) holding the sync after
+    it.  With a list ``record``, each
     step appends the whole batch's ``(tc (B, K+1, n), t_hi, t_lo)``, the
     coefficients and the start time of the step, on the device (the
     continuous-output recorder, :mod:`.continuous`).
@@ -179,49 +183,57 @@ def _pu_while(step, pars, target_hi, target_lo, max_delta_t, max_steps,
         rh, _ = dd_add_dd(target_hi, target_lo, -th, -tl)
         return rh
 
-    while not bool(c["done"].all()):
-        done = c["done"]
-        rem = remaining(c["t_hi"], c["t_lo"])
-        cap = torch.minimum(torch.abs(rem), max_delta_t)
-        # finished lanes step with dt = 0 (their results are masked out)
-        cap = torch.where(done, torch.zeros_like(cap), cap)
-        dt = torch.where(fwd, cap, -cap)
+    def all_done():
+        return host_read("hy.sync.pu_done", c["done"].all().item)
 
-        new_state, h, tc, nt_hi, nt_lo, res = _advance(step, ev, c, pars, dt)
-        if record is not None:
-            record.append((tc, c["t_hi"], c["t_lo"]))
+    finished = all_done()
+    while not finished:
+        with trace_ctx(step_span):
+            done = c["done"]
+            rem = remaining(c["t_hi"], c["t_lo"])
+            cap = torch.minimum(torch.abs(rem), max_delta_t)
+            # finished lanes step with dt = 0 (their results are masked
+            # out)
+            cap = torch.where(done, torch.zeros_like(cap), cap)
+            dt = torch.where(fwd, cap, -cap)
 
-        finite = torch.isfinite(new_state).all(1) & torch.isfinite(h)
-        new_state, keep = _callback(hook, new_state, pars, nt_hi, nt_lo, h,
-                                    tc)
-        nsteps = c["nsteps"] + 1
-        rem_after = remaining(nt_hi, nt_lo)
-        reached = torch.where(fwd, rem_after <= 0.0, rem_after >= 0.0)
-        hit_step_limit = (nsteps >= max_steps) & ~reached if max_steps > 0 \
-            else torch.zeros_like(reached)
-        alive = ~done
-        outcome, ended = _lane_end(res, keep, finite, hit_step_limit,
-                                   reached, hits, alive)
+            new_state, h, tc, nt_hi, nt_lo, res = _advance(step, ev, c, pars,
+                                                           dt)
+            if record is not None:
+                record.append((tc, c["t_hi"], c["t_lo"]))
 
-        def sel(new, old):
-            return torch.where(alive, new, old)
+            finite = torch.isfinite(new_state).all(1) & torch.isfinite(h)
+            new_state, keep = _callback(hook, new_state, pars, nt_hi, nt_lo,
+                                        h, tc)
+            nsteps = c["nsteps"] + 1
+            rem_after = remaining(nt_hi, nt_lo)
+            reached = torch.where(fwd, rem_after <= 0.0, rem_after >= 0.0)
+            hit_step_limit = (nsteps >= max_steps) & ~reached \
+                if max_steps > 0 else torch.zeros_like(reached)
+            alive = ~done
+            outcome, ended = _lane_end(res, keep, finite, hit_step_limit,
+                                       reached, hits, alive)
 
-        abs_h = torch.abs(h)
-        c_new = dict(
-            state=torch.where(alive[:, None], new_state, c["state"]),
-            t_hi=sel(nt_hi, c["t_hi"]),
-            t_lo=sel(nt_lo, c["t_lo"]),
-            last_h=sel(h, c["last_h"]),
-            tc=torch.where(alive[:, None, None], tc, c["tc"]),
-            nsteps=sel(nsteps, c["nsteps"]),
-            min_h=sel(torch.minimum(c["min_h"], abs_h), c["min_h"]),
-            max_h=sel(torch.maximum(c["max_h"], abs_h), c["max_h"]),
-            outcome=sel(outcome, c["outcome"]),
-            done=sel(ended, done),
-        )
-        if res is not None:
-            _ev_carry(c_new, c, res, alive)
-        c = c_new
+            def sel(new, old):
+                return torch.where(alive, new, old)
+
+            abs_h = torch.abs(h)
+            c_new = dict(
+                state=torch.where(alive[:, None], new_state, c["state"]),
+                t_hi=sel(nt_hi, c["t_hi"]),
+                t_lo=sel(nt_lo, c["t_lo"]),
+                last_h=sel(h, c["last_h"]),
+                tc=torch.where(alive[:, None, None], tc, c["tc"]),
+                nsteps=sel(nsteps, c["nsteps"]),
+                min_h=sel(torch.minimum(c["min_h"], abs_h), c["min_h"]),
+                max_h=sel(torch.maximum(c["max_h"], abs_h), c["max_h"]),
+                outcome=sel(outcome, c["outcome"]),
+                done=sel(ended, done),
+            )
+            if res is not None:
+                _ev_carry(c_new, c, res, alive)
+            c = c_new
+            finished = all_done()
     return c
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..dfloat import dd_add_d
+from ..logging import host_read, trace_ctx
 from .jet_kernels import JetTape, jet as _jet_b2
 from .outcome import TaylorOutcome
 from .stepper import ceval_update, h_from_norms, horner_update
@@ -328,8 +329,9 @@ def make_find_roots(order, device, dtype=_F64):
     cannot certify, and the roots are refined.  ``find_roots.stats``
     counts, over every call, the calls, the rows, the rows the tree took,
     the rows it could not certify and the Collins-Akritas iterations (host
-    integers the two ``nonzero`` syncs give anyway).  Every table and
-    result in ``dtype``, the rows' dtype."""
+    integers the two ``nonzero`` syncs give anyway; each a
+    ``hy.sync.roots`` span).  Every table and result in ``dtype``, the
+    rows' dtype."""
     tree = _make_tree_isolator(order, MAX_ROOTS, device, dtype=dtype)
     ca = _make_isolator(order, MAX_ROOTS, device, dtype=dtype)
     stats = dict(calls=0, rows=0, tree_rows=0, fallback_rows=0, ca_iters=0)
@@ -345,14 +347,14 @@ def make_find_roots(order, device, dtype=_F64):
         valid = torch.zeros((B * ne, MAX_ROOTS), dtype=torch.bool,
                             device=dev)
         d_sgn_s = torch.zeros((B * ne, MAX_ROOTS), dtype=dtype, device=dev)
-        idx = need.nonzero()[:, 0]
+        idx = host_read("hy.sync.roots", need.nonzero)[:, 0]
         stats["calls"] += 1
         stats["rows"] += B * ne
         stats["tree_rows"] += idx.numel()
         if idx.numel():
             sub = cs.index_select(0, idx)
             rlo, rhi, val, fb = tree(sub)
-            fbi = fb.nonzero()[:, 0]
+            fbi = host_read("hy.sync.roots", fb.nonzero)[:, 0]
             if fbi.numel():
                 n0 = ca.iterations
                 clo, chi, cval = ca(sub.index_select(0, fbi))
@@ -389,7 +391,9 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
     step without isolation, with the raw event rows ``ev_row (B, n_ev,
     K+1)``; ``jet_b(state, pars, t_hi, max_dt) -> (tc, h)``, the jet and
     the step size; ``find_roots_b`` (:func:`make_find_roots`).  The event
-    step calls the last two through these attributes.
+    step calls the last two through these attributes.  Spans
+    (:mod:`..logging`): ``hy.events.step`` a step, ``hy.events.isolate``
+    its ``find_roots_b``.
 
     ``dtype``: the lanes' dtype, in which the roots are isolated and
     refined, the cooldowns kept and the ``eps`` of ``g_eps`` taken, as
@@ -427,6 +431,10 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
         return new, nt_hi, nt_lo, finite
 
     def ev_step_b(state, pars, t_hi, t_lo, max_dt, cooldowns):
+        with trace_ctx("hy.events.step"):
+            return event_step(state, pars, t_hi, t_lo, max_dt, cooldowns)
+
+    def event_step(state, pars, t_hi, t_lo, max_dt, cooldowns):
         B = state.shape[0]
         # the parts through the attributes, which a timer may wrap
         tc, h = ev_step_b.jet_b(state, pars, t_hi, max_dt)
@@ -436,7 +444,8 @@ def build_event_step_batch(tape: JetTape, t_events, nt_events, tol, *,
         g_eps = torch.maximum(max_r, eps * max_abs)
 
         ev_coeffs = tc[:, :, n_eq:].transpose(1, 2)  # (B, n_ev, K+1)
-        s_roots, valid, d_sgn = ev_step_b.find_roots_b(ev_coeffs, h)
+        with trace_ctx("hy.events.isolate"):
+            s_roots, valid, d_sgn = ev_step_b.find_roots_b(ev_coeffs, h)
         tau = s_roots * h[:, None, None]
         lanes = torch.arange(B, device=state.device)
 

@@ -5,7 +5,9 @@ fused`` :45).  Each launch of ``jet_kernels.prop`` takes up to
 ``chunk_steps`` whole adaptive steps per lane; between launches the driver
 folds each lane's accumulated signed steps into its double-length time,
 merges the statistics and refreshes the remaining time.  One host sync per
-chunk (the loop's exit test).
+chunk (the loop's exit test).  Spans (:mod:`..logging`): ``hy.fused.chunk``
+a launch, its bookkeeping and the sync that waits for it, whose first is a
+``hy.sync.fused_go`` span alone; ``hy.landing`` the per-step landing.
 
 Landing stays exact: the kernel freezes a lane when its natural step would
 reach the target, and the last step(s) of every lane run through the
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..dfloat import dd_add_dd
+from ..logging import host_read, trace_ctx
 from .compact_flat import _pu_while, make_batched_step_flat
 from .jet_kernels import JetTape, _check_autonomous, prop
 from .outcome import TaylorOutcome
@@ -66,33 +69,38 @@ def make_propagate_until_fused(tape: JetTape, *, high_accuracy: bool = True,
                 return (max_steps - 1 - ns).clamp(0, _I32_MAX)
             return torch.full_like(ns, _I32_MAX)
 
-        while True:
+        def go():
             # the loop's one host sync: go on while a lane is active; a lane
             # that stayed active without taking a step means a faulty chunk
-            go, stalled = torch.stack(
-                [act.any(), (act & stalled_mask).any()]).tolist()
+            more, stalled = host_read("hy.sync.fused_go", torch.stack(
+                [act.any(), (act & stalled_mask).any()]).tolist)
             if stalled:
                 raise RuntimeError("fused propagation: an active lane took "
                                    "no step in a chunk")
-            if not go:
-                break
-            # remaining time in the direction of travel (>= 0), as a dd pair
-            rh, rl = dd_add_dd(target_hi, target_lo, -t_hi, -t_lo)
-            aux = torch.stack([max_delta_t, sgn, rh * sgn, rl * sgn,
-                               act.to(f64)])
-            auxi = left(nsteps).to(torch.int32)[None]
-            st, of, oi = prop(tape, st, pars_t, aux, auxi, chunk_steps,
-                              high_accuracy)
-            ns = oi[0].to(torch.int64)
-            t_hi, t_lo = dd_add_dd(t_hi, t_lo, of[0], of[1])
-            near = near | (oi[1] > 0)
-            err = err | (oi[2] > 0)
-            nsteps = nsteps + ns
-            min_h = torch.minimum(min_h, of[2])
-            max_h = torch.maximum(max_h, of[3])
-            last_h = torch.where(ns > 0, of[4], last_h)
-            act = act & ~near & ~err & (left(nsteps) > 0)
-            stalled_mask = ns == 0
+            return more
+
+        going = go()
+        while going:
+            with trace_ctx("hy.fused.chunk"):
+                # remaining time in the direction of travel (>= 0), as a dd
+                # pair
+                rh, rl = dd_add_dd(target_hi, target_lo, -t_hi, -t_lo)
+                aux = torch.stack([max_delta_t, sgn, rh * sgn, rl * sgn,
+                                   act.to(f64)])
+                auxi = left(nsteps).to(torch.int32)[None]
+                st, of, oi = prop(tape, st, pars_t, aux, auxi, chunk_steps,
+                                  high_accuracy)
+                ns = oi[0].to(torch.int64)
+                t_hi, t_lo = dd_add_dd(t_hi, t_lo, of[0], of[1])
+                near = near | (oi[1] > 0)
+                err = err | (oi[2] > 0)
+                nsteps = nsteps + ns
+                min_h = torch.minimum(min_h, of[2])
+                max_h = torch.maximum(max_h, of[3])
+                last_h = torch.where(ns > 0, of[4], last_h)
+                act = act & ~near & ~err & (left(nsteps) > 0)
+                stalled_mask = ns == 0
+                going = go()
 
         rem_l, _ = dd_add_dd(target_hi, target_lo, -t_hi, -t_lo)
         land = dict(
@@ -104,7 +112,9 @@ def make_propagate_until_fused(tape: JetTape, *, high_accuracy: bool = True,
                                dtype=torch.int32, device=dev),
             done=rem_l == 0.0,
         )
-        return _pu_while(land_step, pars, target_hi, target_lo, max_delta_t,
-                         max_steps, fwd, land)
+        with trace_ctx("hy.landing"):
+            return _pu_while(land_step, pars, target_hi, target_lo,
+                             max_delta_t, max_steps, fwd, land,
+                             step_span="hy.landing.step")
 
     return pu
