@@ -9,8 +9,9 @@ if anything is missing or any check fails.  Phases, one line each:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the kernels, with its time, ptxas's register counts per
    kernel instance (B1/B2 come in one instance per lanes-a-block and
-   layout) and the dynamic shared memory a block of B1/B2 takes on the
-   outer-Solar-System tape (``jet_kernels.block_layout``);
+   layout) and the block shape of B1/B2 on the outer-Solar-System tape at
+   10,240 lanes (``jet_kernels.block_shape``), its dynamic shared memory
+   and its blocks an SM by the rule and by the runtime;
 3. kernel B2 (``hy_jet_f64``) against ``jet_plain`` on the card: the
    outer-Solar-System tape at order 19 and 256 lanes, the jets in shared
    memory; coefficients agree to 1e-13 relative per order (normalised by
@@ -29,8 +30,11 @@ if anything is missing or any check fails.  Phases, one line each:
 6. the time of one B2 launch and one 64-step B1 chunk at 10,240 lanes
    against their plain twins on the card (CUDA events), and the phase 3
    and 4 comparisons again at that width; then both kernels at every
-   block shape they take (1, 2 or 3 lanes x 128 or 256 threads), equal
-   bit for bit to the default's, with their times and the fastest;
+   block shape they take (``jet_kernels.LANE_CHOICES`` lanes x 32 to 256
+   threads), equal bit for bit to the default's, with their times, the
+   blocks an SM holds and the fastest, on the outer-SS tape and on the
+   Henon-Heiles and 3-body tapes, the Henon-Heiles default shape first
+   held against ``jet_plain`` and ``prop_plain`` as in phases 3 and 4;
 7. kernel B3 (``hy_jet_rolled_f64``) on the mascon-512 tape of
    ``benchmarks/mascon_bench.py`` at order 19 and 256 of its lanes,
    against ``jet_rolled_plain`` and against B2 on the same inputs: 1e-13
@@ -385,6 +389,9 @@ B_MAIN = 10_240
 T_END = 100.0
 CHUNK = 64
 FAR = 1000.0  # remaining time of the lone chunks: no lane nears its target
+#: the 3-body tape's lanes (tests/test_torch_gpu.py's): these plus 0.01 N(0, 1)
+NBODY3_IC = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 0,
+                      0, 1.5, 0, -0.8, 0, 0], float)
 JET_RTOL = 1e-13
 PROP_RTOL = 1e-11
 DRIFT_MAX = 1e-12
@@ -450,8 +457,9 @@ PTXAS_NAMES = ("jet_rolled_kernel", "series_lin_kernel",
                "proto_phase_kernel", "phase_kernel", "conv_f32_kernel",
                "conv_dd_ring", "conv_dd_direct")
 #: block shapes of B1/B2 with the jets in shared memory timed in phase 6
-SWEEP_LANES = (1, 2, 3)
-SWEEP_THREADS = (128, 256)
+#: (those whose lanes fit a block's shared memory)
+SWEEP_LANES = jk.LANE_CHOICES
+SWEEP_THREADS = jk.BLOCK_THREADS
 
 
 def ptxas_name(line):
@@ -592,16 +600,17 @@ def device_phases(dev, smi, build_s, warm_proc):
     order = taylor_order_from_tol(TOL)
     plan = build_plan(ht.taylor_decompose_sys(sys_), order)
     tape = jk.JetTape(ht.plan_to_arrays(plan), dev)
-    layout = jk.layout_report(tape)
-    # the dynamic shared memory of a B1/B2 block on the outer-SS tape, the
-    # tables included, and the blocks an SM holds; phase 7 gives
-    # mascon-512's (the global layout)
+    layout = jk.layout_report(tape, B_MAIN, dev)
+    # the shape of a B1/B2 block on the outer-SS tape at the main path's
+    # lanes, its dynamic shared memory with the tables, and the blocks an
+    # SM holds by the rule and by the runtime; phase 7 gives mascon-512's
+    # (the global layout)
     launch_smem = jk._launch_cfg(tape, B_MAIN, dev)[2]
     say(2, build_s=build_s, ptxas=ptxas,
-        smem_per_block=dict(layout, threads=jk.THREADS,
-                            launch_bytes=launch_smem,
-                            blocks_per_sm=jk.blocks_per_sm(launch_smem,
-                                                           jk.THREADS)))
+        smem_per_block=dict(layout, launch_bytes=launch_smem,
+                            occupancy=jk.occupancy(
+                                layout["lanes_per_block"], layout["threads"],
+                                launch_smem)))
     n_eq = tape.n_eq
     no_pars = torch.zeros((0, B_CHECK), dtype=torch.float64, device=dev)
 
@@ -739,11 +748,13 @@ def device_phases(dev, smi, build_s, warm_proc):
              for name in runs}
     shapes = block_shapes(tape, stm, np_m, aux_m, auxi_m, (tc_k, nrm_k),
                           (sk, ofk, oik))
+    small = dict(hh=shape_sweep("hh", dev, twins=True),
+                 nbody3=shape_sweep("nbody3", dev))
     say(6, B=B_MAIN, chunk_steps=CHUNK, nvidia_smi=smi,
         jet_max_rel_per_order=rel_m, prop_state_max_rel=prop_rel_m,
         **{name: dict(times[name], ms_runs=t[name][0],
                       plain_ms_runs=t[name][1], **bounds[name])
-           for name in runs}, block_shapes=shapes)
+           for name in runs}, block_shapes=shapes, small_tapes=small)
 
     rolled, mascon_until = huge_tapes(dev, order, smi)
     phased, pend_until = phase_tapes(dev, order, smi)
@@ -1019,14 +1030,20 @@ def fused_route(sys_, orbits, st_rolled, dev, t_end=MASCON_T, what="phase 8"):
 
 
 def block_shapes(tape, st, pars, aux, auxi, jet_ref, prop_ref):
-    """B2 and a 64-step B1 chunk at every block shape of
-    ``SWEEP_LANES`` x ``SWEEP_THREADS`` with the jets in shared memory:
+    """B2 and a 64-step B1 chunk at every block shape of ``SWEEP_LANES`` x
+    ``SWEEP_THREADS`` with the jets in shared memory that a block holds:
     each shape computes every item the same way, so its outputs must equal
     the default shape's (``jet_ref``, ``prop_ref``) bit for bit.  Returns
-    the times, the fastest shape by B1's time, and the shape in use."""
+    the times with the blocks an SM holds by the rule and by the runtime,
+    the fastest shape by B1's time, and the rule's shape."""
+    B, dev = st.shape[1], st.device
+    per = jk.lane_bytes(tape.width, tape.order)
     res = {}
     for L in SWEEP_LANES:
         for nt in SWEEP_THREADS:
+            if L * per > jk.SMEM_MAX:
+                continue
+
             def jet_run():
                 return jk._jet_cuda(tape, st, pars, None, L, nt)
 
@@ -1038,15 +1055,53 @@ def block_shapes(tape, st, pars, aux, auxi, jet_ref, prop_ref):
                 (*jet_run(), *prop_run()), (*jet_ref, *prop_ref)))
             check(same, f"B1/B2 with {L} lanes x {nt} threads differ from "
                   "the default block shape")
-            smem = jk._launch_cfg(tape, st.shape[1], st.device, L, nt)[2]
-            res[f"{L}x{nt}"] = dict(jet_ms=cuda_ms(jet_run, 3),
-                                    prop_ms=cuda_ms(prop_run, 2),
-                                    launch_smem_bytes=smem,
-                                    blocks_per_sm=jk.blocks_per_sm(smem, nt))
-    return dict(times=res, fastest_prop=min(
-        res, key=lambda c: res[c]["prop_ms"]), fastest_jet=min(
-        res, key=lambda c: res[c]["jet_ms"]),
-        chosen=f"{jk.LANES}x{jk.THREADS}")
+            sh = jk.launch_shape(tape, B, dev, L, nt)
+            res[f"{L}x{nt}"] = dict(
+                jet_ms=cuda_ms(jet_run, 3), prop_ms=cuda_ms(prop_run, 2),
+                launch_smem_bytes=sh.smem, tables=sh.tables,
+                blocks_per_sm=sh.blocks_per_sm,
+                occupancy=jk.occupancy(L, nt, sh.smem), waves=sh.waves)
+    rule = jk.launch_shape(tape, B, dev)
+    return dict(B=B, W=tape.width, rows=tape.pass_rows, times=res,
+                fastest_prop=min(res, key=lambda c: res[c]["prop_ms"]),
+                fastest_jet=min(res, key=lambda c: res[c]["jet_ms"]),
+                chosen=f"{rule.lanes}x{rule.threads}")
+
+
+def shape_sweep(name, dev, B=B_MAIN, twins=False):
+    """:func:`block_shapes` on the ``"hh"`` or ``"nbody3"`` tape at order
+    19 on ``B`` lanes, every lane free for the whole chunk, against the
+    rule's shape; with ``twins``, the rule's shape first against the plain
+    twins (:func:`jet_parity`: ``JET_RTOL`` a lane's norm, ``PROP_RTOL``).
+    Not on the 3-body lanes: their order-18 and -19 norms span 1e-15 to
+    7e-7, and a 1e-16 relative change of the state moves them up to 7e-11,
+    more than ``JET_RTOL`` in any order of f64 operations."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    sys_, ics = {
+        "hh": lambda: (hh_sys()[0], hh_lanes(B)),
+        "nbody3": lambda: (nbody(3, masses=[1.0, 1e-3, 2e-3]),
+                           NBODY3_IC + 0.01 * np.random.default_rng(
+                               2).standard_normal((B, 18))),
+    }[name]()
+    order = taylor_order_from_tol(TOL)
+    tape = jk.JetTape(ht.plan_to_arrays(build_plan(
+        ht.taylor_decompose_sys(sys_), order)), dev)
+    rule = jk.launch_shape(tape, B, dev)
+    parity = jet_parity(tape, ics, dev, what=f"the {name} tape at {B} lanes "
+                        f"({rule.lanes} x {rule.threads})") if twins else None
+    st = torch.as_tensor(ics.T.copy(), **f64)
+    pars = torch.zeros((0, B), **f64)
+    aux = torch.stack([torch.full((B,), float("inf"), **f64),
+                       torch.ones(B, **f64), torch.full((B,), FAR, **f64),
+                       torch.zeros(B, **f64), torch.ones(B, **f64)])
+    auxi = torch.full((1, B), 2**31 - 1, dtype=torch.int32, device=dev)
+    res = block_shapes(tape, st, pars, aux, auxi, jk.jet(tape, st, pars),
+                       jk.prop(tape, st, pars, aux, auxi, CHUNK))
+    if parity:
+        res.update(jet_max_rel_per_order=parity["jet"]["max_rel_per_order"],
+                   norms_max_rel=parity["jet"]["norms_max_rel"],
+                   prop_state_max_rel=parity["prop"]["state_max_rel"])
+    return res
 
 
 def huge_tapes(dev, order, smi):

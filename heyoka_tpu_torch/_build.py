@@ -57,6 +57,8 @@ SIGNATURES = {
     # itab, dtab, state, pars, aux, auxi, tc, state_out, of, oi,
     # B, n_steps, high_accuracy, lanes, threads, smem, n_it, n_dt, stream
     "hy_prop_f64": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # lanes, threads, smem
+    "hy_prop_occupancy": (_I,) * 3,
     # itab, dtab, state, pars, t, scratch, V, out, norms, trace, B,
     # threads, smem, lane_dbl, blocks, stream
     "hy_jet_rolled_f64": (_P,) * 10 + (_I,) * 5 + (_P,),

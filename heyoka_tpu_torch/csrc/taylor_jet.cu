@@ -22,9 +22,9 @@
 // B with its scalars, 68,588 B with the tables.  An SM has 228 KB and
 // keeps 1 KB of it for each resident block, so three such blocks of one
 // lane fit on an SM; a block of three lanes fills one.
-// jet_kernels.block_layout makes the same count and picks the lanes a
-// block; jet_kernels.tables_in_smem adds the tables only where they cost
-// no block an SM.  Where one lane's jet and scalars exceed the 232,448
+// jet_kernels.block_shape makes the same count and picks the lanes and
+// threads a block; the tables join the jets only where they cost no block
+// an SM.  Where one lane's jet and scalars exceed the 232,448
 // bytes a block may have (W > 1,452 at K = 19: mascon-128 and wider), the
 // same code runs on a global scratch buffer of the same per-block layout,
 // kGlobalLanes lanes a block, through the same base pointer arithmetic.
@@ -36,11 +36,14 @@
 // (B3 closes each level the same way).  Each item is one thread's, with
 // the terms summed in j ascending as the plain twins write them, so the
 // coefficients are the same expressions, bit for bit, as those of the
-// one-thread-per-lane kernel this design replaced.  The norms are a warp's
-// reduction per lane (nmax is exact and propagates NaN in any order); the
-// step size, the lane protocol and the double-length sums run on one
-// thread per lane through shared memory; the update is one item per
-// (state row, lane).  Kernel B1 keeps the lanes' state in the order-0 rows
+// one-thread-per-lane kernel this design replaced.  The norms are a
+// reduction per lane over a group of the block's threads (norm_group: a
+// power of two of at most a warp; nmax is exact and propagates NaN in any
+// order, so any group gives the same bits); the step size, the lane
+// protocol and the double-length sums run on one thread per lane through
+// shared memory; the update is one item per (state row, lane).  So every
+// block shape, lanes (HY_LANES) by threads, gives the same bits.  Kernel
+// B1 keeps the lanes' state in the order-0 rows
 // for the whole launch: it reads the state once and writes st/of/oi once.
 //
 // B1's step loop is uniform over the block: it runs while any lane of the
@@ -54,8 +57,14 @@
 // k+1 dependent terms read from shared memory; the 15-row groups leave
 // most of the block's threads idle.  The card's f64 rate and its
 // shared-memory bandwidth are far from used, and the time per jet falls
-// with the blocks an SM holds (PERF.md), which the jets' shared memory
-// caps at three.  Tensor cores (DMMA/wgmma) do not apply: a Cauchy product
+// with the blocks an SM holds (PERF.md), which on the outer-SS tape the
+// jets' shared memory caps at three.  On a small tape shared memory is no
+// such limit: the Henon-Heiles tape (W = 17) takes 2,848 B a lane, and
+// its passes have at most 4 rows.  There a block holds several lanes and
+// only the threads their widest pass needs, so that an SM runs as many
+// lanes as its shared memory holds (jet_kernels.block_shape: 16 lanes of
+// 64 threads, 80 lanes an SM, where blocks of one lane and 256 threads ran
+// 4, the limit of their registers; a chunk 16.6x faster).  Tensor cores (DMMA/wgmma) do not apply: a Cauchy product
 // of one row and one lane shares no operand tile with another row, so the
 // design is shared memory and f64 CUDA cores.
 //
@@ -257,23 +266,38 @@ __device__ void jet_orders(const Tape& T, const Jets<L>& J,
   }
 }
 
-// infinity norms of lane l over the state (and sv-func) columns of orders
-// K-1, K, 0: the columns shared out over the calling warp, then a
-// butterfly, so every thread of the warp holds the result
+// threads that take one lane's norms: threads l G .. l G + G - 1 for lane
+// l, G a power of two of at most a warp with G L within the block, and no
+// more than the norm columns need (one thread a lane where that is all
+// there is); a group lies inside one warp
 template <int L>
-__device__ void norms3(const Tape& T, const Jets<L>& J, int l, double& m1,
-                       double& mo, double& m0) {
+__device__ int norm_group(int n_norm) {
+  int g = 32;
+  while (g > 1 && g * L > (int)blockDim.x) g >>= 1;
+  while (g > 1 && (g >> 1) >= n_norm) g >>= 1;
+  return g;
+}
+
+// infinity norms of lane l over the state (and sv-func) columns of orders
+// K-1, K, 0: the columns shared out over the calling group of G threads,
+// then a butterfly, so every thread of the group holds the result
+template <int L>
+__device__ void norms3(const Tape& T, const Jets<L>& J, int l, int G,
+                       double& m1, double& mo, double& m0) {
   m1 = mo = m0 = 0.0;
-  for (int j = threadIdx.x & 31; j < T.n_norm; j += 32) {
+  const int r = threadIdx.x & (G - 1);
+  for (int j = r; j < T.n_norm; j += G) {
     const int c = T.norm[j];
     m1 = nmax(m1, fabs(J.at(T.K - 1, c, l)));
     mo = nmax(mo, fabs(J.at(T.K, c, l)));
     m0 = nmax(m0, fabs(J.at(0, c, l)));
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    m1 = nmax(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    mo = nmax(mo, __shfl_xor_sync(0xffffffffu, mo, off));
-    m0 = nmax(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+  const unsigned mask = G == 32 ? 0xffffffffu
+                                : ((1u << G) - 1u) << ((threadIdx.x & 31) - r);
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    m1 = nmax(m1, __shfl_xor_sync(mask, m1, off));
+    mo = nmax(mo, __shfl_xor_sync(mask, mo, off));
+    m0 = nmax(m0, __shfl_xor_sync(mask, m0, off));
   }
 }
 
@@ -341,11 +365,11 @@ jet_kernel(const int* __restrict__ it, const double* __restrict__ dt,
   seed_virtual(T, J, lane0, B, pars, t);
   __syncthreads();
   jet_orders(T, J, V);  // ends with a barrier
-  const int w = tid >> 5;
+  const int G = norm_group<L>(T.n_norm), w = tid / G;
   if (w < L && lane0 + w < B) {
     double m1, mo, m0;
-    norms3(T, J, w, m1, mo, m0);
-    if ((tid & 31) == 0) {
+    norms3(T, J, w, G, m1, mo, m0);
+    if ((tid & (G - 1)) == 0) {
       norms[lane0 + w] = m1;
       norms[Bs + lane0 + w] = mo;
       norms[2 * Bs + lane0 + w] = m0;
@@ -412,16 +436,16 @@ prop_kernel(const int* __restrict__ it, const double* __restrict__ dt,
     if (lane0 + l < B) J.at(0, i, l) = state[i * Bs + lane0 + l];
   }
   seed_virtual(T, J, lane0, B, pars, nullptr);
-  const int w = tid >> 5;
+  const int G = norm_group<L>(T.n_norm), w = tid / G;
   for (int step = 0; step < n_steps; ++step) {
     if (!__syncthreads_or(tid < L && V[tid].act)) break;
     jet_orders(T, J, V);
-    // the step size and the tests that come before the update: warp w
+    // the step size and the tests that come before the update: group w
     // for lane w
     if (w < L && V[w].act) {
       double m1, mo, m0;
-      norms3(T, J, w, m1, mo, m0);
-      if ((tid & 31) == 0) {
+      norms3(T, J, w, G, m1, mo, m0);
+      if ((tid & (G - 1)) == 0) {
         LaneVars& v = V[w];
         const double h = rho_h(T, m0, m1, mo, v.mdt);
         if (h >= v.rem_h) {  // the exact landing runs outside
@@ -531,19 +555,24 @@ int launch_prop(const int* itab, const double* dtab, const double* state,
   return (int)cudaGetLastError();
 }
 
-// a warp per lane for the norms, whole warps, at most kMaxThreads
+// whole warps, at most kMaxThreads, and a thread for each lane's scalars
 bool bad_shape(int lanes, int threads) {
-  return threads % 32 != 0 || threads > kMaxThreads || lanes * 32 > threads;
+  return threads % 32 != 0 || threads > kMaxThreads || lanes < 1 ||
+         lanes > threads;
 }
+
+// the lanes a block may hold with the jets in shared memory, one instance
+// of each kernel a count (jet_kernels.LANE_CHOICES)
+#define HY_LANES(X) X(1) X(2) X(3) X(4) X(8) X(16) X(32)
 
 }  // namespace
 
-// `tc` null: the jets in shared memory, `lanes` of 1..3 a block; else
+// `tc` null: the jets in shared memory, `lanes` of HY_LANES a block; else
 // `tc` is the global scratch of ceil(B / lanes) blocks of (K+1) W lanes
-// doubles and `lanes` is kGlobalLanes.  `smem`: the dynamic shared memory
-// of a block in bytes (jet_kernels.block_layout), with room for the
-// tables where n_it (the ints of itab) and n_dt (the doubles of dtab) are
-// not 0.
+// doubles and `lanes` is kGlobalLanes.  `threads`: whole warps, at least
+// `lanes`.  `smem`: the dynamic shared memory of a block in bytes
+// (jet_kernels.block_shape), with room for the tables where n_it (the
+// ints of itab) and n_dt (the doubles of dtab) are not 0.
 extern "C" int hy_jet_f64(const int* itab, const double* dtab,
                           const double* state, const double* pars,
                           const double* t, double* tc, double* out,
@@ -558,15 +587,12 @@ extern "C" int hy_jet_f64(const int* itab, const double* dtab,
                                            n_it, n_dt, s);
   }
   switch (lanes) {
-    case 1:
-      return launch_jet<1, true>(itab, dtab, state, pars, t, tc, out, norms,
-                                 B, threads, smem, n_it, n_dt, s);
-    case 2:
-      return launch_jet<2, true>(itab, dtab, state, pars, t, tc, out, norms,
-                                 B, threads, smem, n_it, n_dt, s);
-    case 3:
-      return launch_jet<3, true>(itab, dtab, state, pars, t, tc, out, norms,
-                                 B, threads, smem, n_it, n_dt, s);
+#define HY_CASE(n)                                                          \
+  case n:                                                                   \
+    return launch_jet<n, true>(itab, dtab, state, pars, t, tc, out, norms, \
+                               B, threads, smem, n_it, n_dt, s);
+    HY_LANES(HY_CASE)
+#undef HY_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -588,22 +614,42 @@ extern "C" int hy_prop_f64(const int* itab, const double* dtab,
         n_steps, high_accuracy, threads, smem, n_it, n_dt, s);
   }
   switch (lanes) {
-    case 1:
-      return launch_prop<1, true>(itab, dtab, state, pars, aux, auxi, tc,
-                                  state_out, of, oi, B, n_steps,
-                                  high_accuracy, threads, smem, n_it, n_dt,
-                                  s);
-    case 2:
-      return launch_prop<2, true>(itab, dtab, state, pars, aux, auxi, tc,
-                                  state_out, of, oi, B, n_steps,
-                                  high_accuracy, threads, smem, n_it, n_dt,
-                                  s);
-    case 3:
-      return launch_prop<3, true>(itab, dtab, state, pars, aux, auxi, tc,
-                                  state_out, of, oi, B, n_steps,
-                                  high_accuracy, threads, smem, n_it, n_dt,
-                                  s);
+#define HY_CASE(n)                                                        \
+  case n:                                                                 \
+    return launch_prop<n, true>(itab, dtab, state, pars, aux, auxi, tc,  \
+                                state_out, of, oi, B, n_steps,           \
+                                high_accuracy, threads, smem, n_it, n_dt, \
+                                s);
+    HY_LANES(HY_CASE)
+#undef HY_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Blocks of kernel B1 with the jets in shared memory an SM holds at
+// `lanes` x `threads` and `smem` bytes, as the runtime counts them
+// (registers included), or minus a CUDA error: the check of
+// jet_kernels.blocks_per_sm, which counts shared memory, threads and
+// blocks only.
+extern "C" int hy_prop_occupancy(int lanes, int threads, int smem) {
+  if (bad_shape(lanes, threads)) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (lanes) {
+#define HY_CASE(n)                                                     \
+  case n: {                                                            \
+    static bool allowed = false;                                       \
+    e = allow_smem(prop_kernel<n, true>, allowed);                     \
+    if (e == cudaSuccess)                                              \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(               \
+          &blocks, prop_kernel<n, true>, threads, (size_t)smem);       \
+    break;                                                             \
+  }
+    HY_LANES(HY_CASE)
+#undef HY_CASE
+    default:
+      break;
+  }
+  return e == cudaSuccess ? blocks : -(int)e;
 }

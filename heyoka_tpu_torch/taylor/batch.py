@@ -320,8 +320,10 @@ class TaylorAdaptiveBatch:
         ``c_output_engine``, the driver of ``propagate_grid`` and of
         ``propagate_until(c_output=True)`` (``"flat"``, the per-step
         driver over ``jet``, or ``"events"`` with events), and
-        ``layout``, the block layout of kernels B1/B2 on this tape
-        (``jet_kernels.layout_report``) or of kernel B3 on a huge one
+        ``layout``, the block shape of kernels B1/B2 on this tape at the
+        batch's lanes (``jet_kernels.layout_report``: layout, lanes and
+        threads a block, tables, blocks and lanes an SM, waves) or the
+        block layout of kernel B3 on a huge one
         (``jet_rolled.layout_report``; the CPU names the one the card would
         run), None on the B4 route (a float32 batch's route on every tape,
         its ``jet`` ``hy_phase_f32`` on the card), and, on a tape with
@@ -359,7 +361,8 @@ class TaylorAdaptiveBatch:
             grid_engine="events" if self._ev is not None else "flat",
             c_output_engine="events" if self._ev is not None else "flat",
             layout=None if self._phase else rolled_layout(self._jtape)
-            if self._rolled else layout_report(self._jtape),
+            if self._rolled else layout_report(self._jtape, self._batch,
+                                               self._device),
         )
         if getattr(self._jtape, "n_ser", 0):
             rep["series"] = series_jet.REPORT if cuda \

@@ -27,8 +27,9 @@ is f64 and none of that is carried over.  The recurrences are those of
 Layout: lanes are the LAST axis everywhere; the twins' coefficient buffer
 is ``(K+1, W, B)``.  The kernels keep a block's lanes' jets as ``(K+1, W,
 lanes)`` in shared memory, or, where one lane's jet does not fit there, in
-a global scratch buffer of the same per-block layout; :func:`block_layout`
-picks from ``(W, K)``.  The wrappers dispatch on the device of their
+a global scratch buffer of the same per-block layout; :func:`block_shape`
+picks the layout, the lanes and the threads a block from the tape and the
+lanes of the launch.  The wrappers dispatch on the device of their
 input: a CPU tensor runs the plain twin, a CUDA tensor launches the
 kernel built from ``csrc/taylor_jet.cu`` (and raises if it cannot).  The
 plain twins run on any device — ``chip_smoke.py`` uses them on the card
@@ -36,6 +37,10 @@ as the yardstick of the kernels.
 """
 
 from __future__ import annotations
+
+import functools
+from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -111,6 +116,7 @@ class JetTape:
             for lv in plan.levels for g in lv
         ]
         self.ops = frozenset(g[0] for g in self.groups)
+        self.pass_rows = pass_rows(self)
         self.itab, self.dtab = self._pack(arrays, norm)
         self.device = self.itab.device  # with its index ("cuda:0")
 
@@ -379,21 +385,49 @@ def prop_plain(tape: JetTape, state, pars, aux, auxi, n_steps: int,
 #: dynamic shared memory a block may have on the H100 (227 KB; above 48 KB
 #: a kernel must be allowed it, which the C entry points do once per
 #: kernel), the shared memory of an SM (228 KB), what the card keeps of it
-#: for each resident block, and the threads an SM holds
+#: for each resident block, the threads, the blocks and the registers an SM
+#: holds, and the H100's SMs (the rules' count off the card)
 SMEM_MAX, SM_SMEM, BLOCK_RESERVED = 232_448, 233_472, 1_024
-SM_THREADS = 2048
+SM_THREADS, SM_BLOCKS, SM_REGS, SMS = 2048, 32, 65_536, 132
+#: registers a thread of kernels B1/B2 takes: every instance, as ptxas
+#: builds them for sm_90a (the build log; the GPU tests hold the runtime's
+#: count of blocks an SM to :func:`block_shape`'s)
+REGS = 64
 #: doubles of kernel B1's per-lane step state behind the jets
 #: (csrc/taylor_jet.cu ``kLaneScalars``, ``LaneVars``)
 LANE_SCALARS = 16
-#: lanes and threads a block with the jets in shared memory: the fastest of
-#: lanes {1, 2, 3} x threads {128, 256} for B1 and B2 at 10,240 lanes of
-#: the outer-Solar-System tape on an H100 (``chip_smoke.py`` phase 6,
-#: PERF.md)
-LANES, THREADS = 1, 256
+#: lanes a block of kernels B1/B2 may hold with the jets in shared memory
+#: (csrc ``HY_LANES``: an instance of each kernel a count), and the threads
+#: a block may have (whole warps, at most csrc ``kMaxThreads``)
+LANE_CHOICES = (1, 2, 3, 4, 8, 16, 32)
+BLOCK_THREADS = (32, 64, 128, 256)
 #: lanes and threads a block where one lane's jet does not fit a block's
 #: shared memory and the jets live in a global scratch buffer (csrc
 #: ``kGlobalLanes``: a 32-byte sector of each row)
 GLOBAL_LANES, GLOBAL_THREADS = 4, 256
+
+#: launches of kernels B1/B2 by ``(kernel, lanes, threads, tables)``
+#: (``"prop"`` or ``"jet"``; ``tables`` ``"smem"`` or ``"global"``): the
+#: shapes :func:`block_shape` chose, or the ones forced
+SHAPES = Counter()
+
+
+class BlockShape(NamedTuple):
+    """A launch of kernel B1 or B2: ``layout`` (``"smem"``: the jets in
+    shared memory; ``"global"``: in a scratch buffer), ``lanes`` and
+    ``threads`` a block, ``smem`` (the block's dynamic shared memory in
+    bytes, the tables included where ``tables``), ``tables`` (whether the
+    block copies the tables into shared memory) and, at the launch's ``B``
+    lanes, ``blocks_per_sm``, ``lanes_per_sm`` and ``waves`` (the
+    ``ceil(B / lanes)`` blocks over the blocks the card holds at once)."""
+    layout: str
+    lanes: int
+    threads: int
+    smem: int
+    tables: bool
+    blocks_per_sm: int
+    lanes_per_sm: int
+    waves: int
 
 
 def lane_bytes(W: int, K: int) -> int:
@@ -402,24 +436,26 @@ def lane_bytes(W: int, K: int) -> int:
     return 8 * ((K + 1) * W + LANE_SCALARS)
 
 
-def block_layout(W: int, K: int):
-    """``(lanes, smem_bytes)`` a block of kernels B1/B2 takes on a tape of
-    ``W`` columns at order ``K``.  ``smem_bytes`` is the block's dynamic
-    shared memory, its lanes' jets and scalars, or None where one lane's
-    (:func:`lane_bytes`) exceeds ``SMEM_MAX``: then the jets live in a
-    global scratch buffer, ``GLOBAL_LANES`` lanes a block, and the block's
-    shared memory holds the lanes' scalars only."""
-    per = lane_bytes(W, K)
-    if per > SMEM_MAX:
-        return GLOBAL_LANES, None
-    lanes = min(LANES, SMEM_MAX // per)
-    return lanes, lanes * per
+def pass_rows(tape: JetTape) -> int:
+    """Rows of the widest pass of kernels B1/B2 on ``tape``: a group, or
+    the state rows."""
+    return max([tape.n_eq] + [g[2] for g in tape.groups])
 
 
-def blocks_per_sm(smem: int, threads: int) -> int:
+def block_threads(rows: int, lanes: int) -> int:
+    """The fewest of ``BLOCK_THREADS`` that give every item of a pass of
+    ``rows`` rows of ``lanes`` lanes a thread, else the most."""
+    return next((t for t in BLOCK_THREADS if t >= rows * lanes),
+                BLOCK_THREADS[-1])
+
+
+def blocks_per_sm(smem: int, threads: int, regs: int = 0) -> int:
     """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
-    memory an SM holds, as far as those two limit it."""
-    return min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads)
+    memory an SM holds, as far as those two, ``SM_BLOCKS`` and, where
+    ``regs`` (registers a thread) is given, the registers limit it."""
+    n = min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads,
+            SM_BLOCKS)
+    return min(n, SM_REGS // (regs * threads)) if regs else n
 
 
 def table_bytes(tape: JetTape) -> int:
@@ -428,27 +464,136 @@ def table_bytes(tape: JetTape) -> int:
     return 4 * tape.itab.numel() + 8 * tape.dtab.numel()
 
 
-def tables_in_smem(tape: JetTape, smem, threads: int = THREADS) -> bool:
+def _tables_fit(smem: int, tab: int, threads: int) -> bool:
+    return smem + tab <= SMEM_MAX and blocks_per_sm(
+        smem + tab, threads, REGS) == blocks_per_sm(smem, threads, REGS)
+
+
+def tables_in_smem(tape: JetTape, smem, threads: int) -> bool:
     """Whether kernels B1/B2 copy the tape's tables into shared memory
     behind the jets: only with the jets there (``smem``, a block's bytes
     without the tables, not None), and only where they cost no block an
-    SM."""
-    if smem is None:
-        return False
-    total = smem + table_bytes(tape)
-    return total <= SMEM_MAX and (blocks_per_sm(total, threads)
-                                  == blocks_per_sm(smem, threads))
+    SM (registers included, ``REGS``)."""
+    return smem is not None and _tables_fit(smem, table_bytes(tape), threads)
 
 
-def layout_report(tape: JetTape) -> dict:
-    """The block layout kernels B1/B2 run ``tape`` with: ``layout``
-    (``"smem"`` or ``"global"``), ``lanes_per_block``, ``smem_bytes``
-    (:func:`block_layout`'s; None for the global layout) and ``tables``
-    (``"smem"`` or ``"global"``, :func:`tables_in_smem`)."""
-    lanes, smem = block_layout(tape.width, tape.order)
-    return dict(layout="global" if smem is None else "smem",
-                lanes_per_block=lanes, smem_bytes=smem,
-                tables="smem" if tables_in_smem(tape, smem) else "global")
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _candidate(per: int, tab: int, B: int, sms: int, lanes: int,
+               threads: int) -> BlockShape:
+    """The shape of ``lanes`` x ``threads`` with the jets in shared
+    memory, the tables with them where they fit (:func:`tables_in_smem`)."""
+    smem = lanes * per
+    bps = blocks_per_sm(smem, threads, REGS)
+    tables = _tables_fit(smem, tab, threads)
+    return BlockShape("smem", lanes, threads, smem + tab * tables, tables,
+                      bps, lanes * bps, _cdiv(_cdiv(B, lanes), sms * bps))
+
+
+@functools.lru_cache(maxsize=1024)
+def block_shape(W: int, K: int, rows: int, tab: int, B: int, sms: int = SMS,
+                lanes=None, threads=None) -> BlockShape:
+    """The block shape of kernels B1/B2 on ``B`` lanes of a tape of ``W``
+    columns at order ``K`` whose widest pass has ``rows`` rows
+    (:func:`pass_rows`) and whose tables take ``tab`` bytes, on a card of
+    ``sms`` SMs; or the ``lanes`` and ``threads`` given, either of them
+    (``chip_smoke.py`` and the GPU tests hold every shape to the default).
+
+    - Global layout: where one lane (:func:`lane_bytes`) exceeds
+      ``SMEM_MAX``, ``GLOBAL_LANES`` lanes of ``GLOBAL_THREADS`` threads.
+    - Threads: :func:`block_threads`, an item of the widest pass a thread.
+    - Lanes: of ``LANE_CHOICES`` up to ``B``, the one that puts the most
+      lanes in flight on the card (``lanes_per_sm`` times ``sms``, at most
+      ``B``), with shared memory, threads, ``SM_BLOCKS`` and registers
+      (``REGS``) limiting the blocks an SM holds; among those, the fewest
+      waves, then the fewest lanes a block.
+    - The tables go to shared memory where they cost no block an SM.
+
+    A block's time is its chain of barrier-closed passes, about as long at
+    one item a thread whatever its lanes, so the time of a launch follows
+    its waves.  Measured on an H100 (``chip_smoke.py`` phase 6, every
+    shape of a 64-step B1 chunk at 10,240 lanes, PERF.md): on the
+    Henon-Heiles tape (2,848 B a lane, 4 rows) 16 lanes of 64 threads, 80
+    lanes an SM in one wave, take 3.67 ms, where one lane of 256 threads
+    (4 an SM by registers) took 61.0; the outer SS (61,088 B, 135 rows)
+    keeps one lane of 256 threads, 3 an SM, the fastest shape; the 3-body
+    tape (15,808 B, 27 rows) takes two lanes of 64 threads, 14 an SM (one
+    lane of 32, 13 an SM, within 2% of it).  On each the rule's shape is
+    within 4% of the fastest."""
+    per = lane_bytes(W, K)
+    B = max(int(B), 1)
+    if per > SMEM_MAX:
+        smem = 8 * LANE_SCALARS * GLOBAL_LANES
+        bps = blocks_per_sm(smem, GLOBAL_THREADS, REGS)
+        return BlockShape("global", GLOBAL_LANES, GLOBAL_THREADS, smem,
+                          False, bps, GLOBAL_LANES * bps,
+                          _cdiv(_cdiv(B, GLOBAL_LANES), sms * bps))
+    if lanes is not None or threads is not None:
+        L = block_shape(W, K, rows, tab, B, sms).lanes if lanes is None \
+            else int(lanes)
+        nt = block_threads(rows, L) if threads is None else int(threads)
+        if L not in LANE_CHOICES or nt not in BLOCK_THREADS:
+            raise ValueError(f"kernels B1/B2 take {LANE_CHOICES} lanes and "
+                             f"{BLOCK_THREADS} threads a block, not {L} x "
+                             f"{nt}")
+        if L * per > SMEM_MAX:
+            raise ValueError(f"{L} lanes of {per} B exceed a block's "
+                             f"{SMEM_MAX} B of shared memory")
+        return _candidate(per, tab, B, sms, L, nt)
+    cands = [_candidate(per, tab, B, sms, L, block_threads(rows, L))
+             for L in LANE_CHOICES if L <= B and L * per <= SMEM_MAX]
+
+    def flight(c):
+        return min(B, c.lanes_per_sm * sms)
+
+    return min(cands, key=lambda c: (-flight(c), c.waves, c.lanes))
+
+
+def _sms(dev) -> int:
+    """SMs of ``dev``'s card; ``SMS`` off the card."""
+    dev = torch.device("cpu" if dev is None else dev)
+    return _card_sms(dev) if dev.type == "cuda" else SMS
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def launch_shape(tape: JetTape, B: int, dev=None, lanes=None,
+                 threads=None) -> BlockShape:
+    """:func:`block_shape` of kernels B1/B2 on ``B`` lanes of ``tape`` on
+    ``dev``'s card (the H100's ``SMS`` off the card)."""
+    return block_shape(tape.width, tape.order, tape.pass_rows,
+                       table_bytes(tape), B, _sms(dev), lanes, threads)
+
+
+def layout_report(tape: JetTape, B: int = 1, dev=None) -> dict:
+    """The block shape kernels B1/B2 run ``tape`` with at ``B`` lanes:
+    ``layout`` (``"smem"`` or ``"global"``), ``lanes_per_block``,
+    ``smem_bytes`` (the lanes' jets and scalars; None for the global
+    layout), ``tables`` (``"smem"`` or ``"global"``), ``threads``,
+    ``blocks_per_sm``, ``lanes_per_sm`` and ``waves``
+    (:func:`block_shape`)."""
+    sh = launch_shape(tape, B, dev)
+    return dict(layout=sh.layout, lanes_per_block=sh.lanes,
+                smem_bytes=sh.lanes * lane_bytes(tape.width, tape.order)
+                if sh.layout == "smem" else None,
+                tables="smem" if sh.tables else "global",
+                threads=sh.threads, blocks_per_sm=sh.blocks_per_sm,
+                lanes_per_sm=sh.lanes_per_sm, waves=sh.waves)
+
+
+def occupancy(lanes: int, threads: int, smem: int) -> int:
+    """Blocks of kernel B1 with the jets in shared memory an SM holds at
+    ``lanes`` x ``threads`` and ``smem`` bytes as the CUDA runtime counts
+    them (registers included); on the card."""
+    got = _build.load().hy_prop_occupancy(lanes, threads, smem)
+    if got < 0:
+        raise RuntimeError(f"hy_prop_occupancy failed: CUDA error {-got}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -497,25 +642,19 @@ def _ptr(x):
 
 def _launch_cfg(tape: JetTape, B: int, dev, lanes=None, threads=None):
     """``(lanes, threads, smem bytes, scratch or None, n_it, n_dt)`` of one
-    launch of kernel B1 or B2: :func:`block_layout`'s, or the ``lanes`` and
-    ``threads`` given (jets in shared memory only; ``chip_smoke.py`` times
-    the choices with them).  ``n_it``, ``n_dt``: the lengths of the tables
-    where they go to shared memory (:func:`tables_in_smem`), else 0."""
-    K, W = tape.order, tape.width
-    L, smem = block_layout(W, K)
-    if smem is None:
-        n_blk = -(-B // L)
-        tc = torch.empty(n_blk * (K + 1) * W * L, dtype=_F64, device=dev)
-        return L, GLOBAL_THREADS, 8 * LANE_SCALARS * L, tc, 0, 0
-    L = L if lanes is None else int(lanes)
-    nt = THREADS if threads is None else int(threads)
-    smem = L * lane_bytes(W, K)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{L} lanes of {lane_bytes(W, K)} B exceed a "
-                         f"block's {SMEM_MAX} B of shared memory")
-    if not tables_in_smem(tape, smem, nt):
-        return L, nt, smem, None, 0, 0
-    return (L, nt, smem + table_bytes(tape), None, tape.itab.numel(),
+    launch of kernel B1 or B2: :func:`launch_shape`'s, with the ``lanes``
+    and ``threads`` given where they are (jets in shared memory only;
+    ``chip_smoke.py`` times the choices with them).  ``n_it``, ``n_dt``:
+    the lengths of the tables where they go to shared memory, else 0."""
+    sh = launch_shape(tape, B, dev, lanes, threads)
+    if sh.layout == "global":
+        K, W, L = tape.order, tape.width, sh.lanes
+        tc = torch.empty(_cdiv(B, L) * (K + 1) * W * L, dtype=_F64,
+                         device=dev)
+        return L, sh.threads, sh.smem, tc, 0, 0
+    if not sh.tables:
+        return sh.lanes, sh.threads, sh.smem, None, 0, 0
+    return (sh.lanes, sh.threads, sh.smem, None, tape.itab.numel(),
             tape.dtab.numel())
 
 
@@ -525,7 +664,7 @@ def jet(tape: JetTape, state, pars, t=None):
     (n_eq + n_out, K+1, B), norms (3, B))``: the state rows, then the
     tape's sv-func rows (``out_cols``, the event equations).  A CPU tensor runs :func:`jet_plain`;
     a CUDA tensor launches kernel B2 (``hy_jet_f64``) with the block
-    layout of :func:`block_layout`."""
+    shape of :func:`launch_shape`."""
     _check_rules(tape)
     if _device_of(state, tape).type == "cpu":
         return jet_plain(tape, state, pars, t)
@@ -549,16 +688,16 @@ def _jet_cuda(tape: JetTape, state, pars, t=None, lanes=None, threads=None,
     if B == 0:
         return out, norms
     L, nt, smem, tc, n_it, n_dt = _launch_cfg(tape, B, dev, lanes, threads)
-    smem += int(pad)
     lib = _build.load()
     rc = lib.hy_jet_f64(
         _ptr(tape.itab), _ptr(tape.dtab), _ptr(state), _ptr(pars),
         None if t is None or tape.time_col is None else _ptr(t),
         None if tc is None else _ptr(tc), _ptr(out), _ptr(norms), B, L, nt,
-        smem, n_it, n_dt, torch.cuda.current_stream(dev).cuda_stream)
+        smem + int(pad), n_it, n_dt, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hy_jet_f64 launch failed: CUDA error {rc}")
     LAUNCHES["jet"] += 1
+    SHAPES["jet", L, nt, "smem" if n_it else "global"] += 1
     return out, norms
 
 
@@ -569,8 +708,8 @@ def prop(tape: JetTape, state, pars, aux, auxi, n_steps: int,
     the remaining time in the direction of travel, >= 0) and ``auxi (1, B)
     int32`` (the step budget) -> ``(state (n_eq, B), of (5, B), oi (3, B)
     int32)``.  A CPU tensor runs :func:`prop_plain`; a CUDA tensor
-    launches kernel B1 (``hy_prop_f64``) with the block layout of
-    :func:`block_layout`."""
+    launches kernel B1 (``hy_prop_f64``) with the block shape of
+    :func:`launch_shape`."""
     _check_rules(tape)
     dev = _device_of(state, tape)
     _check_autonomous(tape)
@@ -604,4 +743,5 @@ def _prop_cuda(tape: JetTape, state, pars, aux, auxi, n_steps: int,
     if rc != 0:
         raise RuntimeError(f"hy_prop_f64 launch failed: CUDA error {rc}")
     LAUNCHES["prop"] += 1
+    SHAPES["prop", L, nt, "smem" if n_it else "global"] += 1
     return st, of, oi

@@ -70,9 +70,9 @@ from ..convert import (
 )
 from ..expr.numeric import evaluate
 from .jet_kernels import (
-    BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, SMEM_MAX, JetTape, _F64,
-    _HDR, _HDR_LEN, _check, _device_of, _eval0, _eval_k, _norms, _ptr,
-    _rows, _seed_plain, table_bytes,
+    LAUNCHES, SMS, SMEM_MAX, JetTape, _F64, _HDR, _HDR_LEN,
+    _check, _device_of, _eval0, _eval_k, _norms, _ptr, _rows, _seed_plain,
+    _sms, blocks_per_sm, table_bytes,
 )
 
 #: kernel B4's C entry and its ``LAUNCHES`` counter for each dtype of the
@@ -630,9 +630,6 @@ MAX_LANES = 32
 #: shared memory holds is shorter, the staging would read and write
 #: sectors by parts, and the global layout runs instead
 SECTOR = 32
-#: the blocks an SM holds at most (Hopper), and the H100's SMs (the
-#: rule's default off the card)
-SM_BLOCKS, SMS = 32, 132
 
 
 class PhaseShape(NamedTuple):
@@ -663,20 +660,10 @@ def widest(tape: PhaseTape) -> int:
                    tape.n_eq + tape.n_syn))
 
 
-def _blocks_per_sm(smem: int, threads: int) -> int:
-    return min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads,
-               SM_BLOCKS)
-
-
 def _threads_for(tape: PhaseTape, lanes: int) -> int:
     fit = [t for t in BLOCK_THREADS
            if t >= THREADS_PER_ITEM * widest(tape) * lanes]
     return min(fit, default=BLOCK_THREADS[-1])
-
-
-def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count \
-        if dev.type == "cuda" else SMS
 
 
 def block_shape(tape: PhaseTape, B: int, itemsize: int, lanes=None,
@@ -724,8 +711,8 @@ def block_shape(tape: PhaseTape, B: int, itemsize: int, lanes=None,
         raise ValueError(f"{lanes} lanes of {per} B exceed a block's "
                          f"{SMEM_MAX} B of shared memory")
     tab = table_bytes(tape)
-    need = min(_blocks_per_sm(smem, nt), -(-B // (lanes * sms)))
-    if smem + tab <= SMEM_MAX and _blocks_per_sm(smem + tab, nt) >= need:
+    need = min(blocks_per_sm(smem, nt), -(-B // (lanes * sms)))
+    if smem + tab <= SMEM_MAX and blocks_per_sm(smem + tab, nt) >= need:
         return PhaseShape(layout, lanes, nt, smem + tab, tape.itab.numel(),
                           tape.dtab.numel())
     return PhaseShape(layout, lanes, nt, smem, 0, 0)

@@ -3,7 +3,8 @@ against the blocks an SM holds and against the order K.
 
     python -m heyoka_tpu_torch.tools.jet_scan
 
-B2 (``jet_kernels.jet``, the jets in shared memory, one lane a block) is
+B2 (``jet_kernels.jet``, the jets in shared memory, one lane of 256
+threads a block at every order) is
 timed with CUDA events (a warm-up, then the mean of 5 launches):
 
 - at order 19 with each block asking for more shared memory than it uses,
@@ -33,6 +34,9 @@ from . import GCONST, IC, MASSES, cuda_device, cuda_ms, smi_line
 B = 10_240
 ORDERS = (4, 8, 12, 16, 19)
 BLOCKS_PER_SM = (3, 2, 1)
+#: the block shape at every order: the outer SS's at order 19
+#: (``jet_kernels.block_shape``)
+LANES, THREADS = 1, 256
 
 
 def pad_for(blocks: int, smem: int) -> int:
@@ -43,7 +47,7 @@ def pad_for(blocks: int, smem: int) -> int:
 
     need = jk.SM_SMEM // (blocks + 1) + 1 - jk.BLOCK_RESERVED
     pad = max(0, need - smem)
-    if jk.blocks_per_sm(smem + pad, jk.THREADS) != blocks \
+    if jk.blocks_per_sm(smem + pad, THREADS) != blocks \
             or smem + pad > jk.SMEM_MAX:
         raise ValueError(f"no padding of a {smem}-byte block gives "
                          f"{blocks} blocks an SM")
@@ -65,11 +69,12 @@ def run(device="cuda") -> dict:
         -1, 1, (B, IC.size)) * 1e-8).T.copy(), **f64)
     pars = torch.zeros((0, B), **f64)
     top = tapes[max(ORDERS)]
-    full = jk._launch_cfg(top, B, dev)[2]  # an order-19 block's bytes
+    # an order-19 block's bytes
+    full = jk._launch_cfg(top, B, dev, LANES, THREADS)[2]
 
     def ms(tape, pad):
-        return cuda_ms(lambda: jk._jet_cuda(tape, st, pars, None, None,
-                                            None, pad), 5)
+        return cuda_ms(lambda: jk._jet_cuda(tape, st, pars, None, LANES,
+                                            THREADS, pad), 5)
 
     occ = {}
     for n in BLOCKS_PER_SM:
@@ -77,13 +82,13 @@ def run(device="cuda") -> dict:
         occ[n] = dict(ms=ms(top, pad), smem_bytes=full + pad)
     order = {}
     for K, tape in tapes.items():
-        own = jk._launch_cfg(tape, B, dev)[2]
+        own = jk._launch_cfg(tape, B, dev, LANES, THREADS)[2]
         order[K] = dict(ms=ms(tape, full - own), smem_bytes=full)
     one = (st[:, :1].contiguous(), pars[:, :1].contiguous())
     alone = cuda_ms(lambda: jk.jet(top, *one), 20)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    waves = -(-B // (jk.LANES * sms * jk.blocks_per_sm(full, jk.THREADS)))
-    return dict(B=B, lanes_per_block=jk.LANES, threads=jk.THREADS,
+    waves = -(-B // (LANES * sms * jk.blocks_per_sm(full, THREADS)))
+    return dict(B=B, lanes_per_block=LANES, threads=THREADS,
                 blocks_per_sm=occ, order=order, one_lane_ms=alone,
                 sms=sms, waves=waves, wave_ms=occ[3]["ms"] / waves,
                 device=torch.cuda.get_device_name(dev))

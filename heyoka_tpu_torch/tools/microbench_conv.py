@@ -36,9 +36,9 @@ import torch
 
 from .. import _build
 from ..taylor.jet_kernels import (
-    BLOCK_RESERVED, LAUNCHES, SM_SMEM, SM_THREADS, _check, _ptr,
+    BLOCK_RESERVED, LAUNCHES, SM_BLOCKS, SM_SMEM, SM_THREADS, SMS, _check,
+    _ptr, _sms,
 )
-from ..taylor.jet_phase import SM_BLOCKS, SMS, _sms
 from . import cuda_device, cuda_ms, graph_ms, smi_line
 from .roofline import bound, nbytes
 

@@ -105,14 +105,17 @@ def test_step_limit_matches_jax():
 
 def test_engine_report():
     _, p = _pair("nbody3")
-    # the layout B1/B2 would run on the card: the jets in shared memory
-    smem = jk.LANES * 8 * ((p.order + 1) * 98 + jk.LANE_SCALARS)
+    # the shape B1/B2 would run on the card at the batch's lanes: the jets
+    # in shared memory, one lane of 32 threads a block (27 rows); at order
+    # 15, 12,672 B a lane: 17 an SM (the tables would cost two)
+    assert p.order == 15
+    smem = 8 * ((p.order + 1) * 98 + jk.LANE_SCALARS)
     assert p.engine_report() == dict(
         device="cpu", jet="jet_plain", propagate_engine="fused",
         prop="prop_plain", grid_engine="flat", c_output_engine="flat",
-        layout=dict(layout="smem",
-                                       lanes_per_block=jk.LANES,
-                                       smem_bytes=smem, tables="smem"))
+        layout=dict(layout="smem", lanes_per_block=1, smem_bytes=smem,
+                    tables="global", threads=32, blocks_per_sm=17,
+                    lanes_per_sm=17, waves=1))
     _, q = _pair("timedep")
     assert q.engine_report()["propagate_engine"] == "flat"
     assert q.engine_report()["prop"] is None

@@ -7,6 +7,7 @@ where JAX is not installed:
 Without a CUDA device every test skips.  ``chip_smoke.py`` makes the same
 comparisons at the main path's shapes."""
 
+import gc
 import pickle
 
 import numpy as np
@@ -52,6 +53,12 @@ def _handbuilt(mixed=False):
     ]
 
 
+def _hh():
+    x, y, px, py = ht.make_vars("x", "y", "px", "py")
+    return [(x, px), (y, py), (px, -x - 2.0 * x * y),
+            (py, -y - (x * x - y * y))]
+
+
 def _mascon12():
     # tests/test_pallas_rolled.py's body: 12 mascons in the unit ball
     rng = np.random.default_rng(7)
@@ -63,6 +70,7 @@ def _mascon12():
 
 
 SYSTEMS = {"nbody3": _nbody3, "handbuilt": _handbuilt, "mascon12": _mascon12,
+           "hh": _hh,
            "handbuilt_mixed": lambda: _handbuilt(mixed=True),
            "mascon32": lambda: ht.models.mascon(**mascon_body(32)[0]),
            "mascon128": lambda: ht.models.mascon(**mascon_body(128)[0]),
@@ -83,6 +91,10 @@ def _inputs(name, B, seed):
                 np.zeros((B, 0)), np.zeros(B))
     if name.startswith("mascon"):
         return _orbits(B, seed), np.zeros((B, 0)), np.zeros(B)
+    if name == "hh":
+        return (np.array([0.0, 0.1, 0.35, 0.1])[None]
+                + 1e-3 * rng.standard_normal((B, 4)), np.zeros((B, 0)),
+                np.zeros(B))
     return (rng.uniform(-1.0, 1.0, (B, 3)), rng.uniform(0.5, 1.5, (B, 2)),
             rng.uniform(0.0, 2.0, B))
 
@@ -262,13 +274,18 @@ def test_prop_kernel_matches_plain(cuda, high_accuracy):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("lanes,threads", [
+    (1, 128), (2, 128), (3, 128),
+    # fewer than 32 threads a lane: each lane's norms on a group of 16, 16,
+    # 8, 4 (the Henon-Heiles batch's shape) and 2 threads (18 norm columns)
+    (4, 64), (8, 128), (16, 128), (16, 64), (16, 32)])
 @pytest.mark.parametrize("high_accuracy", [True, False])
-def test_prop_kernel_mixed_lanes(cuda, lanes, high_accuracy):
-    # blocks of mixed lanes, B not a multiple of the lanes a block: lanes
-    # inactive from the start, lanes with a budget of 4, lanes near their
-    # target after a few steps, a non-finite lane (err at its first step)
-    # and free lanes; flags equal, the state within 1e-11
+def test_prop_kernel_mixed_lanes(cuda, lanes, threads, high_accuracy):
+    # blocks of mixed lanes, B not a multiple of the lanes a block (a
+    # partial last block): lanes inactive from the start, lanes with a
+    # budget of 4, lanes near their target after a few steps, a non-finite
+    # lane (err at its first step) and free lanes; flags equal, the state
+    # within 1e-11
     B = 67
     tape = _tape("nbody3", 12, cuda)
     st_np = _inputs("nbody3", B, 11)[0]
@@ -284,7 +301,7 @@ def test_prop_kernel_mixed_lanes(cuda, lanes, high_accuracy):
                              device=cuda)[None]
     n0 = jk.LAUNCHES["prop"]
     k = jk._prop_cuda(tape, st, pars, aux, budget, 16, high_accuracy,
-                      lanes=lanes, threads=128)
+                      lanes=lanes, threads=threads)
     torch.cuda.synchronize()
     assert jk.LAUNCHES["prop"] == n0 + 1
     p = jk.prop_plain(tape, st, pars, aux, budget, 16, high_accuracy)
@@ -301,8 +318,8 @@ def test_prop_kernel_mixed_lanes(cuda, lanes, high_accuracy):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,layout,threads,tables", [
-    ("nbody3", "smem", None, "smem"),
-    ("nbody3", "smem", 128, "global"),  # the tables would cost a block
+    ("nbody3", "smem", None, "global"),  # 32 threads: a block less
+    ("nbody3", "smem", 256, "smem"),  # 4 blocks by registers either way
     ("mascon32", "smem", None, "smem"),
     ("mascon128", "global", None, "global")])
 def test_jet_kernel_layouts(cuda, name, layout, threads, tables):
@@ -323,6 +340,77 @@ def test_jet_kernel_layouts(cuda, name, layout, threads, tables):
     assert float(_per_order_rel(tc, tc_p).max()) <= 1e-13
     nrel = (norms - norms_p).abs().amax(1) / norms_p.amax(1)
     assert float(nrel.max()) <= 1e-13
+
+
+# every block shape of the sweep (chip_smoke.SWEEP_LANES x SWEEP_THREADS)
+# whose lanes fit a block: all of them on the HH tape (2,848 B a lane), up
+# to 8 lanes on the 3-body one (15,808 B)
+SHAPES = [(name, L, nt) for name, most in (("hh", 32), ("nbody3", 8))
+          for L in jk.LANE_CHOICES if L <= most for nt in jk.BLOCK_THREADS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,lanes,threads", SHAPES)
+def test_b1_b2_every_shape_equals_the_default(cuda, name, lanes, threads):
+    # B2 and a 16-step B1 chunk at order 19 on 301 lanes (partial last
+    # blocks): every shape computes each item alike and the norms are
+    # exact in any order, so each equals the rule's shape bit for bit
+    B, K = 301, 19
+    tape = _tape(name, K, cuda)
+    assert lanes * jk.lane_bytes(tape.width, K) <= jk.SMEM_MAX
+    st = _dev(_inputs(name, B, 14)[0].T, cuda)
+    pars = torch.zeros(0, B, dtype=torch.float64, device=cuda)
+    rem = np.where(np.arange(B) % 7 == 2, 2.0, 1e3)  # some lanes near
+    aux = torch.stack([_dev(np.full(B, np.inf), cuda), _dev(np.ones(B), cuda),
+                       _dev(rem, cuda), _dev(np.zeros(B), cuda),
+                       _dev(np.arange(B) % 11 != 4, cuda)])
+    budget = torch.as_tensor(np.where(np.arange(B) % 5 == 1, 6, 1000),
+                             dtype=torch.int32, device=cuda)[None]
+    ref = (*jk.jet(tape, st, pars),
+           *jk.prop(tape, st, pars, aux, budget, 16))
+    got = (*jk._jet_cuda(tape, st, pars, None, lanes, threads),
+           *jk._prop_cuda(tape, st, pars, aux, budget, 16, True, lanes,
+                          threads))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(got[4][1].sum()) > 0 and int(got[4][0].max()) == 16
+    # the runtime holds the blocks an SM the rule counts, registers and all
+    sh = jk.launch_shape(tape, B, cuda, lanes, threads)
+    assert jk.occupancy(lanes, threads, sh.smem) == sh.blocks_per_sm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hh", "nbody3", "outer_ss"])
+@pytest.mark.parametrize("B", [1, 10_240])
+def test_rule_blocks_per_sm_hold_on_the_card(cuda, name, B):
+    # the runtime holds the blocks an SM the rule counts from shared
+    # memory, threads, blocks and registers
+    sys_ = ht.models.nbody(6) if name == "outer_ss" else SYSTEMS[name]()
+    tape = jk.JetTape(ht.plan_to_arrays(build_plan(
+        taylor_decompose_sys(sys_), 19)), cuda)
+    sh = jk.launch_shape(tape, B, cuda)
+    assert jk.occupancy(sh.lanes, sh.threads, sh.smem) == sh.blocks_per_sm
+
+
+@pytest.mark.gpu
+def test_shapes_counts_the_hh_batch_launches(cuda):
+    # the HH batch at 10,240 lanes: each B1 chunk and each B2 launch of a
+    # propagate_until counted under the shape engine_report names
+    st = _inputs("hh", 10_240, 15)[0]
+    g = ht.taylor_adaptive_batch(_hh(), st, tol=1e-15, device=cuda)
+    lay = g.engine_report()["layout"]
+    key = (lay["lanes_per_block"], lay["threads"], lay["tables"])
+    assert key == (16, 64, "global")
+    before, n0 = jk.SHAPES.copy(), dict(jk.LAUNCHES)
+    g.propagate_until(20.0)
+    got = jk.SHAPES - before
+    assert got[("prop", *key)] == jk.LAUNCHES["prop"] - n0["prop"] > 0
+    assert sum(got.values()) == (jk.LAUNCHES["prop"] - n0["prop"]
+                                 + jk.LAUNCHES["jet"] - n0["jet"])
+    # free the batch's device memory now, not in a later test's collection
+    # (test_native_backend_leaves_the_card_alone counts the card's bytes)
+    del g
+    gc.collect()
 
 
 @pytest.mark.gpu
@@ -1549,6 +1637,7 @@ def test_native_backend_leaves_the_card_alone(cuda, monkeypatch):
         monkeypatch.setenv("CXX", shutil.which("g++"))
     native._lib.cache_clear()
     n0 = dict(jk.LAUNCHES)
+    gc.collect()  # earlier tests' garbage is not this route's to free
     torch.cuda.synchronize()
     m0 = torch.cuda.memory_allocated()
     st = pendulum_lanes(8, 3)

@@ -1,6 +1,6 @@
-"""The block layout of kernels B1/B2 (``jet_kernels.block_layout``), which
-the wrappers choose from the tape's width and order, and the wrappers'
-CPU route to the plain twins, on the CPU.  The kernels themselves are held
+"""The block shape of kernels B1/B2 (``jet_kernels.block_shape``), which
+the wrappers choose from the tape and the lanes of a launch, and the
+wrappers' CPU route to the plain twins, on the CPU.  The kernels themselves are held
 against their twins in tests/test_torch_gpu.py."""
 
 import functools
@@ -35,6 +35,12 @@ def _mascon12():
                             positions=pts.tolist(), omega=(0.0, 0.0, 0.3))
 
 
+def _hh():
+    x, y, px, py = ht.make_vars("x", "y", "px", "py")
+    return [(x, px), (y, py), (px, -x - 2.0 * x * y),
+            (py, -y - (x * x - y * y))]
+
+
 def _handbuilt():
     x, y, z = ht.make_vars("x", "y", "z")
     return [
@@ -46,6 +52,7 @@ def _handbuilt():
 
 SYSTEMS = {
     "outer_ss": lambda: nbody(6, masses=MASSES, Gconst=GCONST),
+    "hh": _hh,
     "nbody3": lambda: nbody(3, masses=[1.0, 1e-3, 2e-3]),
     "mascon12": _mascon12,
     "mascon128": lambda: ht.models.mascon(**mascon_body(128)[0]),
@@ -75,12 +82,19 @@ HAND = [
 def test_block_layout(name, W, K, per):
     assert int(_arrays(name, K)["meta"][0]) == W
     assert jk.lane_bytes(W, K) == per
-    lanes, smem = jk.block_layout(W, K)
-    if per > 232_448:  # one lane's block does not fit a block's 227 KB
-        assert (lanes, smem) == (jk.GLOBAL_LANES, None)
-    else:
-        assert lanes == min(jk.LANES, 232_448 // per) >= 1
-        assert smem == lanes * per <= 232_448
+    tape = jk.JetTape(_arrays(name, K), "cpu")
+    for B in (1, 10_240):
+        sh = jk.launch_shape(tape, B)
+        if per > 232_448:  # one lane's block does not fit a block's 227 KB
+            assert (sh.layout, sh.lanes, sh.threads, sh.smem, sh.tables) \
+                == ("global", jk.GLOBAL_LANES, jk.GLOBAL_THREADS,
+                    jk.GLOBAL_LANES * 16 * 8, False)
+        else:
+            assert sh.layout == "smem" and sh.lanes in jk.LANE_CHOICES
+            assert 1 <= sh.lanes <= B and sh.lanes * per <= 232_448
+            assert sh.threads == jk.block_threads(tape.pass_rows, sh.lanes)
+            assert sh.smem == sh.lanes * per \
+                + sh.tables * jk.table_bytes(tape) <= 232_448
 
 
 @pytest.mark.parametrize("W,K,layout", [
@@ -90,20 +104,92 @@ def test_block_layout(name, W, K, per):
     (2641, 10, "global"),
 ])
 def test_block_layout_at_the_limit(W, K, layout):
-    lanes, smem = jk.block_layout(W, K)
-    assert (smem is None) == (layout == "global")
-    if smem is not None:
-        assert (lanes, smem) == (1, 232_448)
+    sh = jk.block_shape(W, K, 600, 0, 10_240)
+    assert sh.layout == layout
+    if layout == "smem":
+        assert (sh.lanes, sh.threads, sh.smem, sh.blocks_per_sm) == (
+            1, 256, 232_448, 1)
+
+
+# the rule by hand (132 SMs, an SM's 233,472 B in blocks of smem + 1,024
+# B, 2,048 threads, 32 blocks, 65,536 registers at 64 a thread): (tape, B,
+# lanes, threads, tables, blocks an SM, waves)
+RULE = [
+    # 4 rows, 2,848 B a lane, 460 B of tables: 80 lanes an SM in blocks of
+    # 16 lanes of 64 threads (the tables would cost the fifth block); 8
+    # lanes hold 72 in 9 blocks, 2 waves; one lane of 256 threads held 4
+    # (its registers)
+    ("hh", 10_240, 16, 64, "global", 5, 1),
+    # 135 rows, 61,088 B a lane: 3 lanes an SM in blocks of 1 or 3, the
+    # same waves; the fewer lanes a block
+    ("outer_ss", 10_240, 1, 256, "smem", 3, 26),
+    ("outer_ss", 1, 1, 256, "smem", 3, 1),
+    # 27 rows, 15,808 B a lane: 14 lanes an SM in blocks of 2 of 64
+    # threads, the most (13 in blocks of 1; the tables would cost a block)
+    ("nbody3", 10_240, 2, 64, "global", 7, 6),
+    # few lanes: every candidate holds them in one wave
+    ("hh", 67, 1, 32, "smem", 32, 1),
+    ("hh", 1, 1, 32, "smem", 32, 1),
+    ("nbody3", 1, 1, 32, "global", 13, 1),
+    # the global layout, unchanged: 4 blocks of 256 threads by registers
+    ("mascon128", 10_240, 4, 256, "global", 4, 5),
+]
+
+
+@pytest.mark.parametrize("name,B,lanes,threads,tables,bps,waves", RULE)
+def test_block_shape_rule(name, B, lanes, threads, tables, bps, waves):
+    tape = jk.JetTape(_arrays(name, 19), "cpu")
+    sh = jk.launch_shape(tape, B)
+    assert (sh.lanes, sh.threads, "smem" if sh.tables else "global",
+            sh.blocks_per_sm, sh.waves) == (lanes, threads, tables, bps,
+                                            waves)
+    assert sh.lanes_per_sm == lanes * bps
+    rep = jk.layout_report(tape, B)
+    assert (rep["lanes_per_block"], rep["threads"], rep["tables"],
+            rep["blocks_per_sm"], rep["lanes_per_sm"], rep["waves"]) == (
+        lanes, threads, tables, bps, lanes * bps, waves)
+
+
+def test_hh_shape_against_the_fixed_one():
+    # the Henon-Heiles tape at the benchmark's 10,240 lanes: at least 8x
+    # the lanes an SM of one lane of 256 threads (8 by threads, 4 by
+    # registers), in at most 2 waves
+    tape = jk.JetTape(_arrays("hh", 19), "cpu")
+    assert (tape.width, tape.n_eq, tape.pass_rows) == (17, 4, 4)
+    old = jk.launch_shape(tape, 10_240, None, 1, 256)
+    assert jk.blocks_per_sm(old.smem, 256) == 8
+    assert (old.blocks_per_sm, old.lanes_per_sm, old.waves) == (4, 4, 20)
+    new = jk.launch_shape(tape, 10_240)
+    assert new.lanes_per_sm >= 8 * old.lanes_per_sm and new.waves <= 2
+
+
+@pytest.mark.parametrize("lanes,threads", [(5, 64), (64, 256), (2, 96),
+                                           (1, 512), (4, 256)])
+def test_forced_shapes_outside_the_kernels_raise(lanes, threads):
+    # lanes of LANE_CHOICES, threads of BLOCK_THREADS, and lanes whose
+    # jets fit a block (4 outer-SS lanes: 244 KB)
+    tape = jk.JetTape(_arrays("outer_ss", 19), "cpu")
+    with pytest.raises(ValueError):
+        jk.launch_shape(tape, 100, None, lanes, threads)
 
 
 @pytest.mark.parametrize("name,value", [
     ("kSmemMax", jk.SMEM_MAX), ("kLaneScalars", jk.LANE_SCALARS),
     ("kGlobalLanes", jk.GLOBAL_LANES), ("kMaxThreads",
-                                        max(jk.THREADS, jk.GLOBAL_THREADS))])
+                                        max(*jk.BLOCK_THREADS,
+                                            jk.GLOBAL_THREADS))])
 def test_constants_match_the_kernel_source(name, value):
     # the Python side counts the same bytes the kernels take
     m = re.search(rf"constexpr int {name} = (\d+);", CSRC.read_text())
     assert m and int(m.group(1)) == value
+
+
+def test_lane_instances_match_the_kernel_source():
+    # an instance of each kernel for each count of LANE_CHOICES
+    m = re.search(r"#define HY_LANES\(X\) (.*)", CSRC.read_text())
+    assert m and tuple(int(n) for n in re.findall(r"X\((\d+)\)",
+                                                  m.group(1))) \
+        == jk.LANE_CHOICES
 
 
 def _cpu_pair(name, tol, **kw):
@@ -137,12 +223,18 @@ def test_engine_report_names_the_layout(monkeypatch, name, min_width,
         assert rep["layout"]["layout"] == "smem"
         return
     assert rep["jet"] == "jet_plain" and rep["prop"] == "prop_plain"
-    lanes, smem = jk.block_layout(ta._jtape.width, ta.order)
-    # the tables join the jets in shared memory; the global layout leaves
-    # them where they are
+    # the shape at the batch's two lanes; the global layout leaves the
+    # tables where they are
+    sh = jk.launch_shape(ta._jtape, 2)
+    per = jk.lane_bytes(ta._jtape.width, ta.order)
     assert rep["layout"] == dict(
-        layout=layout, lanes_per_block=lanes, smem_bytes=smem,
-        tables="smem" if layout == "smem" else "global")
+        layout=layout, lanes_per_block=sh.lanes,
+        smem_bytes=sh.lanes * per if layout == "smem" else None,
+        tables="smem" if sh.tables else "global", threads=sh.threads,
+        blocks_per_sm=sh.blocks_per_sm, lanes_per_sm=sh.lanes_per_sm,
+        waves=sh.waves)
+    assert sh.layout == layout
+    assert (layout == "smem") == (name != "mascon128")
 
 
 def _jet_args(name, B, seed):
@@ -208,14 +300,16 @@ def test_launch_config(name, K):
     lanes, threads, smem, tc, n_it, n_dt = jk._launch_cfg(tape, B, "cpu")
     W = tape.width
     tab = 4 * tape.itab.numel() + 8 * tape.dtab.numel()
-    if jk.block_layout(W, K)[1] is None:
+    sh = jk.launch_shape(tape, B)
+    if sh.layout == "global":
         assert (lanes, threads, smem, n_it, n_dt) == (4, 256, 4 * 16 * 8,
                                                        0, 0)
         assert tc.numel() == 3 * (K + 1) * W * 4
     else:
-        assert (lanes, threads, tc) == (jk.LANES, jk.THREADS, None)
+        assert (lanes, threads, tc) == (sh.lanes, sh.threads, None) \
+            == (1, 256, None)
         assert (n_it, n_dt) == (tape.itab.numel(), tape.dtab.numel())
-        assert smem == jk.LANES * 8 * ((K + 1) * W + 16) + tab
+        assert smem == 8 * ((K + 1) * W + 16) + tab
         # lanes and threads as chip_smoke.py's sweep asks for them
         assert jk._launch_cfg(tape, B, "cpu", 3, 128)[:3] == (
             3, 128, 3 * 8 * ((K + 1) * W + 16) + tab)
@@ -228,14 +322,15 @@ def test_launch_config(name, K):
     (183_264, 256, 7_500, 1, True),   # three lanes: one block either way
     (76_000, 256, 1_000, 3, False),   # the tables would cost the third block
     (230_000, 256, 4_000, 1, False),  # past a block's 232,448 B
-    (15_808, 256, 2_000, 8, True),    # nbody3: 8 blocks of 256 threads
-    (15_808, 128, 2_000, 13, False),  # 16 by threads, 13 -> 12 by bytes
+    (15_808, 256, 2_000, 4, True),    # nbody3: 4 blocks by registers
+    (15_808, 128, 2_000, 8, True),    # 8 by registers, 13 -> 12 by bytes
+    (15_808, 64, 2_000, 13, False),   # 16 by registers, 13 -> 12 by bytes
 ])
 def test_tables_join_the_jets_only_where_they_cost_no_block(
         monkeypatch, smem, threads, tab, blocks, inside):
     # an SM's 233,472 B hold blocks of smem + 1,024 B, its 2,048 threads
-    # blocks of `threads`
-    assert jk.blocks_per_sm(smem, threads) == blocks
+    # blocks of `threads`, its 65,536 registers blocks of 64 a thread
+    assert jk.blocks_per_sm(smem, threads, jk.REGS) == blocks
     tape = jk.JetTape(_arrays("nbody3", 10), "cpu")
     monkeypatch.setattr(jk, "table_bytes", lambda _: tab)
     assert jk.tables_in_smem(tape, smem, threads) is inside
@@ -247,7 +342,7 @@ def test_jet_scan_padding(blocks, pad):
     # tools.jet_scan pads the outer-SS block (68,588 B with its tables) so
     # that an SM holds 3, 2 or 1 of them
     assert jet_scan.pad_for(blocks, 68_588) == pad
-    assert jk.blocks_per_sm(68_588 + pad, jk.THREADS) == blocks
+    assert jk.blocks_per_sm(68_588 + pad, jet_scan.THREADS) == blocks
 
 
 def test_jet_scan_needs_a_card():
@@ -255,3 +350,41 @@ def test_jet_scan_needs_a_card():
         jet_scan.run("cpu")
     with pytest.raises(ValueError):
         jet_scan.pad_for(4, 68_588)  # an SM holds 3 at most
+
+
+class _FakeLib:
+    """The kernel library's B1/B2 entries, launching nothing."""
+
+    @staticmethod
+    def hy_prop_f64(*args):
+        return 0
+
+    @staticmethod
+    def hy_jet_f64(*args):
+        return 0
+
+
+@pytest.mark.parametrize("B", [1, 10_240])
+def test_shapes_counts_the_launch_engine_report_names(monkeypatch, B):
+    # jet_kernels.SHAPES counts each B1/B2 launch under (kernel, lanes,
+    # threads, tables): the shape the batch's engine_report names at its
+    # lanes (the kernels' entries stubbed, the CPU's SM count)
+    monkeypatch.setattr(jk._build, "load", lambda: _FakeLib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    st = np.array([[0.0, 0.1, 0.35, 0.1]] * B)
+    ta = ht.taylor_adaptive_batch(_hh(), st, tol=1e-15, device="cpu")
+    lay = ta.engine_report()["layout"]
+    key = (lay["lanes_per_block"], lay["threads"], lay["tables"])
+    tape = ta._jtape
+    x = torch.as_tensor(st.T.copy())
+    pars = torch.zeros((0, B), dtype=torch.float64)
+    aux = torch.ones((5, B), dtype=torch.float64)
+    auxi = torch.ones((1, B), dtype=torch.int32)
+    before = jk.SHAPES.copy()
+    jk._prop_cuda(tape, x, pars, aux, auxi, 4)
+    jk._prop_cuda(tape, x, pars, aux, auxi, 4)
+    jk._jet_cuda(tape, x, pars)
+    got = jk.SHAPES - before
+    assert got == {("prop", *key): 2, ("jet", *key): 1}
+    assert key == ((16, 64, "global") if B > 1 else (1, 32, "smem"))
