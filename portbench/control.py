@@ -1,8 +1,10 @@
 """The readings the limits of ``cells/<cell>.json`` are set from, on the
 card at the cell's own size: the control (the plain reference in the
 program's place, in float32, the precision below the configuration's
-float64) or a fault of ``faults.py`` planted in the program, on several
-seeds in one process, each a short window at the cell's own load.
+float64) or a fault of the cell's loop planted in the program
+(``FAULTS``: ``faults.py``'s or the loop's own, through
+``harness.plant_fault``), on several seeds in one process, each a short
+window at the cell's own load.
 The benchmark's own runs never run this.
 
     python3 portbench/control.py --workload <cell> --seconds <s> \\

@@ -1,9 +1,12 @@
-"""Faults planted under a run's timed path, to show that the check turns
-``correct`` false when the program breaks in these ways
-(``tests/test_portbench_check.py``), and to read the numbers a fault
-gives on the card (``control.py --fault``).  Each wraps a system of a
-loop (``loops/<loop>.py``, which lists the faults it can have in
-``FAULTS``) and breaks what it returns, where it is produced:
+"""The faults that loops share, planted under a run's timed path, to show
+that the check turns ``correct`` false when the program breaks in these
+ways (``tests/test_portbench_check.py``), and to read the numbers a
+fault gives on the card (``control.py --fault``).  Each wraps a system of
+a loop (``loops/<loop>.py``, which lists the faults it can have in
+``FAULTS``) and breaks what it returns, where it is produced.  A fault
+that only one loop's answers can have (an event's crossings, say) lives
+in that loop's file, whose ``plant(name)`` returns its wrapper;
+``harness.plant_fault`` takes the loop's first.  The shared ones:
 
 - ``unchanged``: a call or step returns the state it returned before;
 - ``half_batch``: a call leaves the second half of its lanes out (their
@@ -53,6 +56,12 @@ class _Fault:
         return r
 
 
+#: the names :func:`plant` knows
+NAMES = ("unchanged", "half_batch", "altered", "steps_doubled")
+
+
 def plant(name):
     """A wrapper that plants the fault ``name`` into a system."""
+    if name not in NAMES:
+        raise ValueError(f"unknown fault {name!r}; faults.py has {NAMES}")
     return lambda system: _Fault(system, name)

@@ -15,15 +15,19 @@ The harness reads
 - ``loops/<loop>.py``: the program under test (``Port``) and the
   reference in its place (``Control``), the run loop (``run``), the
   numbers the check compares (``numbers``) and the faults the loop can
-  have (``FAULTS``);
+  have (``FAULTS``): those of ``faults.py``, and any of its own, which
+  its ``plant(name)`` plants (see :func:`plant_fault`);
 - ``cells/<cell>.json`` (the limits of the numbers compared, with the
   readings they were set from);
 - ``metrics/<metric>.py`` for each metric the cell reports: the
   end-to-end ones with ``--trace 0``, the per-layer ones with
   ``--trace 1``.
 
-So a new cell, configuration, kind of traffic or metric is new files and
-entries, and no file here changes.
+The benchmark's CPU tests drive each cell at the size of
+``tiny/<cell>.json``, entries that replace the traffic's.
+
+So a new cell, configuration, kind of traffic, loop or metric is new
+files and entries, and no file here changes.
 """
 
 from __future__ import annotations
@@ -104,6 +108,18 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def plant_fault(loop, name):
+    """The wrapper that plants the fault ``name``, one of the loop
+    module's ``FAULTS``, into a system of that loop: the loop's own, where
+    its ``plant(name)`` gives one, else that of ``faults.py``, which
+    raises on a name it does not know."""
+    if name not in loop.FAULTS:
+        raise ValueError(f"the loop has no fault {name!r}; its FAULTS are "
+                         f"{loop.FAULTS}")
+    own = getattr(loop, "plant", None)
+    return (own and own(name)) or faults.plant(name)
+
+
 def _systems(cell, ics, device, system, fault):
     """The system a run drives: the program (``"port"``) or the reference
     in float32 in its place (``"control"``), with ``fault`` planted."""
@@ -115,7 +131,7 @@ def _systems(cell, ics, device, system, fault):
         s = cell.loop.Control(cell, ics, device, torch.float32)
     else:
         raise ValueError(f"unknown system {system!r}")
-    return faults.plant(fault)(s) if fault else s
+    return plant_fault(cell.loop, fault)(s) if fault else s
 
 
 @contextlib.contextmanager

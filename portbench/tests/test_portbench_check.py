@@ -1,9 +1,10 @@
-"""Each cell driven end to end at a tiny size on the CPU (the program's
-plain torch twins in place of its CUDA kernels): the program agrees with
-the reference and comes out ``correct``; the control, the reference in
-float32 in the program's place, and every fault of ``faults.py`` that
-the cell's loop can have, come out not correct; the result line has the
-contract's keys, ``checks`` last.  On a card, one short run of
+"""Each cell driven end to end on the CPU at the tiny size of its
+``tiny/<cell>.json`` (the program's plain torch twins in place of its
+CUDA kernels): the program agrees with the reference and comes out
+``correct``; the control, the reference in float32 in the program's
+place, and every fault the cell's loop can have (``FAULTS``: those of
+``faults.py`` and the loop's own), come out not correct; the result line
+has the contract's keys, ``checks`` last.  On a card, one short run of
 ``run.py``."""
 
 import json
@@ -14,31 +15,26 @@ from pathlib import Path
 import pytest
 import torch
 
-from portbench import harness
+from portbench import faults, harness
 
 ROOT = Path(harness.__file__).resolve().parent.parent
 #: a seed past 32 signed bits, as the checks draw them
 SEED = 2**31 + 977
-#: each cell's traffic cut to a size a test run holds
-TINY = {
-    "outer_ss6.batch10240": {"lanes": 6, "span": 10.0,
-                             "check": {"lanes": 4, "chain": 2, "calls": 2}},
-    "outer_ss6.lane1": {"warmup_steps": 4,
-                        "check": {"chain": 6, "steps": 8}},
-    "hh.plain10240": {"lanes": 6, "span": 20.0,
-                      "check": {"lanes": 4, "chain": 2, "calls": 2}},
-}
+#: each cell's traffic cut to a size a test run holds, a file a cell
+TINY = harness.BENCH / "tiny"
 CELLS = [w["name"] for w in json.loads(
     (ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def tiny(name, **kw):
     return harness.run(name, SEED, 0.6, kw.pop("traced", False),
-                       device="cpu", overrides=TINY[name], **kw)
+                       device="cpu",
+                       overrides=harness.read_json(TINY / f"{name}.json"),
+                       **kw)
 
 
 def test_every_cell_has_a_tiny_size():
-    assert set(TINY) == set(CELLS)
+    assert sorted(p.stem for p in TINY.glob("*.json")) == sorted(CELLS)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -88,6 +84,22 @@ FAULT_CASES = [(name, f) for name in CELLS
 def test_fault_is_not_correct(name, fault):
     res, _ = tiny(name, fault=fault)
     assert not res["correct"], (fault, res["checks"])
+
+
+def test_an_unknown_fault_is_refused():
+    """A name that neither the loop nor ``faults.py`` knows raises, and
+    so does one of ``faults.py`` that the loop does not list: taken from
+    the loop of the fewest faults, which leaves some of ``faults.py``
+    out."""
+    loop = min((harness.Cell(n).loop for n in CELLS),
+               key=lambda lp: len(lp.FAULTS))
+    unlisted = set(faults.NAMES) - set(loop.FAULTS)
+    assert unlisted, loop.FAULTS
+    with pytest.raises(ValueError, match="unknown fault"):
+        faults.plant("no_such_fault")
+    for name in ("no_such_fault", *sorted(unlisted)):
+        with pytest.raises(ValueError, match="has no fault"):
+            harness.plant_fault(loop, name)
 
 
 def test_run_without_a_card_prints_nothing():

@@ -90,6 +90,8 @@ def test_cell_files_found_by_name(name):
     for part in ("Port", "Control", "run", "numbers"):
         assert callable(getattr(cell.loop, part)), part
     assert cell.loop.FAULTS
+    for fault in cell.loop.FAULTS:
+        assert callable(harness.plant_fault(cell.loop, fault)), fault
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
