@@ -21,9 +21,10 @@ batch's ``propagate_until``, scalar calls included), ``hy.fused.chunk``
 (a launch of kernel B1 and the wait for it), ``hy.landing`` and
 ``hy.landing.step`` (the per-step landing after B1 and each of its
 steps), ``hy.pu.step`` (a step of the per-step driver elsewhere),
-``hy.finish`` (a driver's result taken to the host), ``hy.step`` (a
-public ``step()``), ``hy.events.step`` and ``hy.events.isolate`` (the
-event step and its root finding); and ``hy.sync.<site>``, one a read
+``hy.finish`` (a propagation's result taken to the host),
+``hy.finish.lists`` (a result's per-lane tuples, built at their first
+read), ``hy.step`` (a public ``step()``), ``hy.events.step`` and
+``hy.events.isolate`` (the event step and its root finding); and ``hy.sync.<site>``, one a read
 from the device to the host (:func:`host_read`), whose duration is the
 host's wait and whose count is the count of host syncs.
 """

@@ -120,6 +120,37 @@ CHUNK_STEPS = 64
 #: (PERF.md).
 ROLLED_MIN_WIDTH = 512
 
+
+class _LaneRows:
+    """The per-lane tuples of a call's results, ``(outcome, *cols)``, over
+    copies of the outcomes and of the fields (one array a field), built as
+    Python lists at the first read, in a ``hy.finish.lists`` span: a call
+    whose results nobody reads builds none.  Read-only: a later call
+    replaces it."""
+
+    __slots__ = ("_oc", "_cols", "_rows")
+
+    def __init__(self, oc, *cols):
+        self._oc = tuple(oc)
+        self._cols, self._rows = tuple(np.array(c) for c in cols), None
+
+    def _built(self):
+        if self._rows is None:
+            with trace_ctx("hy.finish.lists"):
+                self._rows = list(zip(self._oc,
+                                      *(c.tolist() for c in self._cols)))
+        return self._rows
+
+    def __len__(self):
+        return len(self._oc)
+
+    def __getitem__(self, i):
+        return self._built()[i]
+
+    def __iter__(self):
+        return iter(self._built())
+
+
 def _normalize_sys(sys_):
     out = []
     for lhs, rhs in sys_:
@@ -756,10 +787,13 @@ class TaylorAdaptiveBatch:
 
     def _finish(self, res):
         """Take a driver's result: the lanes' new state, time, last step
-        and coefficients, and the per-lane results (one host copy per
-        field, then plain Python lists: iterating a tensor lane by lane
-        costs microseconds per lane), in a ``hy.finish`` span.  Returns
-        ``(outcomes, min_h, max_h, nsteps)``."""
+        and coefficients, and the per-lane results in one host read (the
+        outcome codes, last steps, min_h, max_h and nsteps stacked in
+        float64, exact for every code and count), in a ``hy.finish``
+        span.  The per-lane tuples of :meth:`get_step_res` and
+        :meth:`get_propagate_res` are built only when read
+        (:class:`_LaneRows`).  Returns ``(outcomes, min_h, max_h,
+        nsteps)``."""
         with trace_ctx("hy.finish"):
             self._state = res["state"].contiguous()
             self._t_hi, self._t_lo = res["t_hi"], res["t_lo"]
@@ -767,20 +801,21 @@ class TaylorAdaptiveBatch:
             if "cooldowns" in res:
                 self._te_cooldowns = res["cooldowns"]
                 self._last_te_sgn = res["te_sgn"]
-            oc = [_ev.outcome_of(o) for o in
-                  host_read("hy.sync.finish", res["outcome"].tolist)]
-            self._last_res = list(zip(oc, host_read("hy.sync.finish",
-                                                    res["last_h"].tolist)))
-            mn, mx, ns = (host_read("hy.sync.finish", res[k].cpu).numpy()
-                          for k in ("min_h", "max_h", "nsteps"))
-            return self._prop_res(oc, mn, mx, ns)
+            cols = torch.stack([res[k].to(torch.float64) for k in (
+                "outcome", "last_h", "min_h", "max_h", "nsteps")])
+            host = host_read("hy.sync.finish", cols.cpu).numpy()
+            oc = _ev.outcomes_of(host[0].astype(np.int64))
+            self._last_res = _LaneRows(oc, host[1])
+            npd = numpy_dtype(res["min_h"].dtype)
+            return self._prop_res(oc, host[2].astype(npd),
+                                  host[3].astype(npd),
+                                  host[4].astype(np.int64))
 
     def _prop_res(self, oc, mn, mx, ns):
         """Keep ``(outcomes, min_h, max_h, nsteps)`` for
-        :meth:`get_propagate_res` and return them."""
-        self._last_prop_res = list(zip(oc, np.asarray(mn).tolist(),
-                                       np.asarray(mx).tolist(),
-                                       np.asarray(ns).tolist()))
+        :meth:`get_propagate_res`, as tuples built at their first read
+        (:class:`_LaneRows`), and return them."""
+        self._last_prop_res = _LaneRows(oc, mn, mx, ns)
         return oc, mn, mx, ns
 
     def _te_callbacks(self) -> bool:
@@ -851,8 +886,9 @@ class TaylorAdaptiveBatch:
         target, mdt = self._lanes(t_np), self._lanes(mdt_np)
         args = (self._state, self._pars, self._t_hi, self._t_lo, target,
                 torch.zeros_like(target), mdt, max_steps)
-        hits = _ev.HitLog() if self._nt_events else None
-        fwd = t_np >= self.time
+        hits = fwd = None
+        if self._nt_events:
+            hits, fwd = _ev.HitLog(), t_np >= self.time
         if c_output:
             res = self._cout_fn(*args, **self._ev_kw(hits))
             out = (*self._finish(res), self._cout(res))
@@ -905,8 +941,10 @@ class TaylorAdaptiveBatch:
                 self, None, mdt_np, int(max_steps), callback, grid=grid_np)
             return (*self._prop_res(oc, mn, mx, ns), out)
         grid = torch.as_tensor(grid_np, device=self._device)
-        hits = _ev.HitLog() if self._nt_events else None
-        fwd = np.full(self._batch, grid_np[-1]) >= self.time
+        hits = fwd = None
+        if self._nt_events:
+            hits = _ev.HitLog()
+            fwd = np.full(self._batch, grid_np[-1]) >= self.time
         res = self._pg_fn(self._state, self._pars, self._t_hi, self._t_lo,
                           grid, self._lanes(mdt_np), int(max_steps),
                           fill=0.0 if self._ev is None else float("nan"),

@@ -146,6 +146,16 @@ def outcome_of(o: int):
     return TaylorOutcome(o) if o < 0 else o
 
 
+#: each ``TaylorOutcome`` by its code
+_OUTCOMES = {int(m): m for m in TaylorOutcome}
+
+
+def outcomes_of(codes) -> list:
+    """:func:`outcome_of` of each code of the integer array ``codes``, by
+    table lookup."""
+    return [_OUTCOMES[o] if o < 0 else o for o in codes.tolist()]
+
+
 def dispatch_nt(tb, hits: HitLog, fwd):
     """Call the non-terminal events' callbacks for the logged ``hits``,
     lane by lane in time order (``fwd`` (B,): the lanes' direction): one
@@ -178,9 +188,11 @@ def propagate_until_ev(tb, t_hi, t_lo, mdt, max_steps):
     then the non-terminal callbacks.  Returns ``(outcomes, min_h, max_h,
     nsteps)``; the crossing signs of the terminal stops stay in
     ``tb._last_te_sgn``."""
-    hits = HitLog() if tb.nt_events else None
+    hits = fwd = None
+    if tb.nt_events:
+        hits = HitLog()
+        fwd = np.asarray(t_hi) + np.asarray(t_lo) >= tb.time
     th, tl = tb._lanes(t_hi), tb._lanes(t_lo)
-    fwd = np.asarray(t_hi) + np.asarray(t_lo) >= tb.time
     res = tb._pu_fn(tb._state, tb._pars, tb._t_hi, tb._t_lo, th, tl,
                     tb._lanes(mdt), int(max_steps),
                     cooldowns=tb._te_cooldowns, last_h=tb._last_h,

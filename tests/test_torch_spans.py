@@ -132,7 +132,8 @@ def test_propagate_until_records_its_tree(make, t):
         p = by_index[s.parent]
         assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns
     top = Counter(s.name for s in children(spans, root))
-    assert top["hy.sync.time"] == 1 and top["hy.landing"] == 1
+    # the direction is read only for non-terminal events' callbacks
+    assert top["hy.sync.time"] == 0 and top["hy.landing"] == 1
     assert top["hy.finish"] == 1 and top["hy.fused.chunk"] >= 1
     # the first go flag alone, then one in each chunk
     assert top["hy.sync.fused_go"] == 1
@@ -144,8 +145,13 @@ def test_propagate_until_records_its_tree(make, t):
     assert steps and all([k.name for k in children(spans, s)]
                          == ["hy.sync.pu_done"] for s in steps)
     finish = next(s for s in spans if s.name == "hy.finish")
-    assert [k.name for k in children(spans, finish)] == \
-        ["hy.sync.finish"] * 5
+    # one packed read; the per-lane lists wait for a reader
+    assert [k.name for k in children(spans, finish)] == ["hy.sync.finish"]
+    assert not [s for s in spans if s.name == "hy.finish.lists"]
+    later, _ = recorded(lambda: (tb.get_propagate_res(),
+                                 tb.get_propagate_res()))
+    assert [s.name for s in later] == ["hy.finish.lists"]
+    assert later[0].parent == -1
 
 
 @pytest.mark.parametrize("chunk_steps", [2, 8, 64])
